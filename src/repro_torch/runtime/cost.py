@@ -1,0 +1,52 @@
+"""Migration / amortization cost model for the online rebalancing runtime
+(counterpart of ``repro.runtime.cost``): the single place where the
+trade-off between imbalance time recovered and migration paid is priced.
+Every method is a pure function of scalars or tensors."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeCostModel:
+    """Per-term cost model in seconds, shared by triggers and benchmarks.
+
+    Attributes:
+      t_load:         seconds one unit of object load costs the critical
+                      path per application step (PIC: seconds/particle).
+      t_byte:         seconds per byte crossing a node boundary.
+      bytes_per_load: migration payload bytes carried by one unit of load.
+      lb_overhead:    fixed seconds charged per executed rebalance.
+      moved_frac_est: a-priori load fraction a rebalance migrates, used by
+                      the predictive trigger before any plan exists.
+    """
+
+    t_load: float = 1.0
+    t_byte: float = 1.0
+    bytes_per_load: float = 1.0
+    lb_overhead: float = 0.0
+    moved_frac_est: float = 0.15
+
+    def imbalance_seconds(self, max_load, avg_load):
+        """Per-step time lost to imbalance, priced at ``t_load``."""
+        return torch.clamp(max_load - avg_load, min=0.0) * self.t_load
+
+    def migration_seconds(self, moved_load):
+        """Executed-exchange cost: payload bytes plus fixed overhead."""
+        return (moved_load * self.bytes_per_load * self.t_byte
+                + self.lb_overhead)
+
+    def est_migration_seconds(self, total_load):
+        """A-priori migration cost: ``moved_frac_est`` of the total load."""
+        return self.migration_seconds(self.moved_frac_est * total_load)
+
+    def step_seconds(self, max_load, moved_load, lb_fired):
+        """Modeled seconds of one step: slowest-node compute + executed
+        migration traffic + LB overhead when fired."""
+        f32 = torch.float32
+        return (torch.as_tensor(max_load, dtype=f32) * self.t_load
+                + torch.as_tensor(moved_load, dtype=f32)
+                * self.bytes_per_load * self.t_byte
+                + torch.as_tensor(lb_fired, dtype=f32) * self.lb_overhead)

@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on ``cuda`` unless asked for the CPU."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    import repro_torch
+
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.pic.driver" in mods and len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for m in {mods!r} + ['repro_torch', 'chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_sources_have_no_jax_or_repro_imports():
+    import re
+
+    pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b"
+                     r"|import repro\.|from repro\.)", re.M)
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", *(ROOT / "benchmarks_torch").glob("*.py")]
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.core import engine
+    from repro_torch.pic import driver
+
+    assert driver.PICConfig().device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    with pytest.raises(RuntimeError, match="cuda"):
+        driver.run(driver.PICConfig(L=20, n_particles=100, steps=2, cx=4,
+                                    cy=4, num_pes=2))
+    with pytest.raises(RuntimeError):
+        engine.LBEngine()
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
