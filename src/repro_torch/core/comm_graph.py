@@ -7,7 +7,9 @@ fixed-shape tensors on one device.  Counterpart of ``repro.core.comm_graph``.
 Float segment sums here feed planning decisions, so they must give the
 same bits on every run: :func:`segment_sum` is a sort-based reduction
 (stable sort by segment, then one sequential sum per segment), never a
-float ``index_add_``, whose CUDA atomics add in a varying order.
+float ``index_add_``, whose CUDA atomics add in a varying order; and
+:func:`cumsum` replaces ``torch.cumsum``, whose CUDA scan adds floats in
+an order that varies from run to run.
 """
 from __future__ import annotations
 
@@ -39,6 +41,24 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.segment_reduce(values[order], "sum", lengths=lengths,
                                unsafe=True)
     return out[:S].to(values.dtype)
+
+
+def cumsum(values: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along dim 0, the same bits on every run.
+
+    On the CPU ``torch.cumsum`` adds in index order (as XLA's CPU cumsum
+    does).  On CUDA ``torch.cumsum`` is a decoupled look-back scan whose
+    float additions vary with timing, so a float tensor there takes a
+    Hillis–Steele scan instead: log2(n) rounds of shifted adds, each
+    element's partial sums combined in one fixed order."""
+    if values.device.type == "cpu" or not values.is_floating_point():
+        return torch.cumsum(values, 0)
+    out = values
+    k = 1
+    while k < out.shape[0]:
+        out = torch.cat([out[:k], out[k:] + out[:-k]])
+        k *= 2
+    return out
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,

@@ -5,9 +5,10 @@ Strategy registry (counterpart of ``repro.core.engine``).
 caps, device)`` and exposes
 
   * ``plan_fn(problem) -> (assignment, PlanStats)`` — tensors stay on the
-    engine's device; stage 2 runs the fused CUDA chunk on a card
-    (``kernels.diffusion.ops.diffusion_nsweeps``), the plain chunk on the
-    CPU;
+    engine's device; stage 2 runs ``kernels.diffusion.ops.
+    diffusion_nsweeps`` (on a card the fused or the streaming CUDA kernel
+    by ``sweep_impl``, on the CPU the plain chunk), or, with an explicit
+    ``step_fn``, that sweep inside the plain chunk body;
   * ``plan(problem) -> LBPlan`` — eager convenience with timing and the
     ``info`` dict.
 
@@ -60,7 +61,8 @@ class LBEngine:
     def __init__(self, *, variant: str = "comm", k: int = 4,
                  tol: float = 0.02, max_iters: int = 512,
                  max_rounds: int = 64, single_hop: bool = True,
-                 sweep_chunk: int = 8, device="cuda"):
+                 step_fn: Optional[Callable] = None, sweep_chunk: int = 8,
+                 device="cuda"):
         if variant not in ("comm", "coord"):
             raise ValueError(f"unknown variant {variant!r}")
         self.variant = variant
@@ -69,8 +71,13 @@ class LBEngine:
         self.max_iters = int(max_iters)
         self.max_rounds = int(max_rounds)
         self.single_hop = bool(single_hop)
+        self.step_fn = step_fn
         self.sweep_chunk = int(sweep_chunk)
         self.device = resolve_device(device)
+        # production stage 2: the S-sweep chunk picked by sweep_impl; an
+        # explicit step_fn opts out and runs per sweep inside the chunk
+        self.chunk_fn = (diffusion_ops.diffusion_nsweeps
+                         if step_fn is None else None)
 
     def plan_fn(self, problem: comm_graph.LBProblem
                 ) -> Tuple[torch.Tensor, PlanStats]:
@@ -91,8 +98,8 @@ class LBEngine:
         vres = vlb.virtual_balance(
             comm_graph.node_loads(problem), nres.nbr_idx, nres.nbr_mask,
             tol=self.tol, max_iters=self.max_iters,
-            single_hop=self.single_hop, sweep_chunk=self.sweep_chunk,
-            chunk_fn=diffusion_ops.diffusion_nsweeps)
+            single_hop=self.single_hop, step_fn=self.step_fn,
+            sweep_chunk=self.sweep_chunk, chunk_fn=self.chunk_fn)
         # stage 3: object selection
         sres = osel.select_objects(problem, nres.nbr_idx, nres.nbr_mask,
                                    vres.flows, metric=self.variant)
@@ -135,20 +142,36 @@ _ENGINE_CACHE: Dict[tuple, LBEngine] = {}
 _ENGINE_CACHE_MAX = 64
 
 
+def _engine_key(cfg: Dict) -> tuple:
+    """Canonical hashable cache key: values coerced as ``LBEngine``
+    coerces them, so positional and keyword spellings, and int and float
+    spellings, of one configuration share an entry.  An unhashable
+    ``step_fn`` is keyed by identity (the cached engine holds it, so the id
+    stays valid while the entry lives)."""
+    step_fn = cfg["step_fn"]
+    try:
+        hash(step_fn)
+    except TypeError:
+        step_fn = ("step_fn_id", id(step_fn))
+    return (str(cfg["variant"]), int(cfg["k"]), float(cfg["tol"]),
+            int(cfg["max_iters"]), int(cfg["max_rounds"]),
+            bool(cfg["single_hop"]), step_fn, int(cfg["sweep_chunk"]),
+            str(cfg["device"]))
+
+
 def get_engine(variant: str = "comm", k: int = 4, tol: float = 0.02,
                max_iters: int = 512, max_rounds: int = 64,
-               single_hop: bool = True, sweep_chunk: int = 8,
-               device="cuda") -> LBEngine:
+               single_hop: bool = True, step_fn: Optional[Callable] = None,
+               sweep_chunk: int = 8, device="cuda") -> LBEngine:
     """Engine cache — one engine per static configuration and device."""
-    dev = resolve_device(device)
-    key = (str(variant), int(k), float(tol), int(max_iters),
-           int(max_rounds), bool(single_hop), int(sweep_chunk), str(dev))
+    cfg = dict(variant=variant, k=k, tol=tol, max_iters=max_iters,
+               max_rounds=max_rounds, single_hop=single_hop,
+               step_fn=step_fn, sweep_chunk=sweep_chunk,
+               device=resolve_device(device))
+    key = _engine_key(cfg)
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
-        eng = _ENGINE_CACHE[key] = LBEngine(
-            variant=variant, k=k, tol=tol, max_iters=max_iters,
-            max_rounds=max_rounds, single_hop=single_hop,
-            sweep_chunk=sweep_chunk, device=dev)
+        eng = _ENGINE_CACHE[key] = LBEngine(**cfg)
         while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:  # drop oldest entry
             _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
     return eng

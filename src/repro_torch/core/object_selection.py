@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import comm_graph
-from repro_torch.core.comm_graph import segment_sum
+from repro_torch.core.comm_graph import cumsum, segment_sum
 
 NEG = -1e30
 
@@ -47,9 +47,9 @@ def _segmented_take_while(node, score, loads, eligible, budget):
     order = _lexsort(-eff_score, node)
     node_s = node[order].long()
     load_s = torch.where(eligible, loads, 0.0)[order]
-    csum = torch.cumsum(load_s, 0)
+    csum = cumsum(load_s)
     seg_tot = segment_sum(load_s, node_s, P)
-    before = torch.cat([seg_tot.new_zeros(1), torch.cumsum(seg_tot, 0)[:-1]])
+    before = torch.cat([seg_tot.new_zeros(1), cumsum(seg_tot)[:-1]])
     within = csum - before[node_s]                 # inclusive in-node csum
     take_s = (within - 0.5 * load_s) <= budget[node_s]
     take_s = take_s & eligible[order] & (load_s > 0)

@@ -12,13 +12,16 @@ Because the graph is symmetric, "receive" is a gather through the
 reverse-slot table: ``recv[i, k] = push[nbr[i, k], rev[i, k]]``.
 
 The fixed-point loop runs in chunks of ``sweep_chunk`` masked sweeps
-(:func:`reference_nsweeps`, or the fused CUDA kernel through
-``kernels.diffusion.ops.diffusion_nsweeps``).  The host reads one device
-flag per chunk; the per-sweep activity mask makes the result independent
-of the chunk length.
+(:func:`reference_nsweeps`, or ``kernels.diffusion.ops.diffusion_nsweeps``,
+which picks the fused or the streaming CUDA kernel).  The host reads one
+device flag per chunk; the per-sweep activity mask makes the result
+independent of the chunk length.  The sweep itself is pluggable
+(``step_fn``; default :func:`reference_sweep`, on the card
+``ops.diffusion_sweep``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -82,9 +85,10 @@ def neighborhood_residual(x, nbr_idx, nbr_mask):
     return (dev / (x.mean() + 1e-30)).amax()
 
 
-def sweep_chunk_body(nbr_idx, nbr_mask, rev, alpha, single_hop, tol,
-                     max_iters):
-    """``carry -> carry`` applying one masked early-exit sweep to
+def sweep_chunk_body(sweep, nbr_idx, nbr_mask, rev, alpha, single_hop,
+                     tol, max_iters):
+    """``carry -> carry`` applying one masked early-exit ``sweep`` (the
+    :func:`reference_sweep` signature) to
     ``carry = (x, own, flow, it, res, stall)``.  The activity predicate is
     the outer loop's, checked *before* the sweep; once false, the carry
     passes through unchanged, so S masked sweeps equal S steps of a
@@ -92,8 +96,8 @@ def sweep_chunk_body(nbr_idx, nbr_mask, rev, alpha, single_hop, tol,
     def body(carry):
         x, own, flow, it, res, stall = carry
         active = (it < max_iters) & (res > tol) & (stall < 3)
-        x2, own2, df = reference_sweep(x, own, nbr_idx, nbr_mask, rev,
-                                       alpha, single_hop)
+        x2, own2, df = sweep(x, own, nbr_idx, nbr_mask, rev, alpha,
+                             single_hop)
         moved = (x2 - x).abs().sum()
         stalled = moved <= 1e-6 * (x2.abs().mean() + 1e-30)
         res2 = neighborhood_residual(x2, nbr_idx, nbr_mask)
@@ -108,13 +112,14 @@ def sweep_chunk_body(nbr_idx, nbr_mask, rev, alpha, single_hop, tol,
 
 def reference_nsweeps(x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev,
                       alpha, *, n_sweeps: int, single_hop: bool, tol,
-                      max_iters):
-    """Plain S-sweep chunk with per-sweep early exit: the CPU path and the
-    oracle for the fused CUDA kernel.  Returns the updated
+                      max_iters, step_fn: Optional[Callable] = None):
+    """Plain S-sweep chunk with per-sweep early exit: the CPU path, the
+    oracle for the fused CUDA kernel and, with ``step_fn`` the streaming
+    kernel, the large-P path on the card.  Returns the updated
     ``(x, own, flow, it, res, stall)`` carry (``it``, ``stall`` i32 and
     ``res`` f32 are 0-d tensors)."""
-    body = sweep_chunk_body(nbr_idx, nbr_mask, rev, alpha, single_hop, tol,
-                            max_iters)
+    body = sweep_chunk_body(step_fn or reference_sweep, nbr_idx, nbr_mask,
+                            rev, alpha, single_hop, tol, max_iters)
     carry = (x, own, flow, it, res, stall)
     for _ in range(n_sweeps):
         carry = body(carry)
@@ -124,14 +129,16 @@ def reference_nsweeps(x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev,
 def virtual_balance(node_loads: torch.Tensor, nbr_idx: torch.Tensor,
                     nbr_mask: torch.Tensor, *, alpha: Optional[float] = None,
                     tol: float = 0.02, max_iters: int = 512,
-                    single_hop: bool = True, sweep_chunk: int = 8,
+                    single_hop: bool = True,
+                    step_fn: Optional[Callable] = None, sweep_chunk: int = 8,
                     chunk_fn: Optional[Callable] = None) -> VirtualLBResult:
     """Iterate diffusion sweeps until every neighborhood is balanced.
 
     ``alpha`` defaults to 1/(K+1); ``tol`` bounds max neighborhood
     deviation / mean load; the loop also stops at ``max_iters`` sweeps or
     after 3 consecutive stalled sweeps.  ``chunk_fn`` runs one S-sweep
-    chunk (default :func:`reference_nsweeps`); results do not depend on
+    chunk (default :func:`reference_nsweeps` over ``step_fn``, itself
+    defaulting to :func:`reference_sweep`); results do not depend on
     ``sweep_chunk``."""
     P, K = nbr_idx.shape
     dev = node_loads.device
@@ -140,7 +147,8 @@ def virtual_balance(node_loads: torch.Tensor, nbr_idx: torch.Tensor,
     alpha = float(torch.tensor(alpha, dtype=torch.float32))
     rev = reverse_slots(nbr_idx, nbr_mask)
     n_sweeps = max(1, min(int(sweep_chunk), int(max_iters)))
-    chunk_fn = chunk_fn or reference_nsweeps
+    if chunk_fn is None:
+        chunk_fn = functools.partial(reference_nsweeps, step_fn=step_fn)
 
     x = node_loads.to(torch.float32)
     carry = (x, x, torch.zeros((P, K), dtype=torch.float32, device=dev),

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the hot spots, and how they are built.
 
-  diffusion/  — virtual-LB diffusion S-sweep chunk (paper §III.B inner loop)
+  diffusion/  — virtual-LB diffusion (paper §III.B inner loop): the fused
+                S-sweep chunk and the streaming two-pass sweep
   pic_push/   — PIC PRK particle push (paper §VI hot loop)
   histogram/  — per-chare load measurement (segment histogram)
   migrate/    — sort-free counting-scatter manifest build (§II exchange)
@@ -80,8 +81,9 @@ class CudaKernel:
     ``functions`` maps each exported C function to its ctypes argument
     types without the trailing stream argument, which every function takes
     last (all return ``int``, the CUDA error code).  ``launches`` counts
-    the wrapper calls that launched the kernel — :meth:`launch` is the
-    only place it is incremented."""
+    the wrapper calls that launched the kernel — :meth:`launch` increments
+    it, and a replayed CUDA graph adds the launches it holds
+    (``kernels.diffusion.ops.streaming_nsweeps``)."""
 
     def __init__(self, name: str, source: str,
                  functions: Dict[str, Sequence], extra_flags=()):

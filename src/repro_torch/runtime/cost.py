@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -50,3 +51,18 @@ class RuntimeCostModel:
                 + torch.as_tensor(moved_load, dtype=f32)
                 * self.bytes_per_load * self.t_byte
                 + torch.as_tensor(lb_fired, dtype=f32) * self.lb_overhead)
+
+
+def series_modeled_seconds(result, model: RuntimeCostModel) -> np.ndarray:
+    """(T,) modeled seconds per step of a ``sim.simulator.SeriesResult``
+    (its ``max_load``, ``migrated_load`` and ``lb_fired`` records)."""
+    for field in ("max_load", "migrated_load", "lb_fired"):
+        if getattr(result, field, None) is None:
+            raise ValueError(
+                f"SeriesResult.{field} missing — series_modeled_seconds "
+                "needs a result from sim.simulator.run_series")
+    f32 = torch.float32
+    return model.step_seconds(
+        torch.as_tensor(result.max_load, dtype=f32),
+        torch.as_tensor(result.migrated_load, dtype=f32),
+        torch.as_tensor(result.lb_fired, dtype=f32)).numpy()

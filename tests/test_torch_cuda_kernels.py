@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core import virtual_lb as vlb
 from repro_torch.kernels.diffusion import ops as dops
-from repro_torch.kernels.diffusion.ref import diffusion_nsweeps_ref
+from repro_torch.kernels.diffusion.ref import (diffusion_nsweeps_ref,
+                                               diffusion_sweep_ref)
 from repro_torch.kernels.histogram import ops as hops
 from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.migrate import ops as mops
@@ -21,6 +22,7 @@ from repro_torch.kernels.pic_push import ops as pops
 from repro_torch.kernels.pic_push.ref import pic_push_ref
 from repro_torch.pic import driver
 from repro_torch.pic.grid import alternating_grid
+from repro_torch.sim import scenarios, simulator
 
 pytestmark = pytest.mark.cuda
 
@@ -131,7 +133,7 @@ def test_diffusion_kernel_matches_plain(dev, P, K, single_hop):
              torch.zeros((), dtype=torch.int32, device=dev))
     for tol, S in ((0.02, 8), (-1.0, 5)):
         kw = dict(n_sweeps=S, single_hop=single_hop, tol=tol, max_iters=512)
-        got = dops.diffusion_nsweeps(*carry, nbr, mask, rev, alpha, **kw)
+        got = dops.fused_nsweeps(*carry, nbr, mask, rev, alpha, **kw)
         want = diffusion_nsweeps_ref(*carry, nbr, mask, rev, alpha, **kw)
         assert int(got[3]) == int(want[3]) and int(got[5]) == int(want[5])
         scale = x.abs().max()
@@ -139,6 +141,133 @@ def test_diffusion_kernel_matches_plain(dev, P, K, single_hop):
         for i in (0, 1, 2):
             assert float((got[i] - want[i]).abs().max()) <= tol
         assert abs(float(got[4]) - float(want[4])) <= tol / float(x.mean())
+
+
+def _sweep_case(dev, P, K, seed):
+    nbr, mask = _ring_graph(P, K, seed=seed) if K % 2 == 0 else \
+        _odd_graph(P, K)
+    nbr = torch.as_tensor(nbr, dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    x = torch.as_tensor(np.random.default_rng(seed).random(P).astype(
+        np.float32) * 10, device=dev)
+    alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
+    return x, nbr, mask, vlb.reverse_slots(nbr, mask), alpha
+
+
+def _odd_graph(P, K):
+    """Symmetric (P, K) table with an odd K: the ring's K - 1 slots plus a
+    last slot pairing i with i + P/2 (P even)."""
+    nbr, mask = _ring_graph(P, K - 1, seed=P)
+    opp = ((np.arange(P) + P // 2) % P).astype(np.int32)
+    return (np.concatenate([nbr, opp[:, None]], 1),
+            np.concatenate([mask, np.ones((P, 1), bool)], 1))
+
+
+@pytest.mark.parametrize("P,K", [(8, 4), (64, 4), (257, 8), (8192, 8),
+                                 (1000, 5), (96, 32)])
+@pytest.mark.parametrize("single_hop", [True, False])
+def test_diffusion_sweep_kernel_matches_plain(dev, P, K, single_hop):
+    """One sweep: x, own and flow within 8 f32 ulp of the largest load
+    (the kernel sums each row in slot order, the plain version in its own
+    order; every product and quotient rounds alike under -fmad=false)."""
+    x, nbr, mask, rev, alpha = _sweep_case(dev, P, K, seed=P + K)
+    own = x * 0.3
+    got = dops.diffusion_sweep(x, own, nbr, mask, rev, alpha, single_hop)
+    want = diffusion_sweep_ref(x, own, nbr, mask, rev, alpha, single_hop)
+    scale = x.abs().max()
+    tol = 8 * float(torch.nextafter(scale, scale + 1) - scale)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= tol
+
+
+def test_diffusion_sweep_kernel_rejects_wide_rows(dev):
+    x, nbr, mask, rev, alpha = _sweep_case(dev, 66, 33, seed=1)
+    with pytest.raises(ValueError):
+        dops.diffusion_sweep(x, x, nbr, mask, rev, alpha)
+
+
+@pytest.mark.parametrize("P,K", [(4096, 8), (8192, 8), (16384, 4)])
+def test_streaming_chunk_matches_fused_and_plain(dev, P, K):
+    """The streaming chunk against the fused kernel and the plain chunk:
+    it and stall exact; x, own and flow within 16 ulp of the largest load
+    (the fused kernel sums rows in the same slot order, the plain chunk in
+    its own; the residual and stall sums differ in order)."""
+    x, nbr, mask, rev, alpha = _sweep_case(dev, P, K, seed=K)
+    carry = (x, x, torch.zeros((P, K), device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             vlb.neighborhood_residual(x, nbr, mask),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    kw = dict(n_sweeps=8, single_hop=True, tol=0.02, max_iters=512)
+    args = (*carry, nbr, mask, rev, alpha)
+    stream = vlb.reference_nsweeps(*args, **kw, step_fn=dops.diffusion_sweep)
+    scale = x.abs().max()
+    tol = 16 * float(torch.nextafter(scale, scale + 1) - scale)
+    for other in (dops.fused_nsweeps(*args, **kw),
+                  diffusion_nsweeps_ref(*args, **kw)):
+        assert int(stream[3]) == int(other[3])
+        assert int(stream[5]) == int(other[5])
+        for i in (0, 1, 2):
+            assert float((stream[i] - other[i]).abs().max()) <= tol
+    assert dops.sweep_impl(64, 8, dev) == "fused"
+
+
+@pytest.mark.parametrize("P,K", [(512, 4), (8192, 8)])
+def test_streaming_graph_chunk_equals_eager(dev, P, K):
+    """The streaming chunk replayed from its CUDA graph equals the same
+    chunk issued op by op, bit for bit, over consecutive chunks (the
+    graph's buffers are reused), and counts one sweep launch a sweep."""
+    from repro_torch import kernels
+
+    x, nbr, mask, rev, alpha = _sweep_case(dev, P, K, seed=P)
+    carry = (x, x, torch.zeros((P, K), device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             vlb.neighborhood_residual(x, nbr, mask),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    kw = dict(n_sweeps=4, single_hop=True, tol=0.02, max_iters=512)
+    eager = graph = carry
+    for _ in range(3):
+        eager = vlb.reference_nsweeps(*eager, nbr, mask, rev, alpha, **kw,
+                                      step_fn=dops.diffusion_sweep)
+        before = kernels.launch_counts()["diffusion_sweep"]
+        graph = dops.streaming_nsweeps(*graph, nbr, mask, rev, alpha, **kw)
+        assert kernels.launch_counts()["diffusion_sweep"] >= before + 4
+        for a, b in zip(graph, eager):
+            assert torch.equal(a, b)
+
+
+def test_cumsum_repeats_bit_for_bit_on_cuda(dev):
+    """``comm_graph.cumsum`` on a card: the same bits on every call, and
+    within 1e-5 relative of a float64 prefix sum (torch.cumsum's CUDA scan
+    adds floats in a varying order)."""
+    from repro_torch.core.comm_graph import cumsum
+
+    v = torch.as_tensor(np.random.default_rng(0).random(1 << 20).astype(
+        np.float32) * 8 + 1, device=dev)
+    a = cumsum(v)
+    for _ in range(3):
+        assert torch.equal(cumsum(v), a)
+    want = torch.cumsum(v.double(), 0)
+    assert float(((a.double() - want).abs() / want).max()) <= 1e-5
+
+
+def test_run_series_cuda_matches_cpu(dev):
+    """A small stencil-wave replay on the card (fused chunk) equals the
+    same replay on the CPU: fire steps and final assignment exact, max/avg
+    within 1e-5 relative, on both loops."""
+    kw = dict(steps=24, lb_every=6, strategy="diff-comm")
+    cpu = simulator.run_series(
+        *scenarios.get("stencil-wave").instantiate(device="cpu", grid=16,
+                                                  num_nodes=8), **kw)
+    for scan in (True, False):
+        got = simulator.run_series(
+            *scenarios.get("stencil-wave").instantiate(device=dev, grid=16,
+                                                      num_nodes=8),
+            scan=scan, **kw)
+        np.testing.assert_array_equal(got.lb_fired, cpu.lb_fired)
+        np.testing.assert_array_equal(got.final_assignment,
+                                      cpu.final_assignment)
+        np.testing.assert_allclose(got.max_avg, cpu.max_avg, rtol=1e-5)
 
 
 def test_pic_driver_cuda_matches_cpu(dev):

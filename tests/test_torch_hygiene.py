@@ -44,10 +44,16 @@ def test_sources_have_no_jax_or_repro_imports():
 
 
 def test_entry_points_default_to_cuda():
+    import inspect
+
     from repro_torch.core import engine
     from repro_torch.pic import driver
+    from repro_torch.sim import scenarios, simulator, stencil
 
     assert driver.PICConfig().device == "cuda"
+    for fn in (stencil.stencil_2d, stencil.stencil_3d,
+               scenarios.Scenario.instantiate):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("checks the CUDA-less behavior")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -55,6 +61,15 @@ def test_entry_points_default_to_cuda():
                                     cy=4, num_pes=2))
     with pytest.raises(RuntimeError):
         engine.LBEngine()
+    with pytest.raises(RuntimeError, match="cuda"):
+        stencil.stencil_2d(4, 4, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenarios.get("stencil-wave").instantiate(grid=8, num_nodes=4)
+    # run_series runs on its problem's device: the user's chain from a
+    # scenario with its defaults raises here
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulator.run_series(*scenarios.get("bimodal-churn").instantiate(
+            grid=8, num_nodes=4), steps=2, lb_every=1)
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -64,3 +79,23 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_simulator_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's simulator phases (replay against ``none``, the plan of
+    one snapshot through K1, the streaming chunk and ``step_fn``, Table I,
+    Fig 2, the small replay) run end to end on the CPU's plain versions at
+    a small size, so a fault in their Python shows here first."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "SIM_SCENARIO",
+                        dict(grid=32, num_nodes=16, mapping="tiled"))
+    monkeypatch.setattr(chip_smoke, "SIM_KERNELS", ())   # none on the CPU
+    counts, snap = chip_smoke.sim_path()
+    assert counts["diffusion_sweep"] == 0        # plain versions on the CPU
+    loads, nbr, mask = chip_smoke.sim_engines(snap)
+    assert loads.shape == (16,) and nbr.shape == mask.shape
+    chip_smoke.paper_scripts_and_small_replay()
