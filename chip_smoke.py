@@ -5,7 +5,7 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from ``src/repro_torch/csrc``, then:
+It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
 
   1. drives the PIC path — the PIC PRK driver with the diff-comm balancer
      (``repro_torch.pic.driver.run``) at the paper's setup (L = 1000, 12×12
@@ -25,7 +25,18 @@ It builds the five CUDA kernels from ``src/repro_torch/csrc``, then:
      stage 2 through the streaming kernel against the fused one;
   5. runs the port's Table I and Fig 2 scripts on the card, and a small
      replay on the card against the same replay on the CPU;
-  6. holds each kernel against its plain PyTorch version on the card at the
+  6. drives the serving path — what ``repro_torch.launch.serve`` does, at
+     gemma3-1b's full width (26 layers, d_model 1152, vocab 262144,
+     window 1024, random weights from seed 0): a ``DiffusionScheduler``
+     places 8 requests (prompts of 512 to 1000 tokens) on 2 replicas and
+     rebalances, and two ``ServeEngine``s (4 slots, max_len 1056, bf16
+     cache) drain them with 32 new tokens each, so the two longest decode
+     past position 1024 and wrap the window layers' rings — with the
+     launch counts set to 0 just before and read just after; the flash
+     attention kernel must have run once per attention call;
+  7. serves the reduced gemma3-1b (f32) on the card and on the CPU: equal
+     tokens, logits within 1e-3;
+  8. holds each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (and the fused diffusion kernel also at
      P = 32768, K = 8), timing kernel, plain version and the one-call
      PyTorch yardstick where there is one.
@@ -49,6 +60,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12       # also used for the kernels' 32-bit integer ops
+PEAK_BF16_PER_S = 989e12     # dense tensor-core rate
 
 PIC = dict(L=1000, n_particles=1 << 24, steps=100, cx=12, cy=12,
            num_pes=8, rho=0.9, mode="GEOMETRIC", lb_every=10,
@@ -60,6 +72,16 @@ SIM_SCENARIO = dict(grid=1024, num_nodes=8192, mapping="tiled")
 SIM = dict(steps=30, lb_every=10, strategy="diff-comm",
            strategy_kwargs={"k": 8})
 SIM_KERNELS = ("diffusion_sweep",)
+
+# the serving path: gemma3-1b at full width on two replicas; prompts stay
+# within the 1024-token window (a longer prefill would write several
+# positions into one ring slot at once), and the two longest decode past it
+SERVE_ARCH = "gemma3-1b"
+SERVE_FULL = True            # the published config; a rehearsal: reduced
+SERVE = dict(replicas=2, slots=4, max_len=1056, dtype="bfloat16",
+             max_new=32,
+             prompt_lens=(1000, 996, 512, 576, 640, 704, 768, 832))
+SERVE_KERNELS = ("flash_attention", "scatter_dest")
 DEV = "cuda"   # the card; a rehearsal on the CPU sets "cpu"
 
 
@@ -343,6 +365,263 @@ def paper_scripts_and_small_replay():
           f"(fired {int(cpu.lb_fired.sum())} times)")
 
 
+# --------------------------------------------------------- serving path --
+
+
+def serve_path():
+    """Two ServeEngines behind a DiffusionScheduler at gemma3-1b's full
+    width, as ``repro_torch.launch.serve`` wires them; returns the launch
+    counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import DiffusionScheduler, Session
+
+    spec = get_arch(SERVE_ARCH)
+    cfg = spec.config if SERVE_FULL else spec.reduced
+    specs = transformer.model_specs(cfg)
+    _sync()
+    t0 = time.perf_counter()
+    params = init_params(specs, 0, device=DEV)
+    _sync()
+    print(f"serving path: {cfg.name}, {count_params(specs)} parameters "
+          f"(f32, random, seed 0) made in {time.perf_counter() - t0:.3f} s")
+    R, V = SERVE["replicas"], cfg.vocab_size
+    sched = DiffusionScheduler(R, device=DEV)
+    engines = [ServeEngine(cfg, params, ServeConfig(
+        num_slots=SERVE["slots"], max_len=SERVE["max_len"],
+        dtype=SERVE["dtype"]), device=DEV) for _ in range(R)]
+    prefill_s, tick_s = [], []
+
+    def instrument(e):
+        # synchronized timing around the engine's own prefill and tick,
+        # and the finiteness of every logits row they produce
+        prefill, tick = e._prefill_slot, e.tick
+
+        def timed_prefill(prompt, slot):
+            _sync()
+            t = time.perf_counter()
+            logits = prefill(prompt, slot)
+            _sync()
+            prefill_s.append(time.perf_counter() - t)
+            check(bool(torch.isfinite(logits).all()), "non-finite logits "
+                  "from a prefill")
+            return logits
+
+        def timed_tick():
+            _sync()
+            t = time.perf_counter()
+            tick()
+            _sync()
+            tick_s.append(time.perf_counter() - t)
+            check(bool(torch.isfinite(e.last_logits).all()),
+                  "non-finite logits from a tick")
+
+        e._prefill_slot, e.tick = timed_prefill, timed_tick
+
+    for e in engines:
+        instrument(e)
+    rng = np.random.default_rng(0)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    for i, plen in enumerate(SERVE["prompt_lens"]):
+        prompt = rng.integers(1, V, size=plen)
+        r = sched.place_new(Session(uid=i, replica=0, tokens_per_s=1.0,
+                                    prefix_group=i % 2))
+        engines[r].submit(Request(uid=i, prompt=prompt,
+                                  max_new_tokens=SERVE["max_new"]))
+    info = sched.rebalance()
+    done = []
+    for e in engines:
+        done += e.run_until_drained()
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_req, new = len(SERVE["prompt_lens"]), SERVE["max_new"]
+    check(sorted(r.uid for r in done) == list(range(n_req)),
+          f"served {sorted(r.uid for r in done)}, not all {n_req} requests")
+    check(all(len(r.out) == new for r in done), "a request did not get "
+          f"{new} tokens")
+    toks = np.concatenate([r.out for r in done])
+    check(((toks >= 0) & (toks < V)).all(), "a token out of the vocabulary")
+    n_layers, ticks = len(cfg.all_layers()), sum(e.ticks for e in engines)
+    check(len(prefill_s) == n_req, f"{len(prefill_s)} prefills for {n_req} "
+          "requests")
+    want = (n_layers * (n_req + ticks)
+            if "flash_attention" in SERVE_KERNELS else 0)
+    check(counts["flash_attention"] == want, f"flash_attention launched "
+          f"{counts['flash_attention']} times, not {n_layers} layers x "
+          f"({n_req} prefills + {ticks} ticks) = {want}")
+    for name in SERVE_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "serving path")
+    local = cfg.all_layers().index("attn_local")
+    ring = engines[0].cache[local]["kv"]["pos"]
+    ring_max = int(ring[ring < 2 ** 29].max())      # written slots only
+    check(ring_max >= ring.shape[1], "no window ring wrapped")
+    decode_s = sum(tick_s) - sum(prefill_s)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda"
+            else float("nan"))
+    print(f"serving path: {n_req} requests on {R} replicas, "
+          f"{len(toks)} tokens in {wall:.3f} s end to end "
+          f"({len(toks) / wall:.2f} generated tokens/s); prefill "
+          f"{1e3 * np.mean(prefill_s):.3f} ms a request "
+          f"({[round(1e3 * t, 3) for t in prefill_s]} ms for prompts "
+          f"{list(SERVE['prompt_lens'])}), decode "
+          f"{1e3 * decode_s / ticks:.3f} ms a tick over {ticks} ticks of "
+          f"{SERVE['slots']} slots; peak device memory {peak:.3f} GiB; "
+          f"the window ring holds positions up to {ring_max} in "
+          f"{ring.shape[1]} slots")
+    print(f"scheduler: max/avg load {info['max_avg_load']:.6f}, ext/int "
+          f"{info['ext_int_comm']:.6f}, moved {info['moved_sessions']} "
+          f"sessions / {info['moved_kv_bytes']:.0f} KV bytes, prefix-local "
+          f"{info['prefix_local']:.6f}, {info.get('diffusion_iters')} "
+          f"sweeps; launches {counts} (diffusion_nsweeps "
+          f"{counts['diffusion_nsweeps']}: a balanced placement may plan "
+          "no sweep)")
+    return counts
+
+
+def serve_cpu_parity():
+    """The reduced gemma3-1b in f32 served on the card and on the CPU:
+    equal tokens, and prefill/decode logits within 1e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_to
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH).reduced,
+                              compute_dtype="float32")
+    p_cpu = init_params(transformer.model_specs(cfg), 0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (9, 14, 11)]
+    outs, logits = {}, {}
+    for dev in ("cpu", DEV):
+        p = tree_to(p_cpu, dev)
+        e = ServeEngine(cfg, p, ServeConfig(num_slots=2, max_len=40),
+                        device=dev)
+        for i, pr in enumerate(prompts):
+            e.submit(Request(uid=i, prompt=pr, max_new_tokens=12))
+        outs[dev] = [(r.uid, r.out) for r in e.run_until_drained()]
+        cache = transformer.init_cache(cfg, 1, 40, torch.float32, dev)
+        toks = torch.as_tensor(prompts[1], device=dev)[None]
+        pos = torch.arange(toks.shape[1], dtype=torch.int32, device=dev)[None]
+        lg, cache = transformer.prefill(p, cfg, dict(tokens=toks,
+                                                     positions=pos), cache)
+        seq = [lg[:, 0]]
+        for i, tok in enumerate(outs["cpu"][1][1][:10]):
+            lg, cache = transformer.decode_step(
+                p, cfg, torch.tensor([[tok]], device=dev),
+                toks.shape[1] + i, cache)
+            seq.append(lg[:, 0])
+        logits[dev] = torch.cat(seq).cpu()
+    check(outs["cpu"] == outs[DEV], "reduced gemma3-1b: tokens differ "
+          f"between {DEV} and cpu")
+    err = float((logits["cpu"] - logits[DEV]).abs().max())
+    check(err <= 1e-3, f"reduced gemma3-1b: logits differ by {err}")
+    print(f"reduced gemma3-1b served on {DEV} == cpu: 3 requests, equal "
+          f"tokens; prefill and 10 decode steps' logits within {err:.3g}")
+
+
+def flash_row(counts):
+    """K6 against its plain version (the model's chunked attention) at the
+    serving path's shapes; the row's times are those of the full-width
+    prefill against the global cache."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (POS_SENTINEL,
+                                                         chunked_attention,
+                                                         mask)
+
+    dev, KV, G, hd, W = "cuda", 1, 4, 288, 1024
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def positions(B, Sq, T, q_last, ring):
+        """Query positions ending at ``q_last`` (B,), and the cache's slot
+        positions after writing 0..q_last: slot ``p mod T`` for a ring,
+        else slot p; unwritten slots hold the sentinel."""
+        last = q_last[:, None]
+        qp = last - torch.arange(Sq - 1, -1, -1, device=dev)
+        s = torch.arange(T, device=dev)[None]
+        # a ring's slot s holds the latest position p <= q_last, p = s mod T
+        kp = s + (last - s).div(T, rounding_mode="floor") * T if ring else s
+        kp = torch.where(s <= last, kp, POS_SENTINEL)
+        return qp.to(torch.int32), kp.to(torch.int32).contiguous()
+
+    cases = [  # label, B, Sq, T, window, q_last, dtype
+        ("prefill, global cache", 1, 1000, 1056, 0, [999], torch.bfloat16),
+        ("prefill, window ring", 1, 1000, W, W, [999], torch.bfloat16),
+        ("decode, global cache", 4, 1, 1056, 0, [1030, 1026, 543, 607],
+         torch.bfloat16),
+        ("decode, wrapped window ring", 4, 1, W, W, [1030, 1026, 543, 607],
+         torch.bfloat16),
+        ("prefill, global cache, f32", 1, 1000, 1056, 0, [999],
+         torch.float32),
+    ]
+    errs, main = [], None
+    for label, B, Sq, T, win, q_last, dt in cases:
+        q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
+        qp, kp = positions(B, Sq, T, torch.tensor(q_last, device=dev),
+                           ring=bool(win))
+        got = fops.flash_attention(q, k, v, qp, kp, window=win)
+        want = chunked_attention(q, k, v, qp, kp, window=win)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        check(bool((diff <= tol + tol * want.float().abs()).all()),
+              f"flash_attention ({label}): max_abs_err {err} beyond "
+              f"{tol} abs + {tol} rel")
+        errs.append(err)
+        # yardstick: one SDPA call on the same inputs (GQA expanded, the
+        # position mask as a boolean mask); timed here only
+        qs = q.reshape(B, Sq, KV * G, hd).transpose(1, 2).contiguous()
+        ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        allowed = mask(qp, kp, win, 0)                       # (B, Sq, T)
+        am = allowed[:, None].contiguous()
+        ms = time_ms(lambda: fops.flash_attention(q, k, v, qp, kp,
+                                                  window=win))
+        plain = time_ms(lambda: chunked_attention(q, k, v, qp, kp,
+                                                  window=win))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=am))
+        size = q.element_size()
+        nbytes = (2 * q.numel() * size + 4 * (qp.numel() + kp.numel())
+                  + 2 * int(allowed.any(1).sum()) * KV * hd * size)
+        flops = 4 * hd * G * KV * int(allowed.sum())
+        bound = bound_ms(nbytes, flops, PEAK_BF16_PER_S
+                         if dt == torch.bfloat16 else PEAK_F32_PER_S)
+        print(f"flash_attention ({label}: B={B}, Sq={Sq}, T={T}, KV={KV}, "
+              f"G={G}, hd={hd}, window={win}, {str(dt)[6:]}): max_abs_err "
+              f"{err:.6g} (tolerance {tol}), kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bound[0]:.6f} ms "
+              f"({bound[1]})")
+        if main is None:
+            main = (ms, plain, bound, lib)
+    ms, plain, bound, lib = main
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:96",
+                launches=counts["flash_attention"], max_abs_err=max(errs),
+                ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=lib)
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of ``fn()`` per call: the sum of its kernels' intervals
     under ``torch.profiler``, over ``reps`` calls after a warm-up."""
@@ -592,6 +871,9 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    # f32 products in full f32 on the card (the defaults, set explicitly)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"built {sorted(kernels.registry())} in "
@@ -602,10 +884,14 @@ def main() -> int:
     sim_counts, snap = sim_path()
     sim_graph = sim_engines(snap)
     paper_scripts_and_small_replay()
-    # each kernel's launches on its own path's run
+    serve_counts = serve_path()
+    serve_cpu_parity()
+    # each kernel's launches on its own path's run (K3 on the PIC path's)
     counts.update({name: sim_counts[name] for name in SIM_KERNELS})
+    counts["flash_attention"] = serve_counts["flash_attention"]
     rows = kernel_rows(counts, sim_graph)
-    check(len(rows) == 5, f"{len(rows)} kernel rows, not 5")
+    rows.append(flash_row(counts))
+    check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,6 +73,55 @@ def segment_count(segment_ids: torch.Tensor, num_segments: int,
     return out[:S]
 
 
+def prefix_group_edges(group, loads, active=None, *,
+                       ring_eps: float = 1e-3):
+    """Prefix-sharing comm edges for a session fleet, on its device.
+
+    ``group`` is (S,) i32 — per-object group ids in ``[0, S)``, ``-1`` for
+    ungrouped slots; ``active`` an optional (S,) bool live mask (``None``:
+    every slot live); ``loads`` (S,) f32, already floored by the caller.
+    Returns ``(edges_src, edges_dst, edges_bytes)`` of shape ``(2*S,)``:
+
+      * star edges — each live grouped slot to its group's leader (the
+        lowest live grouped slot index of the group, a segment min),
+        weighted ``min(load_member, load_leader)``;
+      * ring edges — live slot ``i`` to ``i+1 (mod S)`` at ``ring_eps``
+        when both are live, so singleton groups still give a connected
+        graph.
+
+    Unused entries are ``(-1, -1, 0.0)``.  Integer outputs are exact."""
+    dev = loads.device
+    group = group.to(torch.int32)
+    loads = loads.to(torch.float32)
+    S = int(group.shape[0])
+    idx = torch.arange(S, dtype=torch.int32, device=dev)
+    live = (torch.ones(S, dtype=torch.bool, device=dev) if active is None
+            else active.to(torch.bool))
+    grouped = live & (group >= 0)
+    # leader election: lowest live grouped slot index per group id (other
+    # slots go to the out-of-range bucket S); integer min, exact
+    seg = torch.where(grouped, group, S).long()
+    leader_of_group = torch.full((S + 1,), S, dtype=torch.int32, device=dev)
+    leader_of_group.scatter_reduce_(0, seg, torch.where(grouped, idx, S),
+                                    "amin")
+    leader = torch.where(grouped,
+                         leader_of_group[group.clamp(0, S - 1).long()], -1)
+    is_member = grouped & (leader != idx)     # leaders carry no self-edge
+    star_src = torch.where(is_member, idx, -1)
+    star_dst = torch.where(is_member, leader, -1)
+    star_w = torch.where(
+        is_member,
+        torch.minimum(loads, loads[leader.clamp(0, S - 1).long()]), 0.0)
+    ring_on = live & torch.roll(live, -1)
+    ring_src = torch.where(ring_on, idx, -1)
+    ring_dst = torch.where(ring_on, (idx + 1) % S, -1)
+    ring_w = torch.where(ring_on, torch.tensor(ring_eps, dtype=torch.float32,
+                                               device=dev), 0.0)
+    return (torch.cat([star_src, ring_src]).to(torch.int32),
+            torch.cat([star_dst, ring_dst]).to(torch.int32),
+            torch.cat([star_w, ring_w]))
+
+
 @dataclasses.dataclass(frozen=True)
 class LBProblem:
     """A load-balancing problem instance.

@@ -1,4 +1,5 @@
-"""Carrying an ``LBProblem`` across packages as a dict of NumPy arrays.
+"""Carrying data across packages as NumPy arrays: an ``LBProblem`` as a
+dict, the JAX package's model parameters and caches as nested trees.
 
 Imports only torch and NumPy: a caller (in practice the parity tests)
 builds the dict from the JAX package's problem with ``np.asarray`` on
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.core.comm_graph import LBProblem
 from repro_torch.kernels import resolve_device
+from repro_torch.models.params import tree_map
 
 _FIELDS = {"loads": torch.float32, "assignment": torch.int32,
            "edges_src": torch.int32, "edges_dst": torch.int32,
@@ -40,3 +42,47 @@ def problem_to_numpy(problem: LBProblem) -> Dict:
     d["coords"] = (None if problem.coords is None
                    else problem.coords.cpu().numpy())
     return d
+
+
+# ------------------------------------------------------- model weights --
+
+
+def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
+    """The port's model parameters from the JAX package's parameter tree
+    given as nested dicts and lists of NumPy arrays.
+
+    The JAX ``unit`` leaves carry a leading group dimension (its scanned
+    stack): layer ``len(prefix) + g * len(layer_unit) + i`` takes
+    ``unit[i][...][g]``.  Returns ``{embed, final_norm, layers[, lm_head]}``
+    with ``layers`` in ``cfg.all_layers()`` order, on ``device``."""
+    dev = resolve_device(device)
+    layers = list(tree["prefix"])
+    for g in range(cfg.num_groups):
+        layers += [tree_map(lambda a: np.asarray(a)[g], unit)
+                   for unit in tree["unit"]]
+    layers += list(tree["suffix"])
+    out = dict(embed=tree["embed"], final_norm=tree["final_norm"],
+               layers=layers)
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"]
+    # copies: the arrays may be read-only views of another package's buffers
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), out)
+
+
+def cache_to_numpy(cache, cfg) -> Dict:
+    """The port's per-layer cache as the JAX package's stacked cache tree
+    ``{unit, prefix, suffix}`` of NumPy arrays (``unit[i]`` leaves gain the
+    leading group dimension)."""
+    host = tree_map(lambda t: t.cpu().numpy(), list(cache))
+    n_pre, n_unit = len(cfg.prefix_layers), len(cfg.layer_unit)
+    groups = [host[n_pre + g * n_unit: n_pre + (g + 1) * n_unit]
+              for g in range(cfg.num_groups)]
+
+    def stack(i):
+        layer = groups[0][i]
+        return {k: {f: np.stack([grp[i][k][f] for grp in groups])
+                    for f in layer[k]} for k in layer}
+
+    return dict(unit=[stack(i) for i in range(n_unit)] if groups else [],
+                prefix=host[:n_pre],
+                suffix=host[len(host) - len(cfg.suffix_layers):])

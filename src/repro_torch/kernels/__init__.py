@@ -5,6 +5,7 @@
   pic_push/   — PIC PRK particle push (paper §VI hot loop)
   histogram/  — per-chare load measurement (segment histogram)
   migrate/    — sort-free counting-scatter manifest build (§II exchange)
+  flash_attention/ — GQA flash attention of the served model
 
 Each kernel ships ``csrc/<name>.cu`` (CUDA C++ for ``sm_90a`` with a plain
 C interface), ``ops.py`` (the wrapper: checks, launch, launch count) and
@@ -155,6 +156,7 @@ _REGISTRY: Dict[str, CudaKernel] = {}
 def _import_all() -> None:
     # each ops module registers its kernel on import
     from repro_torch.kernels.diffusion import ops as _d  # noqa: F401
+    from repro_torch.kernels.flash_attention import ops as _f  # noqa: F401
     from repro_torch.kernels.histogram import ops as _h  # noqa: F401
     from repro_torch.kernels.migrate import ops as _m  # noqa: F401
     from repro_torch.kernels.pic_push import ops as _p  # noqa: F401

@@ -9,7 +9,9 @@ previous position).  ``method`` picks how the permutation is built:
 of ``kernels.migrate``) or ``"auto"`` (``kernels.migrate.preferred_method``).
 Every method gives the identical ``order``.
 
-The ring and sharded exchanges and the spill mode belong to a later slice.
+:func:`spill_owner` clamps a plan's per-node inflow to a slot budget by
+deferring moves (:func:`spill_admissions` solves for the admitted flow).
+The ring and sharded exchanges belong to a later slice.
 """
 from __future__ import annotations
 
@@ -39,6 +41,21 @@ class Manifest(NamedTuple):
     def moved_count(self) -> torch.Tensor:
         """i32 0-d tensor — items actually exchanged."""
         return self.moved.sum().to(torch.int32)
+
+    def moved_bytes(self, bytes_per_item) -> torch.Tensor:
+        """f32 0-d tensor — executed exchange volume (uniform item size)."""
+        return self.moved_count.to(torch.float32) * bytes_per_item
+
+    def moved_sum(self, weights, where=None) -> torch.Tensor:
+        """f32 0-d tensor — executed exchange volume with per-item sizes
+        ``weights`` (n,), optionally restricted to the live mask
+        ``where`` (free fleet slots move for free)."""
+        w = torch.where(self.moved, torch.as_tensor(
+            weights, dtype=torch.float32, device=self.moved.device), 0.0)
+        if where is not None:
+            w = torch.where(torch.as_tensor(where, device=w.device).bool(),
+                            w, 0.0)
+        return w.sum()
 
 
 def resolve_method(method: str, *, n: int, num_nodes: int) -> str:
@@ -99,3 +116,68 @@ def inverse_permutation(order) -> torch.Tensor:
     inv[order] = torch.arange(order.shape[0], dtype=torch.int32,
                               device=order.device)
     return inv
+
+
+# ------------------------------------------------- spill (degradation) --
+
+
+def spill_admissions(flow, occupancy, capacity) -> torch.Tensor:
+    """Feasible admitted-flow matrix under a per-group slot budget.
+
+    ``flow`` is the (G, G) i32 wanted move-count matrix (its diagonal,
+    items staying put, is ignored), ``occupancy`` the (G,) current item
+    count per group, ``capacity`` the budget (a scalar or (G,)).  Returns
+    ``A`` with ``0 <= A <= off-diag(flow)`` such that every post-exchange
+    count ``occupancy - A.sum(1) + A.sum(0)`` is within ``capacity``,
+    cutting each round as little as possible and from the highest source
+    index first (a fixed rule, so runs repeat).  Integer work: exact."""
+    flow = torch.as_tensor(flow).to(torch.int32)
+    dev = flow.device
+    G = flow.shape[0]
+    occupancy = torch.as_tensor(occupancy, device=dev).to(torch.int32)
+    capacity = torch.as_tensor(capacity, device=dev).to(torch.int32)
+    eye = torch.eye(G, dtype=torch.bool, device=dev)
+    A = torch.where(eye, 0, flow)
+
+    def post(A):
+        return occupancy - A.sum(1) + A.sum(0)
+
+    while bool(((post(A) > capacity).any() & (A.sum() > 0))):
+        over = torch.clamp(post(A) - capacity, min=0)            # (G,)
+        # per column: the flow arriving from rows below each source
+        below = torch.flip(torch.cumsum(torch.flip(A, [0]), 0), [0]) - A
+        cut = torch.minimum(torch.clamp(over[None, :] - below, min=0), A)
+        A = (A - cut).to(torch.int32)
+    return A
+
+
+def spill_owner(owner_old, owner_new, *, num_nodes: int, capacity):
+    """Clamp a plan's per-node inflow to ``capacity`` by deferring moves.
+
+    Items whose admission would push their destination over the budget
+    keep their old owner and retry at the next rebalance; within each
+    (src, dst) flow the first items in slab order are admitted.  Returns
+    ``(owner_eff, deferred)``.  The within-flow ranks go through the
+    counting-scatter kernel over C = num_nodes² pair buckets, which it
+    takes up to ``kernels.migrate.ops.MAX_C`` buckets on a card; above
+    that the pair-bucket path is not ported yet and this raises."""
+    P = int(num_nodes)
+    oo = torch.as_tensor(owner_old).to(torch.int32)
+    on = torch.as_tensor(owner_new).to(torch.int32)
+    if oo.device.type == "cuda" and P * P > mig_ops.MAX_C:
+        raise NotImplementedError(
+            f"spill_owner on {P} nodes needs {P * P} pair buckets; the "
+            f"counting-scatter kernel takes at most {mig_ops.MAX_C} (the "
+            "pair-bucket path is not ported yet)")
+    move = on != oo
+    pair = oo * P + on
+    F = segment_count(torch.where(move, pair, P * P), P * P).reshape(P, P)
+    occ = segment_count(oo, P)
+    A = spill_admissions(F, occ, capacity)
+    # stable within-flow rank: admitted = the first A[src, dst] movers of
+    # each flow in slab order (non-movers rank against the padding id)
+    rank, _ = mig_ops.bucket_ranks(torch.where(move, pair, P * P), C=P * P)
+    quota = A.reshape(-1)[pair.clamp(0, P * P - 1).long()]
+    admitted = move & (rank < quota)
+    deferred = move & ~admitted
+    return torch.where(deferred, oo, on), deferred

@@ -2,7 +2,9 @@
 
 Every trigger is a frozen dataclass with
 
-  * ``init_state(device) -> TriggerState`` — fixed-shape state tensors;
+  * ``init_state(device="cuda") -> TriggerState`` — fixed-shape state
+    tensors on ``device`` (raises where no card is present unless given
+    ``"cpu"``);
   * ``decide(state, t, max_load, avg_load, total_load) -> (do, state)`` —
     called every step *before* planning with the pre-LB load statistics;
     ``t`` is the host step index and ``do`` a bool (a 0-d tensor for the
@@ -29,6 +31,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from repro_torch.core.comm_graph import segment_sum
+from repro_torch.kernels import resolve_device
 from repro_torch.runtime.cost import RuntimeCostModel
 
 
@@ -44,6 +47,7 @@ class TriggerState(NamedTuple):
 
 
 def _init_state(window: int, device) -> TriggerState:
+    device = resolve_device(device)
     return TriggerState(
         last_lb=torch.tensor(-(1 << 30), dtype=torch.int32, device=device),
         armed=torch.tensor(True, device=device),
@@ -71,7 +75,7 @@ class EveryTrigger:
     def never(self) -> bool:
         return self.every <= 0
 
-    def init_state(self, device="cpu") -> TriggerState:
+    def init_state(self, device="cuda") -> TriggerState:
         return _init_state(1, device)
 
     def decide(self, state, t: int, max_load, avg_load, total_load):
@@ -98,7 +102,7 @@ class ThresholdTrigger:
     def never(self) -> bool:
         return False
 
-    def init_state(self, device="cpu") -> TriggerState:
+    def init_state(self, device="cuda") -> TriggerState:
         return _init_state(1, device)
 
     def decide(self, state, t: int, max_load, avg_load, total_load):
@@ -132,7 +136,7 @@ class PredictiveTrigger:
     def never(self) -> bool:
         return False
 
-    def init_state(self, device="cpu") -> TriggerState:
+    def init_state(self, device="cuda") -> TriggerState:
         return _init_state(self.window, device)
 
     def decide(self, state, t: int, max_load, avg_load, total_load):

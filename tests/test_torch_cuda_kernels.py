@@ -12,6 +12,9 @@ import torch
 
 from repro_torch.core import virtual_lb as vlb
 from repro_torch.kernels.diffusion import ops as dops
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.ref import (POS_SENTINEL,
+                                                     chunked_attention)
 from repro_torch.kernels.diffusion.ref import (diffusion_nsweeps_ref,
                                                diffusion_sweep_ref)
 from repro_torch.kernels.histogram import ops as hops
@@ -282,3 +285,163 @@ def test_pic_driver_cuda_matches_cpu(dev):
         np.testing.assert_array_equal(getattr(g, f), getattr(c, f))
     np.testing.assert_allclose(g.final_x, c.final_x, atol=1e-3)
     np.testing.assert_allclose(g.final_y, c.final_y, atol=1e-3)
+
+
+# ------------------------------------------------------- flash attention --
+
+
+def _flash_inputs(dev, B, Sq, T, KV, G, hd, qdt, kvdt, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, KV, G, hd)),
+                        dtype=torch.float32, device=dev).to(qdt)
+    k, v = (torch.as_tensor(rng.normal(size=(B, T, KV, hd)),
+                            dtype=torch.float32, device=dev).to(kvdt)
+            for _ in range(2))
+    qp = (torch.arange(Sq, dtype=torch.int32, device=dev)
+          + (T - Sq)).expand(B, Sq).contiguous()
+    kp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    return q, k, v, qp, kp.contiguous()
+
+
+def _flash_close(got, want, dtype):
+    """The JAX kernel test's tolerance: 2e-2 bf16, 2e-3 f32 (abs + rel)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,T,KV,G,hd,window,prefix,dtype", [
+    (2, 64, 64, 2, 3, 16, 0, 0, torch.float32),
+    (1, 128, 128, 1, 4, 32, 0, 0, torch.float32),
+    (2, 64, 64, 2, 2, 16, 24, 0, torch.float32),
+    (1, 48, 48, 2, 2, 16, 0, 16, torch.float32),
+    (2, 96, 96, 3, 1, 16, 0, 0, torch.bfloat16),
+    (1, 40, 72, 2, 2, 8, 0, 0, torch.float32),     # Sq != T, ragged tile
+    (1, 200, 1056, 1, 4, 288, 0, 0, torch.bfloat16),   # gemma3-1b heads
+    (1, 130, 300, 1, 4, 288, 0, 0, torch.float32),
+    (4, 1, 1056, 1, 4, 288, 0, 0, torch.bfloat16),     # decode
+    (3, 1, 50, 2, 3, 16, 16, 0, torch.float32),
+    (1, 64, 64, 1, 20, 16, 0, 0, torch.float32),       # G > 16
+])
+def test_flash_attention_kernel_matches_plain(dev, B, Sq, T, KV, G, hd,
+                                              window, prefix, dtype):
+    from repro_torch import kernels
+
+    args = _flash_inputs(dev, B, Sq, T, KV, G, hd, dtype, dtype, Sq + T)
+    before = kernels.launch_counts()["flash_attention"]
+    got = fops.flash_attention(*args, window=window, prefix_len=prefix)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    want = chunked_attention(*args, window=window, prefix_len=prefix)
+    _flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.bfloat16)])
+def test_flash_attention_kernel_mixed_types(dev, qdt, kvdt):
+    """q and k/v of different types (a bf16 model over an f32 cache)."""
+    args = _flash_inputs(dev, 2, 33, 90, 1, 4, 288, qdt, kvdt, 7)
+    _flash_close(fops.flash_attention(*args, window=40),
+                 chunked_attention(*args, window=40), qdt)
+
+
+def test_flash_attention_kernel_sentinels_and_wrapped_ring(dev):
+    """Unwritten slots (sentinel positions) contribute nothing, and a
+    window ring whose slots are out of position order (decode past the
+    window) is read whole: every query of a batch row at its own
+    position, the ring holding the latest position of each residue."""
+    T, W, hd = 64, 64, 288
+    q, k, v, _, _ = _flash_inputs(dev, 3, 1, T, 1, 4, hd, torch.bfloat16,
+                                  torch.bfloat16, 11)
+    last = torch.tensor([[150], [70], [40]], dtype=torch.int32, device=dev)
+    s = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    kp = torch.where(s <= last, s + torch.div(last - s, T,
+                                              rounding_mode="floor") * T,
+                     POS_SENTINEL).to(torch.int32)
+    for window in (W, 40):
+        _flash_close(fops.flash_attention(q, k, v, last, kp, window=window),
+                     chunked_attention(q, k, v, last, kp, window=window),
+                     torch.bfloat16)
+    # prefill into a fresh cache: slots past the prompt hold the sentinel
+    q, k, v, qp, kp = _flash_inputs(dev, 1, 16, 64, 1, 2, 16, torch.float32,
+                                    torch.float32, 0)
+    qp = torch.arange(16, dtype=torch.int32, device=dev)[None]
+    kp = torch.where(kp < 16, kp, POS_SENTINEL).to(torch.int32)
+    _flash_close(fops.flash_attention(q, k, v, qp, kp),
+                 chunked_attention(q[:, :16], k[:, :16], v[:, :16], qp,
+                                   kp[:, :16]), torch.float32)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
+    args = _flash_inputs(dev, 1, 4, 8, 1, 2, 16, torch.float16,
+                         torch.float16, 0)
+    with pytest.raises(ValueError):
+        fops.flash_attention(*args)
+    args = _flash_inputs(dev, 1, 4, 8, 1, 2, 320, torch.float32,
+                         torch.float32, 0)
+    with pytest.raises(ValueError):
+        fops.flash_attention(*args)
+
+
+def test_served_model_cuda_matches_cpu(dev):
+    """The reduced gemma3-1b (f32) on the card against the CPU: forward
+    logits within 1e-4 relative to their scale, and a ServeEngine's
+    tokens equal (decode past the 16-token window included)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_to
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("gemma3-1b").reduced,
+                              compute_dtype="float32")
+    p = init_params(transformer.model_specs(cfg), 0, device="cpu")
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)))
+    pos = torch.arange(24, dtype=torch.int32).expand(2, 24)
+    out = {}
+    for d in ("cpu", dev):
+        pd = tree_to(p, d)
+        h, _ = transformer.forward(pd, cfg, dict(tokens=tok.to(d),
+                                                 positions=pos.to(d)))
+        eng = ServeEngine(cfg, pd, ServeConfig(num_slots=2, max_len=40),
+                          device=d)
+        for i in range(3):
+            eng.submit(Request(uid=i, prompt=tok[0, :8 + 3 * i].numpy(),
+                               max_new_tokens=10))
+        out[d] = (transformer.logits_head(pd, cfg, h).cpu(),
+                  [(r.uid, r.out) for r in eng.run_until_drained()])
+    scale = float(out["cpu"][0].abs().max())
+    assert float((out["cpu"][0] - out[dev][0]).abs().max()) <= 1e-4 * scale
+    assert out["cpu"][1] == out[dev][1]
+
+
+def test_scheduler_cuda_matches_cpu(dev):
+    """The DiffusionScheduler planning and exchanging on the card (K3 for
+    the manifest and, under a slot budget, for spill_owner's (R+1)^2 pair
+    buckets) equals the same scheduler on the CPU; past 31 replicas a
+    slot budget needs the pair-bucket path, which raises."""
+    from repro_torch.runtime import migrate as rt_migrate
+    from repro_torch.serve.scheduler import DiffusionScheduler, Session
+
+    def build(d, R):
+        s = DiffusionScheduler(R, k=3, device=d)
+        rng = np.random.default_rng(7)
+        for i in range(40):
+            s.add(Session(uid=100 + i, replica=int(rng.integers(0, 2)),
+                          tokens_per_s=float(rng.uniform(0.1, 5.0)),
+                          prefix_group=i // 5,
+                          kv_bytes=float(rng.uniform(10, 200))))
+        return s
+
+    for cap in (None, 12):
+        c, g = build("cpu", 4), build(dev, 4)
+        ic = c.rebalance(slot_capacity=cap)
+        ig = g.rebalance(slot_capacity=cap)
+        assert g.sessions == c.sessions
+        for key in ("moved_sessions", "deferred_sessions", "moved_kv_bytes",
+                    "prefix_local", "max_avg_load"):
+            assert ig[key] == pytest.approx(ic[key], rel=1e-6), key
+    owner = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="pair-bucket"):
+        rt_migrate.spill_owner(owner, owner, num_nodes=33, capacity=8)

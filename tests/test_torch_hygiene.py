@@ -46,13 +46,25 @@ def test_sources_have_no_jax_or_repro_imports():
 def test_entry_points_default_to_cuda():
     import inspect
 
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
     from repro_torch.core import engine
+    from repro_torch.models import params, transformer
     from repro_torch.pic import driver
+    from repro_torch.runtime import triggers
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import DiffusionScheduler
     from repro_torch.sim import scenarios, simulator, stencil
 
     assert driver.PICConfig().device == "cuda"
     for fn in (stencil.stencil_2d, stencil.stencil_3d,
-               scenarios.Scenario.instantiate):
+               scenarios.Scenario.instantiate, params.init_params,
+               transformer.init_cache, transformer.init_block_cache,
+               ServeEngine, DiffusionScheduler, interop.params_from_numpy,
+               triggers.EveryTrigger.init_state,
+               triggers.ThresholdTrigger.init_state,
+               triggers.PredictiveTrigger.init_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("checks the CUDA-less behavior")
@@ -61,6 +73,19 @@ def test_entry_points_default_to_cuda():
                                     cy=4, num_pes=2))
     with pytest.raises(RuntimeError):
         engine.LBEngine()
+    # the serving slice: the scheduler, the model's parameters and caches,
+    # the triggers' state and the launcher
+    with pytest.raises(RuntimeError, match="cuda"):
+        DiffusionScheduler(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        triggers.PredictiveTrigger().init_state()
+    cfg = get_arch("smollm-135m").reduced
+    with pytest.raises(RuntimeError, match="cuda"):
+        params.init_params(transformer.model_specs(cfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main([])
     with pytest.raises(RuntimeError, match="cuda"):
         stencil.stencil_2d(4, 4, 2)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -99,3 +124,22 @@ def test_chip_smoke_simulator_phases_rehearse_on_cpu(monkeypatch):
     loads, nbr, mask = chip_smoke.sim_engines(snap)
     assert loads.shape == (16,) and nbr.shape == mask.shape
     chip_smoke.paper_scripts_and_small_replay()
+
+
+def test_chip_smoke_serving_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's serving phases (two engines behind the scheduler,
+    decode past the window, the card-against-CPU serve) run end to end on
+    the CPU's plain versions with the reduced gemma3-1b."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "SERVE_FULL", False)
+    monkeypatch.setattr(chip_smoke, "SERVE_KERNELS", ())   # none on the CPU
+    monkeypatch.setattr(chip_smoke, "SERVE", dict(
+        replicas=2, slots=4, max_len=40, dtype="float32", max_new=6,
+        prompt_lens=(16, 13, 5, 6, 7, 8, 9, 10)))
+    counts = chip_smoke.serve_path()
+    assert counts["flash_attention"] == 0        # plain versions on the CPU
+    chip_smoke.serve_cpu_parity()
