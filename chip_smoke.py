@@ -39,7 +39,10 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
   8. holds each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (and the fused diffusion kernel also at
      P = 32768, K = 8), timing kernel, plain version and the one-call
-     PyTorch yardstick where there is one.
+     PyTorch yardstick where there is one; K6 in the form its selection
+     rule names for each case (split decode, tensor-core bf16 prefill,
+     SIMT f32 prefill), and its decode also cold: 26 caches, one a layer,
+     rotated from call to call as on the serving path.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -428,7 +431,10 @@ def serve_path():
     rng = np.random.default_rng(0)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    from repro_torch.kernels.flash_attention import ops as fops
+
     kernels.reset_launch_counts()
+    forms0 = dict(fops.form_launches)
     _sync()
     t0 = time.perf_counter()
     for i, plen in enumerate(SERVE["prompt_lens"]):
@@ -462,6 +468,14 @@ def serve_path():
     for name in SERVE_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched on the "
               "serving path")
+    # K6's forms on the path: bf16 prefills on the tensor cores, decode
+    # ticks split over the key axis
+    forms = {f: n - forms0[f] for f, n in fops.form_launches.items()}
+    want_forms = ({"split": n_layers * ticks, "mma": n_layers * n_req,
+                   "simt": 0} if "flash_attention" in SERVE_KERNELS
+                  else {f: 0 for f in forms})
+    check(forms == want_forms, f"flash_attention forms {forms}, not "
+          f"{want_forms}")
     local = cfg.all_layers().index("attn_local")
     ring = engines[0].cache[local]["kv"]["pos"]
     ring_max = int(ring[ring < 2 ** 29].max())      # written slots only
@@ -477,6 +491,7 @@ def serve_path():
           f"{list(SERVE['prompt_lens'])}), decode "
           f"{1e3 * decode_s / ticks:.3f} ms a tick over {ticks} ticks of "
           f"{SERVE['slots']} slots; peak device memory {peak:.3f} GiB; "
+          f"K6 forms {forms}; "
           f"the window ring holds positions up to {ring_max} in "
           f"{ring.shape[1]} slots")
     print(f"scheduler: max/avg load {info['max_avg_load']:.6f}, ext/int "
@@ -536,8 +551,12 @@ def serve_cpu_parity():
 
 def flash_row(counts):
     """K6 against its plain version (the model's chunked attention) at the
-    serving path's shapes; the row's times are those of the full-width
-    prefill against the global cache."""
+    serving path's shapes, each case in the form ``flash_form`` names; the
+    row's times are those of the full-width prefill against the global
+    cache, and its ``decode_*`` times those of the decode tick's global
+    layers, L2-hot (one cache) and cold (one cache a layer, rotated);
+    ``decode_f32_cache_ms`` is that decode over an f32 cache (the serving
+    engine's default type) with the bf16 model's q."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
@@ -560,66 +579,121 @@ def flash_row(counts):
         kp = torch.where(s <= last, kp, POS_SENTINEL)
         return qp.to(torch.int32), kp.to(torch.int32).contiguous()
 
-    cases = [  # label, B, Sq, T, window, q_last, dtype
-        ("prefill, global cache", 1, 1000, 1056, 0, [999], torch.bfloat16),
-        ("prefill, window ring", 1, 1000, W, W, [999], torch.bfloat16),
-        ("decode, global cache", 4, 1, 1056, 0, [1030, 1026, 543, 607],
-         torch.bfloat16),
-        ("decode, wrapped window ring", 4, 1, W, W, [1030, 1026, 543, 607],
-         torch.bfloat16),
-        ("prefill, global cache, f32", 1, 1000, 1056, 0, [999],
-         torch.float32),
-    ]
-    errs, main = [], None
-    for label, B, Sq, T, win, q_last, dt in cases:
-        q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
-        qp, kp = positions(B, Sq, T, torch.tensor(q_last, device=dev),
-                           ring=bool(win))
-        got = fops.flash_attention(q, k, v, qp, kp, window=win)
-        want = chunked_attention(q, k, v, qp, kp, window=win)
-        torch.cuda.synchronize()
-        tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+    def within(got, want, tol, label):
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         check(bool((diff <= tol + tol * want.float().abs()).all()),
               f"flash_attention ({label}): max_abs_err {err} beyond "
               f"{tol} abs + {tol} rel")
-        errs.append(err)
+        return err
+
+    def sdpa(q, k, v, qp, kp, win):
         # yardstick: one SDPA call on the same inputs (GQA expanded, the
-        # position mask as a boolean mask); timed here only
-        qs = q.reshape(B, Sq, KV * G, hd).transpose(1, 2).contiguous()
+        # position mask as a boolean mask; q in the cache's type, which
+        # SDPA needs); timed here only
+        B, Sq = qp.shape
+        qs = q.to(k.dtype).reshape(B, Sq, KV * G, hd).transpose(1, 2)
+        qs = qs.contiguous()
         ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
         vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        am = mask(qp, kp, win, 0)[:, None].contiguous()
+        return lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=am)
+
+    def bound(q, k, qp, kp, win):
         allowed = mask(qp, kp, win, 0)                       # (B, Sq, T)
-        am = allowed[:, None].contiguous()
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 4 * (qp.numel() + kp.numel())
+                  + 2 * int(allowed.any(1).sum()) * KV * hd
+                  * k.element_size())
+        flops = 4 * hd * G * KV * int(allowed.sum())
+        return bound_ms(nbytes, flops, PEAK_BF16_PER_S
+                        if q.dtype == k.dtype == torch.bfloat16
+                        else PEAK_F32_PER_S)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tick = [1030, 1026, 543, 607]
+    cases = [  # label, B, Sq, T, window, q_last, q dtype, cache dtype
+        ("prefill, global cache", 1, 1000, 1056, 0, [999], bf16, bf16),
+        ("prefill, window ring", 1, 1000, W, W, [999], bf16, bf16),
+        ("decode, global cache", 4, 1, 1056, 0, tick, bf16, bf16),
+        ("decode, wrapped window ring", 4, 1, W, W, tick, bf16, bf16),
+        ("prefill, global cache, f32", 1, 1000, 1056, 0, [999], f32, f32),
+        ("decode, global cache, f32 cache", 4, 1, 1056, 0, tick, bf16, f32),
+    ]
+    errs, res = [], {}
+    for label, B, Sq, T, win, q_last, dt, kdt in cases:
+        q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(kdt)
+        v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(kdt)
+        qp, kp = positions(B, Sq, T, torch.tensor(q_last, device=dev),
+                           ring=bool(win))
+        form = fops.flash_form(B, Sq, T, KV, G, hd, dt, kdt)
+        before = fops.form_launches[form]
+        got = fops.flash_attention(q, k, v, qp, kp, window=win)
+        check(fops.form_launches[form] == before + 1,
+              f"flash_attention ({label}) did not take the {form} form")
+        check(torch.equal(got, fops.flash_attention(q, k, v, qp, kp,
+                                                    window=win)),
+              f"flash_attention ({label}): two calls differ")
+        want = chunked_attention(q, k, v, qp, kp, window=win)
+        torch.cuda.synchronize()
+        tol = 2e-2 if bf16 in (dt, kdt) else 2e-3
+        err = within(got, want, tol, label)
+        errs.append(err)
         ms = time_ms(lambda: fops.flash_attention(q, k, v, qp, kp,
                                                   window=win))
         plain = time_ms(lambda: chunked_attention(q, k, v, qp, kp,
                                                   window=win))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=am))
-        size = q.element_size()
-        nbytes = (2 * q.numel() * size + 4 * (qp.numel() + kp.numel())
-                  + 2 * int(allowed.any(1).sum()) * KV * hd * size)
-        flops = 4 * hd * G * KV * int(allowed.sum())
-        bound = bound_ms(nbytes, flops, PEAK_BF16_PER_S
-                         if dt == torch.bfloat16 else PEAK_F32_PER_S)
+        lib = time_ms(sdpa(q, k, v, qp, kp, win))
+        bd = bound(q, k, qp, kp, win)
         print(f"flash_attention ({label}: B={B}, Sq={Sq}, T={T}, KV={KV}, "
-              f"G={G}, hd={hd}, window={win}, {str(dt)[6:]}): max_abs_err "
-              f"{err:.6g} (tolerance {tol}), kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bound[0]:.6f} ms "
-              f"({bound[1]})")
-        if main is None:
-            main = (ms, plain, bound, lib)
-    ms, plain, bound, lib = main
+              f"G={G}, hd={hd}, window={win}, q {str(dt)[6:]}, cache "
+              f"{str(kdt)[6:]}; {form} form): "
+              f"max_abs_err {err:.6g} (tolerance {tol}), kernel {ms:.4f} "
+              f"ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+              f"{bd[0]:.6f} ms ({bd[1]})")
+        res[label] = (ms, plain, bd, lib, (q, qp, kp))
+
+    # the decode tick's global layers as the path reads them: one cache a
+    # layer (26 x 4.9 MB, past the 50 MB L2), rotated from call to call
+    q, qp, kp = res["decode, global cache"][4]
+    n_layers = 26
+    caches = [tuple(torch.randn((4, 1056, KV, hd), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2)) for _ in range(n_layers)]
+    for i in (0, n_layers - 1):
+        errs.append(within(fops.flash_attention(q, *caches[i], qp, kp),
+                           chunked_attention(q, *caches[i], qp, kp), 2e-2,
+                           "decode, cold L2"))
+    turn = iter(range(10 ** 9))
+    cold = time_ms(lambda: fops.flash_attention(
+        q, *caches[next(turn) % n_layers], qp, kp), reps=2 * n_layers)
+    lib_fns = [sdpa(q, *c, qp, kp, 0) for c in caches]
+    turn = iter(range(10 ** 9))
+    lib_cold = time_ms(lambda: lib_fns[next(turn) % n_layers](),
+                       reps=2 * n_layers)
+    d_ms, _, d_bound, d_lib, _ = res["decode, global cache"]
+    print(f"flash_attention (decode, cold L2: {n_layers} caches of "
+          f"(4, 1056, 1, 288) bf16, rotated; split form of "
+          f"{fops.split_keys(4, KV, 1056)} keys a split): kernel "
+          f"{cold:.4f} ms against L2-hot {d_ms:.4f} ms and its bound "
+          f"{d_bound[0]:.6f} ms ({d_bound[1]}); SDPA cold {lib_cold:.4f} "
+          f"ms, hot {d_lib:.4f} ms")
+    p_ms, p_plain, p_bound, p_lib, _ = res["prefill, global cache"]
+    for what, mine, lib in (("prefill", p_ms, p_lib), ("decode", d_ms, d_lib)):
+        print(f"flash_attention {what} at the serving path's shape: kernel "
+              f"{mine:.4f} ms, SDPA {lib:.4f} ms "
+              f"({'no slower' if mine <= lib else 'SLOWER'} than SDPA)")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:96",
                 launches=counts["flash_attention"], max_abs_err=max(errs),
-                ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-                library_ms=lib)
+                ms=p_ms, plain_ms=p_plain, bound_ms=p_bound[0],
+                bound_by=p_bound[1], library_ms=p_lib, decode_ms=d_ms,
+                decode_cold_ms=cold, decode_bound_ms=d_bound[0],
+                decode_library_ms=d_lib,
+                decode_f32_cache_ms=res["decode, global cache, f32 cache"][0])
 
 
 def device_ms(fn, reps: int = 20) -> float:

@@ -5,6 +5,25 @@
 ``2^30`` marking an unwritten slot.  CPU tensors take the plain version
 (:mod:`.ref`, the model's chunked attention); CUDA tensors launch the
 kernel or raise.
+
+The kernel has three forms, one C entry each; :func:`flash_form` picks
+one from the shapes and types alone:
+
+* ``"split"`` — ``Sq * G <= 32`` (every decode tick): the key axis is cut
+  into splits of :func:`split_keys` keys, one block per (b·kv head,
+  split) reads its chunk once for all query heads, and a second kernel
+  merges the splits' (m, l, o) partials in split order;
+* ``"mma"`` — bf16 q and k/v with ``hd % 16 == 0`` (the served model's
+  prefill): (query row, group) pairs packed into the M dimension of bf16
+  ``mma.sync`` tensor-core products;
+* ``"simt"`` — everything else (f32 or mixed types, ``hd % 16 != 0``):
+  one warp per (query row, group) pair, f32 FMAs.
+
+Each wrapper call counts one launch of the kernel however many CUDA
+kernels its form issues; :data:`form_launches` counts the calls by form.
+``_launch`` takes the form, key split, M tile and partials kernel as
+arguments, so tests and ``benchmarks_torch/flash_forms.py`` reach the
+variants the rule does not take.
 """
 from __future__ import annotations
 
@@ -15,14 +34,91 @@ from repro_torch.kernels.flash_attention.ref import chunked_attention
 
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_launch": [PTR] * 6 + [INT] * 10,
+    "flash_attention_split_launch": [PTR] * 9 + [INT] * 14,
+    "flash_attention_mma_launch": [PTR] * 9 + [INT] * 11,
 })
 
 MAX_HD = 288        # output columns a lane holds: 9 × 32 (csrc)
 MAX_G = 32          # one warp a query group, at most 32 warps a block
+SPLIT_MAX_PAIRS = 32    # Sq · G a split block holds (csrc)
+SPLIT_BLOCKS = 132      # blocks a split launch aims at: the H100's SMs
+MMA_WARPS = 4           # 16 pairs a warp: 64-pair M tiles
+MMA_BLOCKS = 264        # blocks an mma launch aims at: two an SM
+FORMS = ("split", "mma", "simt")
 _TYPES = (torch.float32, torch.bfloat16)
+
+form_launches = {f: 0 for f in FORMS}
+
+
+def takes_tensor_cores(hd: int, q_dtype, kv_dtype) -> bool:
+    """Whether the bf16 tensor-core kernel takes these operands: bf16 q
+    and k/v, ``hd % 16 == 0`` (it runs the mma form, and the split form's
+    partials; the FMA kernels run the rest)."""
+    return q_dtype == kv_dtype == torch.bfloat16 and hd % 16 == 0
+
+
+def flash_form(B: int, Sq: int, T: int, KV: int, G: int, hd: int,
+               q_dtype, kv_dtype) -> str:
+    """The kernel form a call of these shapes and types takes: "split"
+    for at most 32 (query row, group) pairs, else "mma" where the tensor
+    cores take the operands, else "simt"."""
+    if Sq * G <= SPLIT_MAX_PAIRS:
+        return "split"
+    if takes_tensor_cores(hd, q_dtype, kv_dtype):
+        return "mma"
+    return "simt"
+
+
+def split_keys(B: int, KV: int, T: int) -> int:
+    """Keys a split of the split form: whole 32-key tiles, as few as give
+    ``B · KV · ceil(T / keys)`` about ``SPLIT_BLOCKS`` blocks."""
+    tiles = -(-T // 32)
+    splits = max(1, -(-SPLIT_BLOCKS // max(1, B * KV)))
+    return 32 * -(-tiles // splits)
+
+
+def mma_split_keys(B: int, Sq: int, T: int, KV: int, G: int) -> int:
+    """Keys a split of the mma form: whole 32-key tiles, as few as give
+    the M tiles of ``16 · MMA_WARPS`` pairs times the splits about
+    ``MMA_BLOCKS`` blocks (one split where the M tiles alone reach it)."""
+    m_tiles = max(1, B * KV * -(-Sq * G // (16 * MMA_WARPS)))
+    tiles = -(-T // 32)
+    return 32 * -(-tiles // max(1, -(-MMA_BLOCKS // m_tiles)))
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return (t if t.dtype == torch.int32 else t.to(torch.int32)).contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    # the kernels read rows 16 bytes at a time
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _flash_attention_cuda(q, k, v, q_pos, kv_pos, window, prefix_len):
+    """The kernel in the form :func:`flash_form` names, with the key split
+    and partials kernel the shapes and types give."""
+    B, Sq, KV, G, hd = q.shape
+    T = k.shape[1]
+    form = flash_form(B, Sq, T, KV, G, hd, q.dtype, k.dtype)
+    if form == "split":
+        return _launch(q, k, v, q_pos, kv_pos, window, prefix_len, "split",
+                       split_keys(B, KV, T),
+                       tensor_cores=takes_tensor_cores(hd, q.dtype, k.dtype))
+    if form == "mma":
+        return _launch(q, k, v, q_pos, kv_pos, window, prefix_len, "mma",
+                       mma_split_keys(B, Sq, T, KV, G))
+    return _launch(q, k, v, q_pos, kv_pos, window, prefix_len, "simt")
+
+
+def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
+            keys_per_split=0, warps=MMA_WARPS, tensor_cores=False):
+    """One call of the kernel in ``form`` with these settings: keys a split
+    (split and mma forms; T or more is one split), warps a block (2 or 4,
+    mma form) and the split form's partials kernel.  The serving path takes
+    :func:`_flash_attention_cuda`'s; tests and ``flash_forms.py`` set them
+    to reach the variants the rule does not take."""
     B, Sq, KV, G, hd = q.shape
     T = k.shape[1]
     if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
@@ -35,18 +131,48 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, window, prefix_len):
         raise ValueError(f"flash attention kernel takes 1 <= G <= {MAX_G}, "
                          f"1 <= hd <= {MAX_HD} and T >= 1; got G={G}, "
                          f"hd={hd}, T={T}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    qp = q_pos.to(torch.int32).contiguous()
-    kp = kv_pos.to(torch.int32).contiguous()
+    if form == "split" and Sq * G > SPLIT_MAX_PAIRS:
+        raise ValueError(f"the split form holds Sq * G <= {SPLIT_MAX_PAIRS} "
+                         f"pairs, got {Sq * G}")
+    if (form == "mma" or tensor_cores) and not takes_tensor_cores(
+            hd, q.dtype, k.dtype):
+        raise ValueError("the tensor-core kernel takes bf16 q and k/v with "
+                         f"hd % 16 == 0, got {q.dtype}, {k.dtype}, hd={hd}")
+    if form not in FORMS:
+        raise ValueError(f"unknown flash attention form {form!r}")
+    if form != "simt" and not (keys_per_split >= T or (
+            keys_per_split > 0 and keys_per_split % 32 == 0)):
+        raise ValueError(f"keys a split: whole 32-key tiles or T or more, "
+                         f"got {keys_per_split}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    qp, kp = _int32(q_pos), _int32(kv_pos)
     check_cuda(q, k, v, qp, kp)
     out = torch.empty_like(q)
     if Sq == 0 or B * KV == 0:
         return out
-    KERNEL.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
-                  B, Sq, T, KV, G, hd, int(window), int(prefix_len),
-                  int(q.dtype == torch.bfloat16),
-                  int(k.dtype == torch.bfloat16))
+    ptrs = [t.data_ptr() for t in (q, k, v, qp, kp, out)]
+    masks = [B, Sq, T, KV, G, hd, int(window), int(prefix_len)]
+    types = [int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16)]
+    if form == "simt":
+        KERNEL.launch("flash_attention_launch", *ptrs, *masks, *types)
+    else:
+        n_split = -(-T // keys_per_split)
+        parts = [ptrs[-1]] * 3                  # unread by one mma split
+        if n_split > 1 or (form == "split" and not tensor_cores):
+            # f32 partials (m, l, o) of every (b·kv head, pair, split)
+            n = B * KV * Sq * G * n_split
+            part = torch.empty(n * (hd + 2), dtype=torch.float32,
+                               device=q.device)
+            base = part.data_ptr()
+            parts = [base, base + 4 * n, base + 8 * n]      # m, l, o
+        if form == "split":
+            KERNEL.launch("flash_attention_split_launch", *ptrs, *parts,
+                          *masks, *types, keys_per_split, n_split,
+                          int(hd % 8 == 0), int(tensor_cores))
+        else:
+            KERNEL.launch("flash_attention_mma_launch", *ptrs, *parts,
+                          *masks, keys_per_split, n_split, warps)
+    form_launches[form] += 1
     return out
 
 

@@ -103,3 +103,79 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
         outs.append((o / l).to(q.dtype))
     return torch.cat(outs, 1)[:, :Sq]
 
+
+
+# ------------------------------------------------------ the split form --
+# The kernel's split form in plain PyTorch (tests hold it against the JAX
+# package; the main path does not call it): the keys a row visits, each
+# key split's (m, l, o) partials, and their merge in split order.
+
+TILE = 32   # keys a kernel tile
+
+
+def visit_end(q_pos, T: int, G: int, prefix_len: int = 0) -> torch.Tensor:
+    """(B, Sq) slots each query row visits: the key tiles below the causal
+    bound of its group of ``max(1, min(Sq, 16 // G))`` rows, the largest
+    non-sentinel position ``hi`` of the group (raised to ``prefix_len - 1``
+    with a prefix) giving ``min((hi + 32) // 32 + 1, ceil(T / 32))``
+    tiles, at most T slots."""
+    B, Sq = q_pos.shape
+    rows = max(1, min(Sq, 16 // G))
+    hi = torch.where(q_pos < POS_SENTINEL // 2, q_pos.long(), -1)
+    hi = torch.nn.functional.pad(hi, (0, -Sq % rows), value=-1)
+    hi = hi.reshape(B, -1, rows).amax(-1)
+    if prefix_len:
+        hi = torch.clamp(hi, min=prefix_len - 1)
+    tiles = torch.clamp((hi + TILE) // TILE + 1, max=-(-T // TILE))
+    vis = torch.clamp(tiles * TILE, max=T)
+    return vis.repeat_interleave(rows, dim=1)[:, :Sq]
+
+
+def split_partials(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                   prefix_len: int = 0, keys_per_split: int = TILE):
+    """Each key split's f32 partials ``(m, l, o)``: m and l (n_split, B,
+    Sq, KV, G), o (n_split, B, Sq, KV, G, hd).  A split holding none of a
+    row's visited keys gives m = -inf, l = 0, o = 0; p is rounded to v's
+    type before the PV product while l sums the unrounded p."""
+    B, Sq, KV, G, hd = q.shape
+    T = k.shape[1]
+    f32 = torch.float32
+    s = torch.einsum("bqkgh,btkh->bqkgt", q.to(f32), k.to(f32)) * _scale(hd)
+    allowed = mask(q_pos, kv_pos, window, prefix_len)[:, :, None, None]
+    s = torch.where(allowed, s, NEG)
+    slot = torch.arange(T, device=q.device)
+    seen = slot < visit_end(q_pos, T, G, prefix_len)[..., None]
+    s = torch.where(seen[:, :, None, None], s, -math.inf)
+    ms, ls, os = [], [], []
+    for lo in range(0, T, keys_per_split):
+        sc = s[..., lo:lo + keys_per_split]
+        m = sc.amax(-1)
+        p = torch.where(sc == -math.inf, 0.0, torch.exp(sc - m[..., None]))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        os.append(torch.einsum("bqkgt,btkh->bqkgh", p.to(v.dtype).to(f32),
+                               v[:, lo:lo + keys_per_split].to(f32)))
+    return torch.stack(ms), torch.stack(ls), torch.stack(os)
+
+
+def combine_partials(m, l, o, dtype) -> torch.Tensor:
+    """Merge the splits in split order: weights exp(m_i - M), 0 for
+    m_i = -inf; out = O / max(L, 1e-30) in ``dtype``."""
+    M = m.amax(0)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(o[0])
+    for mi, li, oi in zip(m, l, o):
+        w = torch.where(mi == -math.inf, 0.0, torch.exp(mi - M))
+        L = L + w * li
+        O = O + w[..., None] * oi
+    return (O / torch.clamp(L, min=1e-30)[..., None]).to(dtype)
+
+
+def split_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                    prefix_len: int = 0,
+                    keys_per_split: int = TILE) -> torch.Tensor:
+    """The split form: partials of every key split, then their merge."""
+    return combine_partials(
+        *split_partials(q, k, v, q_pos, kv_pos, window=window,
+                        prefix_len=prefix_len,
+                        keys_per_split=keys_per_split), q.dtype)

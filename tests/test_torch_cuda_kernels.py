@@ -382,6 +382,130 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
         fops.flash_attention(*args)
 
 
+# the kernel's forms: split (decode), mma (bf16 prefill), each case taking
+# the form flash_form names; two identical calls give equal bits
+
+
+def _take_form(form, *args, **kw):
+    before = fops.form_launches[form]
+    got = fops.flash_attention(*args, **kw)
+    assert fops.form_launches[form] == before + 1, form
+    assert torch.equal(got, fops.flash_attention(*args, **kw))
+    return got
+
+
+def _decode_inputs(dev, B, T, KV, G, hd, qdt, kvdt, last, ring, seed):
+    """One query row a batch row at position ``last[b]``; the cache holds
+    positions 0..last in slot order, or (ring) position p in slot p mod T;
+    unwritten slots hold the sentinel."""
+    q, k, v, _, _ = _flash_inputs(dev, B, 1, T, KV, G, hd, qdt, kvdt, seed)
+    qp = torch.tensor(last, dtype=torch.int32, device=dev)[:, None]
+    s = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    kp = (s + torch.div(qp - s, T, rounding_mode="floor") * T if ring
+          else s.expand(B, T))
+    kp = torch.where(s <= qp, kp, POS_SENTINEL).to(torch.int32)
+    return q, k, v, qp, kp.contiguous()
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("B,T,KV,G,hd,window,ring,qdt,kvdt,last", [
+    (1, 1056, 1, 4, 288, 0, False, BF16, BF16, [1040]),
+    (3, 1056, 1, 4, 288, 0, False, BF16, BF16, [1055, 600, 31]),
+    (4, 1056, 1, 4, 288, 0, False, BF16, BF16, [1030, 1026, 543, 607]),
+    (4, 1024, 1, 4, 288, 1024, True, BF16, BF16, [1030, 1026, 543, 607]),
+    (3, 1024, 1, 20, 64, 512, True, BF16, BF16, [2000, 1500, 700]),
+    (1, 50, 1, 1, 64, 0, False, BF16, BF16, [49]),
+    (3, 50, 2, 3, 64, 16, False, F32, F32, [49, 20, 3]),
+    (4, 1056, 1, 4, 288, 0, False, F32, F32, [1030, 1026, 543, 607]),
+    (3, 1056, 2, 1, 288, 0, False, F32, F32, [1055, 300, 64]),
+    (2, 300, 1, 3, 20, 0, False, F32, F32, [299, 100]),   # hd % 8 != 0
+    (3, 90, 1, 4, 288, 40, False, BF16, F32, [89, 60, 5]),
+    (3, 90, 1, 4, 288, 0, False, F32, BF16, [89, 60, 5]),
+    # the served decode over an f32 cache (ServeConfig's default type):
+    # bf16 q from the bf16 model, global and wrapped window layers
+    (4, 1056, 1, 4, 288, 0, False, BF16, F32, [1030, 1026, 543, 607]),
+    (4, 1024, 1, 4, 288, 1024, True, BF16, F32, [1030, 1026, 543, 607]),
+])
+def test_flash_split_form_matches_plain(dev, B, T, KV, G, hd, window, ring,
+                                        qdt, kvdt, last):
+    args = _decode_inputs(dev, B, T, KV, G, hd, qdt, kvdt, last, ring,
+                          B + T + G)
+    assert fops.flash_form(B, 1, T, KV, G, hd, qdt, kvdt) == "split"
+    # p is rounded to v's type before the PV product, and the oracle's
+    # decode branch rounds p after normalizing it: with a bf16 cache the
+    # two agree to bf16's tolerance whatever q's type
+    _flash_close(_take_form("split", *args, window=window),
+                 chunked_attention(*args, window=window),
+                 BF16 if BF16 in (qdt, kvdt) else F32)
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("keys_per_split", [32, 64, 96, 352, 1056])
+def test_flash_split_form_any_key_split(dev, keys_per_split, tensor_cores):
+    """The served decode's shape cut into 33 down to 1 splits, partials
+    from the tensor-core or the FMA kernel: each equals the plain split
+    form at the same split, and the chunked attention, and repeats bit for
+    bit."""
+    from repro_torch.kernels.flash_attention.ref import split_attention
+
+    args = _decode_inputs(dev, 4, 1056, 1, 4, 288, BF16, BF16,
+                          [1030, 1026, 543, 20], False, 3)
+    kw = dict(keys_per_split=keys_per_split, tensor_cores=tensor_cores)
+    got = fops._launch(*args, 0, 0, "split", **kw)
+    assert torch.equal(got, fops._launch(*args, 0, 0, "split", **kw))
+    _flash_close(got, chunked_attention(*args), BF16)
+    _flash_close(got, split_attention(*args, keys_per_split=keys_per_split),
+                 BF16)
+
+
+def _prefill_inputs(dev, B, Sq, T, KV, G, hd, fresh, seed):
+    """bf16 q/k/v; query rows at the last Sq positions of T, or (fresh) a
+    prompt written into slots 0..Sq-1 of an otherwise unwritten cache."""
+    q, k, v, qp, kp = _flash_inputs(dev, B, Sq, T, KV, G, hd, BF16, BF16,
+                                    seed)
+    if fresh:
+        qp = torch.arange(Sq, dtype=torch.int32,
+                          device=dev).expand(B, Sq).contiguous()
+        kp = torch.where(kp < Sq, kp, POS_SENTINEL).to(torch.int32)
+    return q, k, v, qp, kp
+
+
+@pytest.mark.parametrize("B,Sq,T,KV,G,hd,window,prefix,fresh", [
+    (1, 1000, 1056, 1, 4, 288, 0, 0, True),      # served prefill
+    (1, 1000, 1024, 1, 4, 288, 1024, 0, True),   # into a window ring
+    (2, 37, 100, 2, 3, 64, 0, 0, False),         # 111 pairs: ragged M tile
+    (1, 77, 77, 1, 4, 288, 24, 0, False),        # window
+    (2, 50, 64, 1, 3, 64, 0, 20, True),          # prefix-LM
+    (1, 45, 300, 1, 3, 64, 100, 30, False),      # window and prefix
+    (1, 64, 64, 1, 20, 16, 0, 0, False),         # G = 20
+    (1, 40, 300, 1, 1, 288, 0, 0, False),        # G = 1
+])
+def test_flash_mma_form_matches_plain(dev, B, Sq, T, KV, G, hd, window,
+                                      prefix, fresh):
+    args = _prefill_inputs(dev, B, Sq, T, KV, G, hd, fresh, Sq + T + G)
+    assert fops.flash_form(B, Sq, T, KV, G, hd, BF16, BF16) == "mma"
+    _flash_close(_take_form("mma", *args, window=window, prefix_len=prefix),
+                 chunked_attention(*args, window=window, prefix_len=prefix),
+                 BF16)
+
+
+@pytest.mark.parametrize("warps,keys_per_split", [(2, 0), (4, 0), (2, 256),
+                                                  (4, 128)])
+def test_flash_mma_form_tiles_and_key_splits(dev, warps, keys_per_split):
+    """32- or 64-pair M tiles, with and without a key split merged by the
+    combine kernel, at the served prefill's shape and a ragged small one;
+    a key split's merge repeats bit for bit."""
+    for shape, window in (((1, 1000, 1056, 1, 4, 288), 0),
+                          ((2, 37, 100, 2, 3, 64), 24)):
+        args = _prefill_inputs(dev, *shape, False, 5)
+        kw = dict(keys_per_split=keys_per_split or shape[2], warps=warps)
+        got = fops._launch(*args, window, 0, "mma", **kw)
+        _flash_close(got, chunked_attention(*args, window=window), BF16)
+        assert torch.equal(got, fops._launch(*args, window, 0, "mma", **kw))
+
+
 def test_served_model_cuda_matches_cpu(dev):
     """The reduced gemma3-1b (f32) on the card against the CPU: forward
     logits within 1e-4 relative to their scale, and a ServeEngine's
