@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
-"""Where the fused diffusion kernel stops paying, on one NVIDIA card: the
-measurement behind ``kernels/diffusion/ops.py`` ``FUSED_MAX_PK``.
+"""Where each form of the fused diffusion kernel K1 pays, on one NVIDIA
+card: the measurement behind ``kernels/diffusion/ops.py`` ``WARP_MAX_PK``,
+``BLOCK_MAX_PK`` and ``FUSED_MAX_PK``.
 
-For K in {4, 8} and P in {512, 1024, ..., 32768} nodes on a periodic 2D
-grid graph (K = 4: the four edge neighbours; K = 8: the Moore
+For K in {4, 8} and P in {8, 32, 128, 512, 1024, ..., 131072} nodes on a
+periodic 2D grid graph (K = 4: the four edge neighbours; K = 8: the Moore
 neighbourhood), with loads drawn from a seed, it times one S = 8 chunk from
 the initial carry (all eight sweeps active) of
 
-  * ``fused``: the one-block S-sweep kernel (``csrc/diffusion.cu``);
+  * each form of K1 (``csrc/diffusion.cu``) that takes the shape: ``warp``
+    and ``block`` (one block, state in shared memory) and ``grid`` (a
+    cooperative launch, state in L2);
   * ``streaming``: the streaming sweep kernel (``csrc/diffusion_sweep.cu``)
     once a sweep inside the plain masked chunk body, replayed from a CUDA
-    graph (``ops.streaming_nsweeps``, the path ``sweep_impl`` selects);
+    graph (``ops.streaming_nsweeps``);
   * ``eager``: the same chunk issued op by op from Python
     (``reference_nsweeps(step_fn=ops.diffusion_sweep)``, what an explicit
     ``LBEngine(step_fn=...)`` runs);
 
 and one sweep of the streaming kernel and of its plain version.  Times are
-CUDA-event means over ``--reps`` calls after a warm-up.  It checks that the
-three chunks end on the same ``it`` and ``stall`` (and the two streaming
-ones on the same bits) and prints which one ``sweep_impl`` picks.  Prints
-the card's name and power limit and a table; writes the rows as JSON to
-``--out``.
+CUDA-event means over ``--reps`` calls after a warm-up (what a caller waits
+for, the wrapper's host work where that is longer); each K1 form also
+with its device time (``torch.profiler``, the sum of its kernel).  It checks that
+every chunk ends on the same ``it`` and ``stall`` (and the two streaming
+ones on the same bits) and prints which form ``k1_form`` and which path
+``sweep_impl`` pick.  Prints the card's name and power limit and a table;
+writes the rows as JSON to ``--out``.
 
-Run from the repository root:  python3 benchmarks_torch/diffusion_crossover.py
-It needs a card and fails without one.
+Run from the repository root on a machine with one card:
+``python3 benchmarks_torch/diffusion_crossover.py --out
+diffusion_crossover.json``.  It needs a card and fails without one.
 """
 from __future__ import annotations
 
@@ -71,6 +77,23 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of a call: the sum of its kernels' intervals under
+    ``torch.profiler``, over ``reps`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "_kernel" in e.name)
+    return us / 1e3 / reps
+
+
 def measure(P: int, K: int, reps: int):
     from repro_torch.core import virtual_lb as vlb
     from repro_torch.kernels.diffusion import ops as dops
@@ -91,9 +114,6 @@ def measure(P: int, K: int, reps: int):
     kw = dict(n_sweeps=8, single_hop=True, tol=0.02, max_iters=512)
     args = (*carry, nbr, mask, rev, alpha)
 
-    def fused():
-        return dops.fused_nsweeps(*args, **kw)
-
     def streaming():
         return dops.streaming_nsweeps(*args, **kw)
 
@@ -101,17 +121,28 @@ def measure(P: int, K: int, reps: int):
         return vlb.reference_nsweeps(*args, **kw,
                                      step_fn=dops.diffusion_sweep)
 
-    f, s, e = fused(), streaming(), eager()
-    same = ((int(f[3]), int(f[5])) == (int(s[3]), int(s[5]))
-            and all(torch.equal(a, b) for a, b in zip(s, e)))
+    s, e = streaming(), eager()
+    stat = (int(s[3]), int(s[5]))
+    same = all(torch.equal(a, b) for a, b in zip(s, e))
+    row = dict(P=P, K=K, sweeps=stat[0])
+    for form in dops.K1_FORMS:
+        if not dops.k1_takes(form, P, K):
+            row[f"{form}_ms"] = row[f"{form}_device_ms"] = None
+            continue
+        f = dops._fused_form(form, *args, **kw)
+        same &= (int(f[3]), int(f[5])) == stat
+        row[f"{form}_ms"] = time_ms(lambda: dops._fused_form(
+            form, *args, **kw), reps)
+        row[f"{form}_device_ms"] = device_ms(lambda: dops._fused_form(
+            form, *args, **kw), reps)
     sw = (x, x, nbr, mask, rev, alpha, True)
-    return dict(
-        P=P, K=K, sweeps=int(f[3]), agree=same,
-        fused_ms=time_ms(fused, reps), streaming_ms=time_ms(streaming, reps),
-        eager_ms=time_ms(eager, reps),
+    row.update(
+        agree=same, streaming_ms=time_ms(streaming, reps),
+        eager_ms=time_ms(eager, max(2, reps // 4)),
         sweep_ms=time_ms(lambda: dops.diffusion_sweep(*sw), reps),
         plain_sweep_ms=time_ms(lambda: diffusion_sweep_ref(*sw), reps),
-        picks=dops.sweep_impl(P, K, dev))
+        form=dops.k1_form(P, K), picks=dops.sweep_impl(P, K, dev))
+    return row
 
 
 def main() -> int:
@@ -131,13 +162,21 @@ def main() -> int:
     print(smi)
     kernels.build_all()
     rows = [measure(P, K, args.reps) for K in (4, 8)
-            for P in (512 << i for i in range(7))]
-    print(table(["K", "P", "sweeps", "fused ms", "streaming ms",
-                 "eager ms", "K2 sweep ms", "plain sweep ms", "sweep_impl",
-                 "agree"],
-                [[r["K"], r["P"], r["sweeps"], f"{r['fused_ms']:.4f}",
-                  f"{r['streaming_ms']:.4f}", f"{r['eager_ms']:.4f}",
-                  f"{r['sweep_ms']:.4f}", f"{r['plain_sweep_ms']:.4f}",
+            for P in (8, 32, 128, *(512 << i for i in range(9)))]
+
+    def ms(v):
+        return "-" if v is None else f"{v:.4f}"
+
+    print(table(["K", "P", "sweeps", "warp ms", "block ms", "grid ms",
+                 "warp dev", "block dev", "grid dev",
+                 "streaming ms", "eager ms", "K2 sweep ms", "plain sweep ms",
+                 "k1_form", "sweep_impl", "agree"],
+                [[r["K"], r["P"], r["sweeps"], ms(r["warp_ms"]),
+                  ms(r["block_ms"]), ms(r["grid_ms"]),
+                  ms(r["warp_device_ms"]), ms(r["block_device_ms"]),
+                  ms(r["grid_device_ms"]),
+                  ms(r["streaming_ms"]), ms(r["eager_ms"]),
+                  ms(r["sweep_ms"]), ms(r["plain_sweep_ms"]), r["form"],
                   r["picks"], r["agree"]] for r in rows]))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -20,9 +20,12 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      5-point edges) over 8192 nodes tiled 64 × 128, diff-comm k = 8, 30
      steps, LB every 10 — with the launch counts set to 0 just before and
      read just after, and checks it against a ``strategy="none"`` replay;
+     stage 2 takes K1's grid form there;
   4. plans the first fired step's snapshot through
-     ``LBEngine(step_fn=ops.diffusion_sweep)`` and the default engine, and
-     stage 2 through the streaming kernel against the fused one;
+     ``LBEngine(step_fn=ops.diffusion_sweep)`` (K2's path, with the launch
+     counts set to 0 just before and read just after) and the default
+     engine, and stage 2 through the selected chunk (K1) against the
+     streaming one (K2 in a replayed CUDA graph);
   5. runs the port's Table I and Fig 2 scripts on the card, and a small
      replay on the card against the same replay on the CPU;
   6. drives the serving path — what ``repro_torch.launch.serve`` does, at
@@ -37,9 +40,13 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
   7. serves the reduced gemma3-1b (f32) on the card and on the CPU: equal
      tokens, logits within 1e-3;
   8. holds each kernel against its plain PyTorch version on the card at the
-     shapes its path gives it (and the fused diffusion kernel also at
-     P = 32768, K = 8), timing kernel, plain version and the one-call
-     PyTorch yardstick where there is one; K6 in the form its selection
+     shapes its path gives it, timing kernel, plain version and the
+     one-call PyTorch yardstick where there is one: K4 in both orders the
+     PIC path gives it (initial, and bucketed by PE after an exchange),
+     with f32 weights twice bit for bit; K1 in every form that takes each
+     of P = 8, K = 4 (PIC), P = 8192, K = 8 (simulator) and P = 32768,
+     K = 8, each form twice bit for bit, the selected one timed with its
+     device time; K6 in the form its selection
      rule names for each case (split decode, tensor-core bf16 prefill,
      SIMT f32 prefill), and its decode also cold: 26 caches, one a layer,
      rotated from call to call as on the serving path.
@@ -74,7 +81,10 @@ PIC_KERNELS = ("diffusion_nsweeps", "histogram", "pic_push", "scatter_dest")
 SIM_SCENARIO = dict(grid=1024, num_nodes=8192, mapping="tiled")
 SIM = dict(steps=30, lb_every=10, strategy="diff-comm",
            strategy_kwargs={"k": 8})
-SIM_KERNELS = ("diffusion_sweep",)
+SIM_KERNELS = ("diffusion_nsweeps",)
+# K2 (the streaming sweep) runs where a caller plans with
+# LBEngine(step_fn=ops.diffusion_sweep): the snapshot's plan in sim_engines
+STEP_KERNELS = ("diffusion_sweep",)
 
 # the serving path: gemma3-1b at full width on two replicas; prompts stay
 # within the 1024-token window (a longer prefill would write several
@@ -86,6 +96,8 @@ SERVE = dict(replicas=2, slots=4, max_len=1056, dtype="bfloat16",
              prompt_lens=(1000, 996, 512, 576, 640, 704, 768, 832))
 SERVE_KERNELS = ("flash_attention", "scatter_dest")
 DEV = "cuda"   # the card; a rehearsal on the CPU sets "cpu"
+# K1's calls by form on each path's run (filled as the paths run)
+K1_PATH_FORMS: dict = {}
 
 
 def fail(msg: str):
@@ -130,16 +142,35 @@ def spacing(v) -> float:
 # ------------------------------------------------------------ main path --
 
 
+def k1_forms_since(before, path, P, K, launches):
+    """K1's calls by form since ``before`` (a copy of
+    ``ops.form_launches``), recorded for ``path``; every call must have
+    taken the form ``k1_form(P, K)`` names."""
+    from repro_torch.kernels.diffusion import ops as dops
+
+    forms = {f: n - before[f] for f, n in dops.form_launches.items()}
+    K1_PATH_FORMS[path] = forms
+    want = dops.k1_form(P, K)
+    check(forms[want] == launches == sum(forms.values()),
+          f"{path} path: K1 forms {forms}, not {launches} calls of the "
+          f"{want} form")
+    return forms
+
+
 def main_path():
     import numpy as np
     from repro_torch import kernels
+    from repro_torch.kernels.diffusion import ops as dops
     from repro_torch.pic import chares, driver
 
     kernels.reset_launch_counts()
+    k1_0 = dict(dops.form_launches)
     t0 = time.perf_counter()
     res = driver.run(driver.PICConfig(**PIC, device="cuda"))
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    k1_forms_since(k1_0, "PIC", PIC["num_pes"], PIC["strategy_kwargs"]["k"],
+                   counts["diffusion_nsweeps"])
     print(f"PIC path: {PIC['n_particles']} particles, {PIC['steps']} steps "
           f"in {wall:.3f} s end to end ({res.wall_seconds:.3f} s step loop, "
           f"{PIC['steps'] / res.wall_seconds:.2f} steps/s); launches "
@@ -222,12 +253,16 @@ def sim_path():
     P, K = SIM_SCENARIO["num_nodes"], SIM["strategy_kwargs"]["k"]
     N = SIM_SCENARIO["grid"] ** 2
     print(f"sweep_impl({P}, {K}) = {dops.sweep_impl(P, K, DEV)!r} (the "
-          f"fused kernel up to P*K = {dops.FUSED_MAX_PK})")
+          f"fused kernel up to P*K = {dops.FUSED_MAX_PK}), k1_form = "
+          f"{dops.k1_form(P, K)!r}")
     kernels.reset_launch_counts()
+    k1_0 = dict(dops.form_launches)
     t0 = time.perf_counter()
     res = simulator.run_series(problem, evolve, **SIM)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    if "diffusion_nsweeps" in SIM_KERNELS:
+        k1_forms_since(k1_0, "simulator", P, K, counts["diffusion_nsweeps"])
     fired = np.nonzero(res.lb_fired)[0].tolist()
     plan_s = [float(res.plan_step_seconds[t]) for t in fired]
     print(f"simulator path: stencil-wave, {N} objects, {P} nodes, "
@@ -262,10 +297,13 @@ def sim_path():
 
 def sim_engines(snap):
     """Plan the snapshot through ``LBEngine(step_fn=ops.diffusion_sweep)``
-    and the default engine, then stage 2 through the fused kernel against
-    the streaming one; returns the stage-2 inputs ``(loads, nbr, mask)``."""
+    (K2's path: the launch counts set to 0 just before and read just after)
+    and the default engine, then stage 2 through the selected chunk (K1)
+    against the streaming one; returns the stage-2 inputs ``(loads, nbr,
+    mask)`` and the launch counts of the step_fn plan."""
     import numpy as np
     import torch
+    from repro_torch import kernels
     from repro_torch.core import comm_graph, engine, metrics
     from repro_torch.core import neighbor_selection as ns
     from repro_torch.core import object_selection as osel
@@ -273,8 +311,13 @@ def sim_engines(snap):
     from repro_torch.kernels.diffusion import ops as dops
 
     K = SIM["strategy_kwargs"]["k"]
+    kernels.reset_launch_counts()
     step = engine.LBEngine(k=K, step_fn=dops.diffusion_sweep,
                            device=DEV).plan(snap)
+    step_counts = kernels.launch_counts()
+    for name in STEP_KERNELS:
+        check(step_counts[name] > 0, f"kernel {name} was not launched by "
+              "the step_fn plan")
     default = engine.get_engine(k=K, device=DEV).plan(snap)
     print(f"full-size plan: LBEngine(step_fn=diffusion_sweep) "
           f"{step.info['plan_seconds']:.3f} s, default engine "
@@ -297,12 +340,14 @@ def sim_engines(snap):
         ns.comm_preference(comm_graph.node_comm_matrix(snap)), k=K))
     nl = comm_graph.node_loads(snap)
     args = (nl, nres.nbr_idx, nres.nbr_mask)
-    # stage 2 three ways: K1 forced, the selected streaming chunk (K2 in a
-    # replayed CUDA graph), and K2 issued sweep by sweep (step_fn)
+    # stage 2 three ways: the selected chunk (K1 by sweep_impl), the
+    # streaming chunk (K2 in a replayed CUDA graph) and K2 issued sweep by
+    # sweep (step_fn); the first two timed warm (graph captured)
+    vlb.virtual_balance(*args, chunk_fn=dops.streaming_nsweeps)
     fused, s2f = timed(lambda: vlb.virtual_balance(
-        *args, chunk_fn=dops.fused_nsweeps))
-    stream, s2s = timed(lambda: vlb.virtual_balance(
         *args, chunk_fn=dops.diffusion_nsweeps))
+    stream, s2s = timed(lambda: vlb.virtual_balance(
+        *args, chunk_fn=dops.streaming_nsweeps))
     eager, s2e = timed(lambda: vlb.virtual_balance(
         *args, step_fn=dops.diffusion_sweep))
     a_f, s3 = timed(lambda: osel.select_objects(
@@ -310,7 +355,9 @@ def sim_engines(snap):
     a_s = osel.select_objects(snap, nres.nbr_idx, nres.nbr_mask,
                               stream.flows).assignment
     print(f"stages at full size: 1 (neighbor selection) {s1:.3f} s, "
-          f"{int(nres.rounds)} rounds; 2 fused {s2f:.3f} s / streaming "
+          f"{int(nres.rounds)} rounds; 2 selected ("
+          f"{dops.sweep_impl(*nres.nbr_idx.shape, DEV)}) {s2f:.3f} s / "
+          "streaming "
           f"{s2s:.3f} s / step_fn {s2e:.3f} s; 3 (object selection) "
           f"{s3:.3f} s")
     check(all(torch.equal(a, b) for a, b in zip(stream, eager)),
@@ -341,7 +388,7 @@ def sim_engines(snap):
     else:
         print("stage 3: the fused and streaming flows give equal "
               "assignments")
-    return args
+    return args, step_counts
 
 
 def paper_scripts_and_small_replay():
@@ -431,10 +478,12 @@ def serve_path():
     rng = np.random.default_rng(0)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    from repro_torch.kernels.diffusion import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
     kernels.reset_launch_counts()
     forms0 = dict(fops.form_launches)
+    k1_0 = dict(dops.form_launches)
     _sync()
     t0 = time.perf_counter()
     for i, plen in enumerate(SERVE["prompt_lens"]):
@@ -471,6 +520,8 @@ def serve_path():
     # K6's forms on the path: bf16 prefills on the tensor cores, decode
     # ticks split over the key axis
     forms = {f: n - forms0[f] for f, n in fops.form_launches.items()}
+    K1_PATH_FORMS["serving"] = {f: n - k1_0[f]
+                                for f, n in dops.form_launches.items()}
     want_forms = ({"split": n_layers * ticks, "mma": n_layers * n_req,
                    "simt": 0} if "flash_attention" in SERVE_KERNELS
                   else {f: 0 for f in forms})
@@ -785,30 +836,56 @@ def kernel_rows(counts, sim_graph):
     planned, _ = engine.get_strategy(PIC["strategy"]).bind(
         **PIC["strategy_kwargs"])(problem)
 
-    # K4 — chare loads (weights are ones on the path).  After an exchange
-    # the particles lie bucketed by PE, so a warp sees few distinct chares
-    # and its shared-memory atomics contend: time that order, which every
-    # step after the first rebalance gives the kernel, and the initial one
+    # K4 — chare loads (weights are ones on the path), in the initial
+    # particle order and bucketed by PE as after an exchange (the order
+    # every step after the first rebalance gives the kernel)
     ids_x = ids[torch.argsort(planned[ids.long()], stable=True)]
+    k4 = {}
+    form = hops.histogram_plan(N, C, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     for order, i in (("initial", ids), ("after an exchange", ids_x)):
         got, want = hops.histogram(i, w, C=C), histogram_ref(i, w, C=C)
         err = float((got - want).abs().max())
         check(err == 0.0, f"histogram ({order} order): off by {err} on "
               "integer weights")
-    print(f"histogram in the initial particle order: kernel "
-          f"{time_ms(lambda: hops.histogram(ids, w, C=C)):.4f} ms")
-    wf = torch.rand(N, device=dev, generator=torch.Generator(dev).manual_seed(0))
-    errf = float((hops.histogram(ids_x, wf, C=C)
-                  - histogram_ref(ids_x, wf, C=C)).abs().max())
-    # the plain version's float atomics add ~10^6 terms a bin in any order
-    check(errf <= 1e-3 * float(histogram_ref(ids_x, wf, C=C).abs().max()),
-          f"histogram: float weights off by {errf}")
+        k4[order] = (time_ms(lambda: hops.histogram(i, w, C=C)),
+                     device_ms(lambda: hops.histogram(i, w, C=C)),
+                     time_ms(lambda: torch.bincount(i, weights=w,
+                                                    minlength=C)))
+        print(f"histogram ({order} order, {form[0]} form, {form[1]} blocks, "
+              f"{form[2]} B shared): kernel {k4[order][0]:.4f} ms, device "
+              f"{k4[order][1]:.4f} ms, bincount {k4[order][2]:.4f} ms")
+    # f32 weights: two calls equal bit for bit (the private form), within
+    # 5e-5 of the largest bin of a float64 sum (each thread adds at most a
+    # few hundred terms a bin in f32, then fixed trees), and within 1e-3 of
+    # the plain version (index_add_'s atomics add ~10^6 terms a bin in any
+    # order)
+    wf = torch.rand(N, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    for i in (ids, ids_x):
+        want64 = torch.zeros(C, dtype=torch.float64, device=dev).index_add_(
+            0, i.long(), wf.double())
+        scale = float(want64.abs().max())
+        got = hops.histogram(i, wf, C=C)
+        check(torch.equal(got, hops.histogram(i, wf, C=C)),
+              "histogram: two calls with f32 weights differ")
+        err64 = float((got.double() - want64).abs().max())
+        check(err64 <= 5e-5 * scale, f"histogram: f32 weights {err64} off "
+              "a float64 sum")
+        errf = float((got - histogram_ref(i, wf, C=C)).abs().max())
+        check(errf <= 1e-3 * scale, f"histogram: f32 weights off by {errf}")
+    print(f"histogram with f32 weights: two calls equal bit for bit; "
+          f"{err64:.6g} off a float64 sum, {errf:.6g} off the plain version "
+          f"(largest bin {scale:.6g})")
+    x_ms, x_dev, x_lib = k4["after an exchange"]
+    check(x_ms < x_lib, f"histogram after an exchange: {x_ms:.4f} ms, not "
+          f"below bincount's {x_lib:.4f} ms")
     row("histogram", "src/repro/kernels/histogram/kernel.py:41",
-        "src/repro_torch/csrc/histogram.cu", err, "exact (ones)",
-        time_ms(lambda: hops.histogram(ids_x, w, C=C)),
+        "src/repro_torch/csrc/histogram.cu", err, "exact (ones)", x_ms,
         time_ms(lambda: histogram_ref(ids_x, w, C=C), reps=5),
-        bound_ms(8 * N + 4 * C, N),
-        time_ms(lambda: torch.bincount(ids_x, weights=w, minlength=C)))
+        bound_ms(8 * N + 4 * C, N), x_lib)
+    rows[-1].update(device_ms=x_dev, initial_ms=k4["initial"][0],
+                    initial_device_ms=k4["initial"][1])
 
     # K3 — owner ids of those particles under a rebalanced mapping
     amap = torch.as_tensor(np.random.default_rng(0).integers(0, P, C),
@@ -834,9 +911,15 @@ def kernel_rows(counts, sim_graph):
         bound_ms(8 * N + 4 * P, 6 * N),
         time_ms(lambda: torch.argsort(owner, stable=True)))
 
-    # K1 — the first plan's stage-2 chunk (P = 8, K = 4, S = 8), and
-    # P = 32768, K = 8 on a periodic 2D stencil for the simulator slice
-    def k1_case(nl, nbr, mask, S):
+    # K1 — one S = 8 chunk from the initial carry at the PIC path's shape
+    # (the first plan's graph, P = 8, K = 4), the simulator path's (its
+    # snapshot's graph, P = 8192, K = 8) and P = 32768, K = 8 on a periodic
+    # 2D stencil: every form that takes the shape against the plain chunk
+    # (it and stall exact; x, own, flow within 16 ulp of the largest load,
+    # the sums over K and P being taken in another order; res within that
+    # over the mean load), each form twice bit for bit, and the selected
+    # form timed (events and device) beside its bound
+    def k1_case(label, nl, nbr, mask, S=8):
         rev = vlb.reverse_slots(nbr, mask)
         Pn, K = nbr.shape
         alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
@@ -844,39 +927,53 @@ def kernel_rows(counts, sim_graph):
         carry = (nl, nl, torch.zeros((Pn, K), device=dev),
                  torch.zeros((), dtype=torch.int32, device=dev), res0,
                  torch.zeros((), dtype=torch.int32, device=dev))
+        args = (*carry, nbr, mask, rev, alpha)
         kw = dict(n_sweeps=S, single_hop=True, tol=0.02, max_iters=512)
-        got = dops.fused_nsweeps(*carry, nbr, mask, rev, alpha, **kw)
-        want = diffusion_nsweeps_ref(*carry, nbr, mask, rev, alpha, **kw)
-        check(int(got[3]) == int(want[3]) and int(got[5]) == int(want[5]),
-              f"diffusion P={Pn}: it/stall {int(got[3])}/{int(got[5])} vs "
-              f"{int(want[3])}/{int(want[5])}")
-        # x, own, flow within 16 ulp of the largest load (sums over K and
-        # P are taken in another order); res, a deviation over the mean
-        # load, within that over the mean load
+        want = diffusion_nsweeps_ref(*args, **kw)
         ulp = spacing(nl)
-        err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1, 2))
-        err_res = abs(float(got[4]) - float(want[4])) * float(nl.mean())
-        err_u = max(err, err_res) / ulp
-        check(err_u <= 16, f"diffusion P={Pn}: {err_u:.1f} ulp off")
-        sweeps = int(got[3])
+        errs = {}
+        for form in dops.K1_FORMS:
+            if not dops.k1_takes(form, Pn, K):
+                continue
+            got = dops._fused_form(form, *args, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(
+                got, dops._fused_form(form, *args, **kw))),
+                f"diffusion {label}, {form} form: two calls differ")
+            check((int(got[3]), int(got[5])) == (int(want[3]), int(want[5])),
+                  f"diffusion {label}, {form} form: it/stall "
+                  f"{int(got[3])}/{int(got[5])} vs {int(want[3])}/"
+                  f"{int(want[5])}")
+            err = max(float((got[i] - want[i]).abs().max())
+                      for i in (0, 1, 2))
+            err_res = abs(float(got[4]) - float(want[4])) * float(nl.mean())
+            errs[form] = (err, max(err, err_res) / ulp)
+            check(errs[form][1] <= 16, f"diffusion {label}, {form} form: "
+                  f"{errs[form][1]:.1f} ulp off")
+        form = dops.k1_form(Pn, K)
+        sweeps = int(want[3])
         nbytes = 4 * (2 * Pn + Pn * K) * 2 + 9 * Pn * K
         ops = sweeps * (15 * Pn * K + 10 * Pn)
-        return (err, err_u, sweeps,
-                time_ms(lambda: dops.fused_nsweeps(
-                    *carry, nbr, mask, rev, alpha, **kw)),
-                time_ms(lambda: diffusion_nsweeps_ref(
-                    *carry, nbr, mask, rev, alpha, **kw), reps=5),
-                bound_ms(nbytes, ops))
+        out = dict(form=form, err=max(e[0] for e in errs.values()),
+                   err_u=max(e[1] for e in errs.values()), sweeps=sweeps,
+                   ms=time_ms(lambda: dops.fused_nsweeps(*args, **kw)),
+                   device_ms=device_ms(lambda: dops.fused_nsweeps(*args,
+                                                                  **kw)),
+                   plain=time_ms(lambda: diffusion_nsweeps_ref(*args, **kw),
+                                 reps=5),
+                   bound=bound_ms(nbytes, ops))
+        print(f"diffusion_nsweeps ({label}, {sweeps} sweeps, {form} form): "
+              f"ulp off the plain chunk by form "
+              f"{ {f: round(e[1], 2) for f, e in errs.items()} }, kernel "
+              f"{out['ms']:.4f} ms, device {out['device_ms']:.4f} ms, plain "
+              f"{out['plain']:.4f} ms, bound {out['bound'][0]:.6f} ms "
+              f"({out['bound'][1]})")
+        return out
 
     nres = ns.select_neighbors(
         ns.comm_preference(comm_graph.node_comm_matrix(problem)), k=4)
-    err, err_u, sweeps, ms, plain, bound = k1_case(
-        comm_graph.node_loads(problem), nres.nbr_idx, nres.nbr_mask, 8)
-    print(f"diffusion P=8: {sweeps} sweeps, {err_u:.1f} ulp")
-    row("diffusion_nsweeps", "src/repro/kernels/diffusion/kernel.py:198",
-        "src/repro_torch/csrc/diffusion.cu", err, "16 ulp of the largest load",
-        ms, plain, bound, None)
-
+    pic = k1_case("P=8, K=4, the PIC path", comm_graph.node_loads(problem),
+                  nres.nbr_idx, nres.nbr_mask)
+    sim = k1_case("P=8192, K=8, the simulator path", *sim_graph)
     side = (128, 256)
     ii, jj = np.meshgrid(np.arange(side[0]), np.arange(side[1]),
                          indexing="ij")
@@ -884,14 +981,20 @@ def kernel_rows(counts, sim_graph):
           for di in (-1, 0, 1) for dj in (-1, 0, 1) if (di, dj) != (0, 0)]
     nbr = torch.as_tensor(np.stack([a.ravel() for a in nb], 1),
                           dtype=torch.int32, device=dev)
-    mask = torch.ones_like(nbr, dtype=torch.bool)
     nl = torch.as_tensor(np.random.default_rng(1).random(nbr.shape[0]) * 100,
                          dtype=torch.float32, device=dev)
-    err, err_u, sweeps, ms, plain, bound = k1_case(nl, nbr, mask, 8)
-    print(f"diffusion_nsweeps at P=32768, K=8 (global-memory state): "
-          f"{sweeps} sweeps, max_abs_err {err:.6g} ({err_u:.1f} ulp), kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.6f} ms "
-          f"({bound[1]})")
+    big = k1_case("P=32768, K=8", nl, nbr, torch.ones_like(nbr,
+                                                           dtype=torch.bool))
+    row("diffusion_nsweeps", "src/repro/kernels/diffusion/kernel.py:198",
+        "src/repro_torch/csrc/diffusion.cu", max(pic["err"], sim["err"]),
+        "16 ulp of the largest load", pic["ms"], pic["plain"], pic["bound"],
+        None)
+    rows[-1].update(
+        form=pic["form"], device_ms=pic["device_ms"], sim_form=sim["form"],
+        sim_ms=sim["ms"], sim_device_ms=sim["device_ms"],
+        sim_bound_ms=sim["bound"][0], p32768_form=big["form"],
+        p32768_ms=big["ms"], p32768_device_ms=big["device_ms"],
+        p32768_bound_ms=big["bound"][0], forms_by_path=K1_PATH_FORMS)
 
     # K2 — one sweep of the simulator path's stage 2 (its first sweep, on
     # the full-size snapshot's neighbour table), then the whole stage 2
@@ -956,13 +1059,17 @@ def main() -> int:
     counts, _ = main_path()
     cpu_parity()
     sim_counts, snap = sim_path()
-    sim_graph = sim_engines(snap)
+    sim_graph, step_counts = sim_engines(snap)
     paper_scripts_and_small_replay()
     serve_counts = serve_path()
     serve_cpu_parity()
-    # each kernel's launches on its own path's run (K3 on the PIC path's)
-    counts.update({name: sim_counts[name] for name in SIM_KERNELS})
+    # each kernel's launches on its own path's run (K3 on the PIC path's;
+    # K1 on the PIC and simulator paths together; K2 in the step_fn plan)
+    counts["diffusion_nsweeps"] += sim_counts["diffusion_nsweeps"]
+    counts["diffusion_sweep"] = step_counts["diffusion_sweep"]
     counts["flash_attention"] = serve_counts["flash_attention"]
+    print(f"K1 calls by form on each path: {K1_PATH_FORMS}; K2 launches "
+          f"in the step_fn plan: {counts['diffusion_sweep']}")
     rows = kernel_rows(counts, sim_graph)
     rows.append(flash_row(counts))
     check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")

@@ -10,14 +10,23 @@ Implementation selection (:func:`sweep_impl`):
 
   * ``"reference"`` — CPU: the plain S-sweep chunk;
   * ``"fused"``     — CUDA, ``P·K <= FUSED_MAX_PK``: the fused S-sweep
-                      kernel (``csrc/diffusion.cu``), one thread block with
-                      its state in shared memory when :func:`smem_bytes`
-                      fits :data:`SMEM_LIMIT`, else in global memory (L2);
-  * ``"streaming"`` — CUDA, larger problems: the two-pass sweep kernel once
-                      a sweep inside the plain masked chunk body
+                      kernel K1 (``csrc/diffusion.cu``) in the form
+                      :func:`k1_form` names:
+                        - ``"warp"``  (``P·K <= WARP_MAX_PK``): one warp,
+                          the state in shared memory;
+                        - ``"block"`` (``P·K <= BLOCK_MAX_PK``): one block
+                          of 512 threads, the state in shared memory;
+                        - ``"grid"``: a cooperative launch of co-resident
+                          blocks, the state in global memory (L2), two grid
+                          barriers a sweep;
+  * ``"streaming"`` — CUDA, larger problems: the two-pass sweep kernel K2
+                      once a sweep inside the plain masked chunk body
                       (:func:`streaming_nsweeps`), the chunk captured as one
-                      CUDA graph and replayed, so that its forty-odd small
-                      launches a sweep cost device time, not host time.
+                      CUDA graph and replayed.
+
+The limits come from ``benchmarks_torch/diffusion_crossover.py`` on one
+H100 (table in ``PERF.md``).  :data:`form_launches` counts K1's calls by
+form.
 """
 from __future__ import annotations
 
@@ -31,8 +40,8 @@ from repro_torch.kernels.diffusion.ref import (diffusion_nsweeps_ref,
                                                diffusion_sweep_ref)
 
 KERNEL = CudaKernel("diffusion_nsweeps", "diffusion.cu", {
-    "diffusion_nsweeps_launch": [PTR] * 12 + [INT] * 5 + [FLOAT] * 2
-                                + [INT],
+    "diffusion_nsweeps_launch": [PTR] * 15 + [INT] * 5 + [FLOAT] * 2
+                                + [INT] * 3,
 })
 
 # -fmad=false: no FMA contraction, so the kernel rounds where the plain
@@ -42,22 +51,65 @@ SWEEP_KERNEL = CudaKernel("diffusion_sweep", "diffusion_sweep.cu", {
 }, extra_flags=("-fmad=false",))
 
 # dynamic shared memory a block may use (227 KB) less the kernel's static
-# reduction buffers (3 x 512 floats) and scalars
-SMEM_LIMIT = 232448 - 8192
+# reduction stage and the margin the launch keeps
+SMEM_LIMIT = 232448 - 1024
 
-# Largest P·K the fused one-block kernel takes; above it one S = 8 chunk of
-# the streaming path is faster on an H100 (benchmarks_torch/
-# diffusion_crossover.py, table in PERF.md).
-FUSED_MAX_PK = 32768
+# K1's forms by P·K, and the largest P·K that takes K1 at all (above it
+# one S = 8 chunk of the streaming path is faster on an H100, or it was not
+# measured): benchmarks_torch/diffusion_crossover.py, table in PERF.md.
+WARP_MAX_PK = 256
+BLOCK_MAX_PK = 4096
+FUSED_MAX_PK = 1 << 20
+
+K1_FORMS = ("warp", "block", "grid")
+GRID_THREADS = 256      # threads a block of the grid form (csrc GRID_NT)
 
 #: the streaming kernel puts a row on a warp segment, so K <= 32
 MAX_K = 32
 
+form_launches = {f: 0 for f in K1_FORMS}
+
 
 def smem_bytes(P: int, K: int) -> int:
-    """Shared-memory working set: x, own (f32) and flow, push (f32), nbr,
-    rev (i32), mask (u8) — ``17·P·K + 8·P`` bytes."""
+    """Shared-memory working set of the one-block forms: x, own (f32) and
+    flow, push (f32), nbr, rev (i32), mask (u8) — ``17·P·K + 8·P``
+    bytes."""
     return 17 * P * K + 8 * P
+
+
+def k1_takes(form: str, P: int, K: int) -> bool:
+    """Whether K1's ``form`` takes a (P, K) table: the one-block forms
+    while their state fits in shared memory, the grid form always."""
+    if form not in K1_FORMS:
+        raise ValueError(f"K1 forms are {K1_FORMS}, got {form!r}")
+    return form == "grid" or smem_bytes(P, K) <= SMEM_LIMIT
+
+
+def k1_form(P: int, K: int) -> str:
+    """The form of K1 a (P, K) table takes: ``warp`` up to
+    :data:`WARP_MAX_PK`, ``block`` up to :data:`BLOCK_MAX_PK`, else
+    ``grid``."""
+    PK = P * K
+    if PK <= WARP_MAX_PK and k1_takes("warp", P, K):
+        return "warp"
+    if PK <= BLOCK_MAX_PK and k1_takes("block", P, K):
+        return "block"
+    return "grid"
+
+
+def k1_launch_shape(form: str, P: int, K: int):
+    """``(threads, blocks, smem_bytes)`` of a launch of ``form``; the grid
+    form's blocks are those wanted (one row a thread), which the launch
+    caps at the co-resident count."""
+    if not k1_takes(form, P, K):
+        raise ValueError(f"K1 {form} form: P={P}, K={K} needs "
+                         f"{smem_bytes(P, K)} B of shared memory, more "
+                         f"than {SMEM_LIMIT}")
+    if form == "warp":
+        return 32, 1, smem_bytes(P, K)
+    if form == "block":
+        return 512, 1, smem_bytes(P, K)
+    return GRID_THREADS, max(1, -(-P // GRID_THREADS)), 0
 
 
 def sweep_impl(P: int, K: int, device) -> str:
@@ -113,43 +165,70 @@ def diffusion_sweep(x, own, nbr_idx, nbr_mask, rev, alpha, single_hop=True):
 def fused_nsweeps(x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev,
                   alpha, *, n_sweeps: int, single_hop: bool, tol,
                   max_iters):
-    """The fused S-sweep kernel, whatever :func:`sweep_impl` would pick
-    (CPU tensors take the plain chunk); returns the updated
-    ``(x, own, flow, it, res, stall)``."""
+    """The fused S-sweep kernel K1 in the form :func:`k1_form` names,
+    whatever :func:`sweep_impl` would pick (CPU tensors take the plain
+    chunk); returns the updated ``(x, own, flow, it, res, stall)``."""
     if x.device.type == "cpu":
         return diffusion_nsweeps_ref(
             x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev, alpha,
             n_sweeps=n_sweeps, single_hop=single_hop, tol=tol,
             max_iters=max_iters)
+    return _fused_form(k1_form(*nbr_idx.shape), x, own, flow, it, res,
+                       stall, nbr_idx, nbr_mask, rev, alpha,
+                       n_sweeps=n_sweeps, single_hop=single_hop, tol=tol,
+                       max_iters=max_iters)
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _fused_form(form, x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev,
+                alpha, *, n_sweeps: int, single_hop: bool, tol, max_iters):
+    """One call of K1 in ``form`` (the path takes :func:`fused_nsweeps`;
+    tests and the crossover benchmark name the form).  The outputs are
+    fresh tensors; ``it``, ``res`` and ``stall`` are 0-d views of one
+    3-word tensor the kernel writes."""
     P, K = nbr_idx.shape
-    x_out = x.to(torch.float32).contiguous().clone()
-    own_out = own.to(torch.float32).contiguous().clone()
-    flow_out = flow.to(torch.float32).contiguous().clone()
-    nbr = nbr_idx.to(torch.int32).contiguous()
-    rv = rev.to(torch.int32).contiguous()
-    mask = _mask_u8(nbr_mask)
-    it_in = it.to(torch.int32).reshape(1)
-    stall_in = stall.to(torch.int32).reshape(1)
-    res_in = res.to(torch.float32).reshape(1)
-    check_cuda(x_out, own_out, flow_out, nbr, rv, mask, it_in, stall_in,
-               res_in)
-    if flow_out.shape != (P, K) or x_out.shape != (P,):
-        raise ValueError(f"shape mismatch: x {tuple(x_out.shape)}, flow "
-                         f"{tuple(flow_out.shape)}, nbr {(P, K)}")
-    use_smem = smem_bytes(P, K) <= SMEM_LIMIT
-    push = (torch.empty(0, dtype=torch.float32, device=x.device) if use_smem
-            else torch.empty((P, K), dtype=torch.float32, device=x.device))
-    istat = torch.empty(2, dtype=torch.int32, device=x.device)  # it, stall
-    res_out = torch.empty(1, dtype=torch.float32, device=x.device)
+    f32, i32 = torch.float32, torch.int32
+    xs, ow, fl = _as(x, f32), _as(own, f32), _as(flow, f32)
+    nbr, rv, mask = _as(nbr_idx, i32), _as(rev, i32), _mask_u8(nbr_mask)
+    it_in, res_in, stall_in = _as(it, i32), _as(res, f32), _as(stall, i32)
+    if not (xs.is_cuda and ow.is_cuda and fl.is_cuda and nbr.is_cuda
+            and rv.is_cuda and mask.is_cuda and it_in.is_cuda
+            and res_in.is_cuda and stall_in.is_cuda):
+        raise ValueError("K1 takes CUDA tensors")
+    if fl.shape != (P, K) or xs.shape != (P,) or ow.shape != (P,) \
+            or rv.shape != (P, K) or mask.shape != (P, K) \
+            or it_in.numel() != 1 or res_in.numel() != 1 \
+            or stall_in.numel() != 1:
+        raise ValueError(f"shape mismatch: x {tuple(xs.shape)}, flow "
+                         f"{tuple(fl.shape)}, nbr {(P, K)}")
+    _, blocks, smem = k1_launch_shape(form, P, K)
+    dev = xs.device
+    x_out = torch.empty(P, dtype=f32, device=dev)
+    own_out = torch.empty(P, dtype=f32, device=dev)
+    flow_out = torch.empty((P, K), dtype=f32, device=dev)
+    stat = torch.empty(3, dtype=i32, device=dev)       # it, res bits, stall
+    if form == "grid":
+        # push (P·K f32), then one 16-byte partial a block
+        pk = -(-P * K // 4) * 4
+        scratch = torch.empty(pk + 4 * blocks, dtype=f32, device=dev)
+        push, part = scratch.data_ptr(), scratch.data_ptr() + 4 * pk
+    else:
+        push = part = 0
     KERNEL.launch(
         "diffusion_nsweeps_launch",
-        x_out.data_ptr(), own_out.data_ptr(), flow_out.data_ptr(),
-        nbr.data_ptr(), rv.data_ptr(), mask.data_ptr(), push.data_ptr(),
-        it_in.data_ptr(), stall_in.data_ptr(), res_in.data_ptr(),
-        istat.data_ptr(), res_out.data_ptr(),
-        P, K, int(n_sweeps), int(max_iters), int(bool(single_hop)),
-        float(alpha), float(tol), int(use_smem))
-    return x_out, own_out, flow_out, istat[0], res_out[0], istat[1]
+        xs.data_ptr(), ow.data_ptr(), fl.data_ptr(), nbr.data_ptr(),
+        rv.data_ptr(), mask.data_ptr(), it_in.data_ptr(), res_in.data_ptr(),
+        stall_in.data_ptr(), x_out.data_ptr(), own_out.data_ptr(),
+        flow_out.data_ptr(), stat.data_ptr(), push, part, P, K,
+        int(n_sweeps), int(max_iters), int(bool(single_hop)), float(alpha),
+        float(tol), K1_FORMS.index(form), blocks, smem)
+    form_launches[form] += 1
+    return (x_out, own_out, flow_out, stat[0], stat.view(f32)[1], stat[2])
 
 
 class _StreamingChunk:

@@ -95,6 +95,86 @@ def test_histogram_kernel_matches_plain(dev, N, C):
         want.abs().max().clamp(min=1.0))
 
 
+def _hist_ids(n, C, order, seed):
+    """ids in [-2, C + 2) (padding below 0 and at or above C): uniform at
+    random, or bucketed as after an exchange (sorted by a random owner of
+    each id, so long runs of one id)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-2, C + 2, n)
+    if order == "bucketed":
+        owner = rng.integers(0, 8, C + 4)
+        ids = ids[np.argsort(owner[ids + 2], kind="stable")]
+    return ids
+
+
+@pytest.mark.parametrize("order", ["random", "bucketed"])
+@pytest.mark.parametrize("C", [1, 144, hops.PRIVATE_MAX_C,
+                               hops.PRIVATE_MAX_C + 1, hops.MAX_C])
+def test_histogram_kernel_forms_and_orders(dev, C, order):
+    """Both forms, both orders, n not a multiple of 4, padding ids below 0
+    and at or above C: exact with ones; f32 weights within 1e-5 of the
+    largest bin of the plain version (the two add in different orders),
+    and two calls equal bit for bit in the private form."""
+    n = 200_003
+    ids = torch.as_tensor(_hist_ids(n, C, order, C), dtype=torch.int32,
+                          device=dev)
+    ones = torch.ones(n, device=dev)
+    form = hops.histogram_plan(n, C)[0]
+    assert form == ("private" if C <= hops.PRIVATE_MAX_C else "shared")
+    assert torch.equal(hops.histogram(ids, ones, C=C),
+                       histogram_ref(ids, ones, C=C))
+    w = torch.as_tensor(np.random.default_rng(n).random(n).astype(
+        np.float32), device=dev)
+    got, want = hops.histogram(ids, w, C=C), histogram_ref(ids, w, C=C)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max().clamp(min=1.0))
+    if form == "private":
+        assert torch.equal(got, hops.histogram(ids, w, C=C))
+
+
+def test_histogram_kernel_unaligned_and_short_inputs(dev):
+    """Views at odd offsets (not 16-byte aligned) and lengths 1..9 take
+    the scalar tail; a strided view and int64 ids are converted."""
+    ids = torch.as_tensor(_hist_ids(50_001, 144, "bucketed", 1),
+                          dtype=torch.int32, device=dev)
+    w = torch.as_tensor(np.random.default_rng(2).random(50_001).astype(
+        np.float32), device=dev)
+    for a, b in ((ids[1:], w[1:]), (ids[3:], w[:-3]), (ids[::2], w[::2]),
+                 (ids.long(), w)):
+        assert torch.allclose(hops.histogram(a, b, C=144),
+                              histogram_ref(a, b, C=144), rtol=1e-5,
+                              atol=1e-3)
+        ones = torch.ones_like(b)
+        assert torch.equal(hops.histogram(a, ones, C=144),
+                           histogram_ref(a, ones, C=144))
+    for n in range(1, 10):
+        assert torch.equal(hops.histogram(ids[:n], w[:n], C=144),
+                           histogram_ref(ids[:n], w[:n], C=144))
+
+
+def test_histogram_kernel_back_to_back_calls(dev):
+    """The last-block ticket resets itself: calls of different grids in a
+    row on one stream stay exact."""
+    outs, wants = [], []
+    for n in (5_000_000, 17, 300_000, 5_000_000, 4096 * 132 + 5):
+        ids = torch.as_tensor(_hist_ids(n, 144, "random", n),
+                              dtype=torch.int32, device=dev)
+        ones = torch.ones(n, device=dev)
+        outs.append(hops.histogram(ids, ones, C=144))
+        wants.append(histogram_ref(ids, ones, C=144))
+    for a, b in zip(outs, wants):
+        assert torch.equal(a, b)
+
+
+def test_histogram_kernel_takes_every_c(dev):
+    ids = torch.zeros(8, dtype=torch.int32, device=dev)
+    w = torch.ones(8, device=dev)
+    assert float(hops.histogram(ids, w, C=hops.MAX_C)[0]) == 8.0
+    for C in (0, hops.MAX_C + 1):
+        with pytest.raises(ValueError):
+            hops.histogram(ids, w, C=C)
+
+
 @pytest.mark.parametrize("n", [0, 1, 4095, 4097, 100_000])
 @pytest.mark.parametrize("C", [1, 8, 64, 1024])
 def test_scatter_dest_kernel_matches_plain(dev, n, C):
@@ -121,8 +201,9 @@ def test_scatter_dest_kernel_rejects_large_c(dev):
 def test_diffusion_kernel_matches_plain(dev, P, K, single_hop):
     """it and stall exact; x, own and flow within 16 f32 ulp of the largest
     load, res within that over the mean load (the kernel sums over P in a
-    tree, the plain version in another order).  P = 8192, K = 8 exceeds
-    shared memory and takes the global-memory state."""
+    tree, the plain version in another order), in the form k1_form names:
+    warp at P = 8, K = 4 and P = 64, K = 4, block at P = 257, K = 8, grid
+    at P = 8192, K = 8."""
     nbr, mask = _ring_graph(P, K, seed=P + K)
     nbr = torch.as_tensor(nbr, dtype=torch.int32, device=dev)
     mask = torch.as_tensor(mask, device=dev)
@@ -144,6 +225,96 @@ def test_diffusion_kernel_matches_plain(dev, P, K, single_hop):
         for i in (0, 1, 2):
             assert float((got[i] - want[i]).abs().max()) <= tol
         assert abs(float(got[4]) - float(want[4])) <= tol / float(x.mean())
+
+
+def _k1_case(dev, P, K, seed, x=None, single_hop=True):
+    nbr, mask = _ring_graph(P, K, seed=seed)
+    nbr = torch.as_tensor(nbr, dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    if x is None:
+        x = np.random.default_rng(seed).random(P).astype(np.float32) * 10
+    x = torch.as_tensor(x, device=dev)
+    rev = vlb.reverse_slots(nbr, mask)
+    alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
+    carry = (x, x * 0.7, torch.zeros((P, K), device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             vlb.neighborhood_residual(x, nbr, mask),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    return (*carry, nbr, mask, rev, alpha)
+
+
+def _k1_forms_agree(args, kw):
+    """Every K1 form that takes the shape against the plain chunk: it and
+    stall exact; x, own and flow within 16 ulp of the largest load, res
+    within that over the mean load; each form twice bit for bit.  Returns
+    the (it, stall) they share."""
+    P, K = args[6].shape
+    want = diffusion_nsweeps_ref(*args, **kw)
+    x = args[0]
+    scale = x.abs().max()
+    tol = 16 * float(torch.nextafter(scale, scale + 1) - scale)
+    for form in dops.K1_FORMS:
+        if not dops.k1_takes(form, P, K):
+            continue
+        before = dops.form_launches[form]
+        got = dops._fused_form(form, *args, **kw)
+        assert dops.form_launches[form] == before + 1
+        assert (int(got[3]), int(got[5])) == (int(want[3]), int(want[5])), \
+            form
+        for i in (0, 1, 2):
+            assert got[i].shape == want[i].shape
+            assert float((got[i] - want[i]).abs().max()) <= tol, form
+        assert abs(float(got[4]) - float(want[4])) <= tol / float(x.mean())
+        again = dops._fused_form(form, *args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), form
+    return int(want[3]), int(want[5])
+
+
+@pytest.mark.parametrize("P,K", [(8, 4), (37, 4), (257, 8), (1000, 8),
+                                 (3000, 2)])
+@pytest.mark.parametrize("single_hop", [True, False])
+def test_k1_every_form_matches_plain(dev, P, K, single_hop):
+    """Each form on masked ring graphs, P not a multiple of any block."""
+    args = _k1_case(dev, P, K, seed=P + K)
+    for tol, S in ((0.02, 8), (-1.0, 5)):
+        _k1_forms_agree(args, dict(n_sweeps=S, single_hop=single_hop,
+                                   tol=tol, max_iters=512))
+
+
+@pytest.mark.parametrize("stop", ["max_iters", "tol", "stall"])
+def test_k1_forms_stop_mid_chunk(dev, stop):
+    """A chunk that stops after some of its sweeps, at max_iters, at the
+    tolerance or at the stall count: it and stall equal in every form and
+    the plain chunk."""
+    P, K = 300, 4
+    x = None
+    kw = dict(n_sweeps=12, single_hop=True, tol=0.02, max_iters=512)
+    if stop == "max_iters":
+        kw["max_iters"] = 5
+    elif stop == "tol":
+        kw["tol"] = 0.5
+    else:                       # equal loads: nothing moves, a stall a sweep
+        x = np.full(P, 3.0, np.float32)
+        kw["tol"] = -1.0
+    args = _k1_case(dev, P, K, seed=7, x=x)
+    it, stall = _k1_forms_agree(args, kw)
+    assert it < kw["n_sweeps"]
+    if stop == "max_iters":
+        assert it == 5
+    if stop == "stall":
+        assert (it, stall) == (3, 3)
+
+
+def test_k1_grid_form_past_shared_memory(dev):
+    """The grid form where the one-block forms' state exceeds shared
+    memory: against the plain chunk, bit for bit over two calls, and the
+    form k1_form names."""
+    P, K = 20_000, 8
+    assert dops.k1_form(P, K) == "grid"
+    assert not dops.k1_takes("block", P, K)
+    args = _k1_case(dev, P, K, seed=3)
+    _k1_forms_agree(args, dict(n_sweeps=8, single_hop=True, tol=0.02,
+                               max_iters=512))
 
 
 def _sweep_case(dev, P, K, seed):

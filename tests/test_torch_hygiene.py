@@ -119,9 +119,11 @@ def test_chip_smoke_simulator_phases_rehearse_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "SIM_SCENARIO",
                         dict(grid=32, num_nodes=16, mapping="tiled"))
     monkeypatch.setattr(chip_smoke, "SIM_KERNELS", ())   # none on the CPU
+    monkeypatch.setattr(chip_smoke, "STEP_KERNELS", ())
     counts, snap = chip_smoke.sim_path()
-    assert counts["diffusion_sweep"] == 0        # plain versions on the CPU
-    loads, nbr, mask = chip_smoke.sim_engines(snap)
+    assert counts["diffusion_nsweeps"] == 0      # plain versions on the CPU
+    (loads, nbr, mask), step_counts = chip_smoke.sim_engines(snap)
+    assert step_counts["diffusion_sweep"] == 0
     assert loads.shape == (16,) and nbr.shape == mask.shape
     chip_smoke.paper_scripts_and_small_replay()
 
