@@ -39,10 +39,20 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      attention kernel must have run once per attention call;
   7. serves the reduced gemma3-1b (f32) on the card and on the CPU: equal
      tokens, logits within 1e-3;
-  8. holds each kernel against its plain PyTorch version on the card at the
+  8. drives the serving spill — a ``DiffusionScheduler`` of 63 replicas
+     rebalancing 4116 sessions under a slot budget that defers moves
+     (``spill_owner`` over 64^2 pair buckets), with the launch counts set
+     to 0 just before and read just after — and holds its sessions,
+     deferred sessions and moved KV bytes equal to the same scheduler on
+     the CPU given the card's plan; then ``spill_owner`` at 64 nodes over
+     2^18 items against the CPU, and at 64 and 257 nodes (4096 and 66049
+     pair buckets) over 2^20 items against an argsort oracle;
+  9. holds each kernel against its plain PyTorch version on the card at the
      shapes its path gives it, timing kernel, plain version and the
-     one-call PyTorch yardstick where there is one: K4 in both orders the
-     PIC path gives it (initial, and bucketed by PE after an exchange),
+     one-call PyTorch yardstick where there is one: K3 in both orders the
+     PIC path gives it (initial, and bucketed by PE) in every form that
+     takes C = 8, with padding, twice bit for bit, dest the inverse of a
+     stable argsort, with device and host time; K4 in both orders,
      with f32 weights twice bit for bit; K1 in every form that takes each
      of P = 8, K = 4 (PIC), P = 8192, K = 8 (simulator) and P = 32768,
      K = 8, each form twice bit for bit, the selected one timed with its
@@ -96,8 +106,18 @@ SERVE = dict(replicas=2, slots=4, max_len=1056, dtype="bfloat16",
              prompt_lens=(1000, 996, 512, 576, 640, 704, 768, 832))
 SERVE_KERNELS = ("flash_attention", "scatter_dest")
 DEV = "cuda"   # the card; a rehearsal on the CPU sets "cpu"
-# K1's calls by form on each path's run (filled as the paths run)
+# K1's and K3's calls by form on each path's run (filled as the paths run)
 K1_PATH_FORMS: dict = {}
+K3_PATH_FORMS: dict = {}
+K3_LAUNCHES: dict = {}       # K3's launches on each path's run
+# the serving spill: a scheduler of 63 replicas and a park node (64^2 pair
+# buckets) whose slot budget defers moves; heavy sessions on the first
+# half of the replicas, the second half full of light ones
+SPILL_SERVE = dict(replicas=63, heavy=44, light=86, slot_capacity=86)
+# spill_owner at the sizes a fleet gives it: 64 nodes (C = 4096) and 257
+# (C = 66049) over 2^20 items, and 64 over 2^18 against the CPU
+SPILL_SIZES = ((64, 1 << 20), (257, 1 << 20))
+SPILL_CPU = (64, 1 << 18)
 
 
 def fail(msg: str):
@@ -124,6 +144,21 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time to issue ``fn()`` (a perf_counter around back-to-back
+    calls that are not waited for), after one warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / reps
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops=PEAK_F32_PER_S):
@@ -157,20 +192,42 @@ def k1_forms_since(before, path, P, K, launches):
     return forms
 
 
+def k3_forms_since(before, path, launches):
+    """K3's calls by form since ``before`` (a copy of
+    ``ops.form_launches``), recorded for ``path``; on a path of single
+    passes (no radix call) they must add up to the registry's
+    ``launches``."""
+    from repro_torch.kernels.migrate import ops as mops
+
+    forms = {f: n - before[f] for f, n in mops.form_launches.items()}
+    K3_PATH_FORMS[path] = forms
+    if not forms["radix"]:
+        check(sum(forms.values()) == launches, f"{path} path: K3 forms "
+              f"{forms} do not add up to its {launches} launches")
+    return forms
+
+
 def main_path():
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels.diffusion import ops as dops
     from repro_torch.pic import chares, driver
 
+    from repro_torch.kernels.migrate import ops as mops
+
     kernels.reset_launch_counts()
     k1_0 = dict(dops.form_launches)
+    k3_0 = dict(mops.form_launches)
     t0 = time.perf_counter()
     res = driver.run(driver.PICConfig(**PIC, device="cuda"))
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     k1_forms_since(k1_0, "PIC", PIC["num_pes"], PIC["strategy_kwargs"]["k"],
                    counts["diffusion_nsweeps"])
+    forms = k3_forms_since(k3_0, "PIC", counts["scatter_dest"])
+    want = mops.scatter_form(PIC["n_particles"], PIC["num_pes"])
+    check(forms[want] == counts["scatter_dest"], f"PIC path: K3 forms "
+          f"{forms}, not {counts['scatter_dest']} calls of the {want} form")
     print(f"PIC path: {PIC['n_particles']} particles, {PIC['steps']} steps "
           f"in {wall:.3f} s end to end ({res.wall_seconds:.3f} s step loop, "
           f"{PIC['steps'] / res.wall_seconds:.2f} steps/s); launches "
@@ -481,9 +538,12 @@ def serve_path():
     from repro_torch.kernels.diffusion import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
+    from repro_torch.kernels.migrate import ops as mops
+
     kernels.reset_launch_counts()
     forms0 = dict(fops.form_launches)
     k1_0 = dict(dops.form_launches)
+    k3_0 = dict(mops.form_launches)
     _sync()
     t0 = time.perf_counter()
     for i, plen in enumerate(SERVE["prompt_lens"]):
@@ -522,6 +582,7 @@ def serve_path():
     forms = {f: n - forms0[f] for f, n in fops.form_launches.items()}
     K1_PATH_FORMS["serving"] = {f: n - k1_0[f]
                                 for f, n in dops.form_launches.items()}
+    k3_forms_since(k3_0, "serving", counts["scatter_dest"])
     want_forms = ({"split": n_layers * ticks, "mma": n_layers * n_req,
                    "simt": 0} if "flash_attention" in SERVE_KERNELS
                   else {f: 0 for f in forms})
@@ -598,6 +659,173 @@ def serve_cpu_parity():
     check(err <= 1e-3, f"reduced gemma3-1b: logits differ by {err}")
     print(f"reduced gemma3-1b served on {DEV} == cpu: 3 requests, equal "
           f"tokens; prefill and 10 decode steps' logits within {err:.3g}")
+
+
+def spill_scheduler(dev):
+    """The SPILL_SERVE scheduler on ``dev``: sessions made from seed 7
+    (whole KV bytes, so sums of them are exact in any order)."""
+    import numpy as np
+    from repro_torch.serve.scheduler import DiffusionScheduler, Session
+
+    cfg = SPILL_SERVE
+    R = cfg["replicas"]
+    sched = DiffusionScheduler(R, k=3, device=dev)
+    rng = np.random.default_rng(7)
+    uid = 0
+    for r in range(R):
+        heavy = r < R // 2
+        for _ in range(cfg["heavy"] if heavy else cfg["light"]):
+            sched.add(Session(
+                uid=uid, replica=r, prefix_group=uid // 5,
+                tokens_per_s=float(rng.uniform(3, 5) if heavy
+                                   else rng.uniform(0.2, 0.6)),
+                kv_bytes=float(rng.integers(10, 200))))
+            uid += 1
+    return sched
+
+
+def serve_spill():
+    """A DiffusionScheduler of 63 replicas rebalancing about 4100 sessions
+    under a slot budget that defers moves (spill_owner over 64^2 pair
+    buckets), with the launch counts set to 0 just before and read just
+    after.  The same scheduler on the CPU, given the card's plan (stage 2
+    sums its floats in another order there, which may move a few sessions
+    of the plan), must end with equal sessions, deferred sessions and
+    moved KV bytes.  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.kernels.migrate import ops as mops
+
+    base = engine.get_strategy("diff-comm")
+    plans = []
+
+    def recorded(problem, **params):
+        assignment, stats = base.plan_fn(problem, **params)
+        plans.append((assignment, stats))
+        return assignment, stats
+
+    def replayed(problem, **params):
+        assignment, stats = plans[0]
+        return assignment.to(problem.device), stats
+
+    for name, fn in (("diff-comm-recorded", recorded),
+                     ("diff-comm-replayed", replayed)):
+        engine.register(dataclasses.replace(base, name=name, plan_fn=fn))
+    cap = SPILL_SERVE["slot_capacity"]
+    card = spill_scheduler(DEV)
+    kernels.reset_launch_counts()
+    k3_0 = dict(mops.form_launches)
+    _sync()
+    t0 = time.perf_counter()
+    got = card.rebalance(strategy="diff-comm-recorded", slot_capacity=cap)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    forms = k3_forms_since(k3_0, "serving spill", counts["scatter_dest"])
+    check(counts["scatter_dest"] > 0, "kernel scatter_dest was not launched "
+          "by the serving spill")
+    cpu = spill_scheduler("cpu")
+    want = cpu.rebalance(strategy="diff-comm-replayed", slot_capacity=cap)
+    check(card.sessions == cpu.sessions, "serving spill: sessions differ "
+          "between cuda and cpu")
+    for key in ("deferred_sessions", "moved_sessions", "moved_kv_bytes"):
+        check(got[key] == want[key], f"serving spill: {key} {got[key]} on "
+              f"cuda, {want[key]} on cpu")
+    check(want["deferred_sessions"] > 0, "serving spill: no move deferred")
+    own = spill_scheduler("cpu")
+    own_info = own.rebalance(strategy="diff-comm", slot_capacity=cap)
+    print(f"serving spill: {len(cpu.sessions)} sessions on "
+          f"{SPILL_SERVE['replicas']} replicas, slot budget {cap}: moved "
+          f"{got['moved_sessions']}, deferred {got['deferred_sessions']}, "
+          f"{got['moved_kv_bytes']:.0f} KV bytes, equal to the cpu on the "
+          f"card's plan (the cpu's own plan: moved "
+          f"{own_info['moved_sessions']}, deferred "
+          f"{own_info['deferred_sessions']}); rebalance {wall:.3f} s on the "
+          f"card; K3 forms {forms}; launches {counts}")
+    return counts
+
+
+def spill_case(P, n, seed):
+    """Owners of ``n`` items on ``P`` nodes in slab order, half of them
+    moving to the first half of the nodes, and a budget of 1.25 n / P."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    old = torch.as_tensor((np.arange(n) * P) // n, dtype=torch.int32)
+    new = torch.where(torch.as_tensor(rng.random(n) < 0.5),
+                      torch.as_tensor(rng.integers(0, P // 2, n),
+                                      dtype=torch.int32), old)
+    return old, new, int(1.25 * n / P)
+
+
+def argsort_ranks(keys):
+    """Stable within-key ranks by an independent route: a stable argsort,
+    rank = position - the key's first position."""
+    import torch
+
+    order = torch.argsort(keys, stable=True)
+    sk = keys[order]
+    first = torch.searchsorted(sk, sk)
+    rank = torch.empty_like(keys)
+    rank[order] = (torch.arange(keys.shape[0], device=keys.device)
+                   - first).to(keys.dtype)
+    return rank
+
+
+def spill_sizes():
+    """spill_owner on the card past 32 nodes: at 64 nodes over 2^18 items
+    against the CPU (the plain version), and at 64 and 257 nodes over 2^20
+    items against an argsort oracle; returns the times by node count."""
+    import torch
+    from repro_torch.kernels.migrate import ops as mops
+    from repro_torch.runtime import migrate as rt
+
+    P, n = SPILL_CPU
+    old, new, cap = spill_case(P, n, 3)
+    t0 = time.perf_counter()
+    want = rt.spill_owner(old, new, num_nodes=P, capacity=cap)
+    cpu_s = time.perf_counter() - t0
+    got = rt.spill_owner(old.to(DEV), new.to(DEV), num_nodes=P, capacity=cap)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          f"spill_owner at {P} nodes over {n} items: cuda differs from cpu")
+    print(f"spill_owner at {P} nodes over {n} items: cuda == cpu "
+          f"({int(want[1].sum())} deferred; the cpu's plain version "
+          f"{cpu_s:.1f} s)")
+    out = {}
+    for P, n in SPILL_SIZES:
+        old, new, cap = (t.to(DEV) if isinstance(t, torch.Tensor) else t
+                         for t in spill_case(P, n, P))
+        C = P * P
+        keys = torch.where(new != old, old * P + new, C)
+        rank, counts = mops.bucket_ranks(keys, C=C)
+        want_rank = argsort_ranks(keys)
+        check(torch.equal(torch.where(keys < C, want_rank, -1), rank),
+              f"bucket_ranks over {C} buckets: differs from the argsort "
+              "oracle")
+        eff, deferred = rt.spill_owner(old, new, num_nodes=P, capacity=cap)
+        # the oracle: the same admissions from the argsort ranks
+        F = torch.bincount(keys[keys < C], minlength=C).reshape(P, P)
+        A = rt.spill_admissions(F, torch.bincount(old, minlength=P), cap)
+        quota = A.reshape(-1)[keys.clamp(0, C - 1).long()]
+        admitted = (keys < C) & (want_rank < quota)
+        want_def = (keys < C) & ~admitted
+        check(torch.equal(deferred, want_def) and torch.equal(
+            eff, torch.where(want_def, old, new)),
+            f"spill_owner at {P} nodes: differs from the argsort oracle")
+        form = mops.scatter_form(n, C)
+        ms = time_ms(lambda: rt.spill_owner(old, new, num_nodes=P,
+                                            capacity=cap), reps=5)
+        rk = time_ms(lambda: mops.bucket_ranks(keys, C=C), reps=10)
+        out[P] = dict(n=n, C=C, form=form, deferred=int(deferred.sum()),
+                      spill_ms=ms, bucket_ranks_ms=rk)
+        print(f"spill_owner at {P} nodes over {n} items ({C} pair buckets, "
+              f"{form} form): equal to the argsort oracle, "
+              f"{int(deferred.sum())} deferred; {ms:.4f} ms a call, its "
+              f"ranks {rk:.4f} ms")
+    return out
 
 
 def flash_row(counts):
@@ -768,7 +996,7 @@ def device_ms(fn, reps: int = 20) -> float:
 # -------------------------------------------------------------- kernels --
 
 
-def kernel_rows(counts, sim_graph):
+def kernel_rows(counts, sim_graph, spill):
     import numpy as np
     import torch
     from repro_torch.core import comm_graph, engine
@@ -887,29 +1115,69 @@ def kernel_rows(counts, sim_graph):
     rows[-1].update(device_ms=x_dev, initial_ms=k4["initial"][0],
                     initial_device_ms=k4["initial"][1])
 
-    # K3 — owner ids of those particles under a rebalanced mapping
+    # K3 — owners of those particles under a random chare → PE map, in the
+    # initial order and bucketed (a stable sort: what an exchange leaves,
+    # the order of 8 of the PIC path's 9 calls); every form that takes
+    # C = P against the plain version in both orders, padding ids mixed
+    # in, two calls bit for bit, dest the inverse of a stable argsort
+    from repro_torch.kernels.migrate.ref import bucket_counts_ref
+
     amap = torch.as_tensor(np.random.default_rng(0).integers(0, P, C),
                            dtype=torch.int32, device=dev)
-    owner = amap[ids.long()]
-    dg, cg = mops._scatter_dest_cuda(owner, P)
-    dr, cr = scatter_dest_ref(owner, C=P)
-    check(torch.equal(dg, dr) and torch.equal(cg, cr),
-          "scatter_dest: kernel differs from plain version")
-    inv = torch.empty_like(dg)
-    inv[dg.long()] = torch.arange(N, dtype=torch.int32, device=dev)
-    check(torch.equal(inv.long(), torch.argsort(owner, stable=True)),
-          "scatter_dest: not the inverse of a stable argsort")
-    pad = owner.clone()
-    pad[::7] = -1
-    check(all(torch.equal(a, b) for a, b in zip(
-        mops._scatter_dest_cuda(pad, P), scatter_dest_ref(pad, C=P))),
-        "scatter_dest: padding ids differ")
+    owner = amap[ids.long()].contiguous()
+    owner_x = owner[torch.argsort(owner, stable=True)].contiguous()
+    form = mops.scatter_form(N, P)
+    k3 = {}
+    for order, o in (("initial", owner), ("bucketed", owner_x)):
+        dr, cr = scatter_dest_ref(o, C=P)
+        offr = torch.cat([cr.new_zeros(1), torch.cumsum(cr, 0,
+                                                        dtype=torch.int32)])
+        for f in ("small", "shared"):
+            if f == "small" and P > mops.SMALL_MAX_C:
+                continue
+            got = mops._one_pass(o, P, f)
+            check(all(torch.equal(a, b) for a, b in zip(got, (dr, cr, offr))),
+                  f"scatter_dest ({order} order, {f} form): differs from the "
+                  "plain version")
+        got = mops.scatter_dest(o, C=P)
+        check(all(torch.equal(a, b) for a, b in zip(got, mops.scatter_dest(
+            o, C=P))), f"scatter_dest ({order} order): two calls differ")
+        inv = torch.empty_like(got[0])
+        inv[got[0].long()] = torch.arange(N, dtype=torch.int32, device=dev)
+        check(torch.equal(inv.long(), torch.argsort(o, stable=True)),
+              f"scatter_dest ({order} order): not the inverse of a stable "
+              "argsort")
+        pad = o.clone()
+        pad[::7] = -1
+        pad[3::11] = P
+        gp, wp = mops.scatter_dest(pad, C=P), scatter_dest_ref(pad, C=P)
+        check(torch.equal(gp[0], wp[0]) and torch.equal(gp[1], wp[1])
+              and torch.equal(gp[1], bucket_counts_ref(pad, C=P)),
+              f"scatter_dest ({order} order): padding ids differ")
+        k3[order] = dict(
+            ms=time_ms(lambda: mops.scatter_dest(o, C=P)),
+            device_ms=device_ms(lambda: mops.scatter_dest(o, C=P)),
+            host_ms=host_ms(lambda: mops.scatter_dest(o, C=P)),
+            argsort_ms=time_ms(lambda: torch.argsort(o, stable=True)))
+        print(f"scatter_dest ({order} order, N={N}, C={P}, {form} form): "
+              f"exact in every form that takes it, with padding; kernel "
+              f"{k3[order]['ms']:.4f} ms, device {k3[order]['device_ms']:.4f}"
+              f" ms, host {k3[order]['host_ms']:.4f} ms; argsort "
+              f"{k3[order]['argsort_ms']:.4f} ms")
+    bx = k3["bucketed"]
     row("scatter_dest", "src/repro/kernels/migrate/kernel.py:99",
-        "src/repro_torch/csrc/migrate.cu", 0.0, "exact",
-        time_ms(lambda: mops._scatter_dest_cuda(owner, P)),
-        time_ms(lambda: scatter_dest_ref(owner, C=P), reps=5),
-        bound_ms(8 * N + 4 * P, 6 * N),
-        time_ms(lambda: torch.argsort(owner, stable=True)))
+        "src/repro_torch/csrc/migrate.cu", 0.0, "exact", bx["ms"],
+        time_ms(lambda: scatter_dest_ref(owner_x, C=P), reps=3),
+        bound_ms(8 * N + 4 * (2 * P + 1), 6 * N), bx["argsort_ms"])
+    rows[-1].update(
+        form=form, device_ms=bx["device_ms"], host_ms=bx["host_ms"],
+        initial_ms=k3["initial"]["ms"],
+        initial_device_ms=k3["initial"]["device_ms"],
+        initial_host_ms=k3["initial"]["host_ms"],
+        initial_library_ms=k3["initial"]["argsort_ms"],
+        floor_12B_ms=1e3 * 12 * N / PEAK_BYTES_PER_S,
+        forms_by_path=K3_PATH_FORMS, launches_by_path=K3_LAUNCHES,
+        spill=spill)
 
     # K1 — one S = 8 chunk from the initial carry at the PIC path's shape
     # (the first plan's graph, P = 8, K = 4), the simulator path's (its
@@ -1063,14 +1331,20 @@ def main() -> int:
     paper_scripts_and_small_replay()
     serve_counts = serve_path()
     serve_cpu_parity()
+    spill_counts = serve_spill()
+    spill = spill_sizes()
+    K3_LAUNCHES.update(PIC=counts["scatter_dest"],
+                       serving=serve_counts["scatter_dest"],
+                       serving_spill=spill_counts["scatter_dest"])
     # each kernel's launches on its own path's run (K3 on the PIC path's;
     # K1 on the PIC and simulator paths together; K2 in the step_fn plan)
     counts["diffusion_nsweeps"] += sim_counts["diffusion_nsweeps"]
     counts["diffusion_sweep"] = step_counts["diffusion_sweep"]
     counts["flash_attention"] = serve_counts["flash_attention"]
     print(f"K1 calls by form on each path: {K1_PATH_FORMS}; K2 launches "
-          f"in the step_fn plan: {counts['diffusion_sweep']}")
-    rows = kernel_rows(counts, sim_graph)
+          f"in the step_fn plan: {counts['diffusion_sweep']}; K3 calls by "
+          f"form on each path: {K3_PATH_FORMS}, launches {K3_LAUNCHES}")
+    rows = kernel_rows(counts, sim_graph, spill)
     rows.append(flash_row(counts))
     check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")
     print(json.dumps({"kernels": rows}))

@@ -45,6 +45,14 @@ def bucket_ranks_ref(ids: torch.Tensor, *, C: int):
     return rank, acc
 
 
+def bucket_counts_ref(ids: torch.Tensor, *, C: int) -> torch.Tensor:
+    """(C,) per-id counts of the ids in [0, C) (padding is not counted)."""
+    ids = ids.to(torch.int32)
+    valid = (ids >= 0) & (ids < C)
+    return torch.zeros(C, dtype=torch.int32, device=ids.device).index_add_(
+        0, ids[valid].long(), torch.ones_like(ids[valid]))
+
+
 def scatter_dest_ref(ids: torch.Tensor, *, C: int):
     """``(dest, counts)``: ``dest[i] = offsets[ids[i]] + rank[i]``;
     padding items get the sentinel ``n``."""

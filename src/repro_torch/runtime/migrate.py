@@ -58,11 +58,13 @@ class Manifest(NamedTuple):
         return w.sum()
 
 
-def resolve_method(method: str, *, n: int, num_nodes: int) -> str:
-    """``"auto"`` → :func:`kernels.migrate.preferred_method`; explicit
-    ``"sort"`` / ``"scatter"`` pass through."""
+def resolve_method(method: str, *, n: int, num_nodes: int,
+                   device=None) -> str:
+    """``"auto"`` → :func:`kernels.migrate.preferred_method` (for
+    ``device``; the CPU rule where it is None); explicit ``"sort"`` /
+    ``"scatter"`` pass through."""
     if method == "auto":
-        return mig_ops.preferred_method(int(n), int(num_nodes))
+        return mig_ops.preferred_method(int(n), int(num_nodes), device)
     if method not in ("sort", "scatter"):
         raise ValueError(f"unknown manifest method {method!r}")
     return method
@@ -76,7 +78,8 @@ def build_manifest(owner_old, owner_new, num_nodes: int,
     owner_new = owner_new.to(torch.int32)
     n = int(owner_new.shape[0])
     P = int(num_nodes)
-    if resolve_method(method, n=n, num_nodes=P) == "scatter":
+    if resolve_method(method, n=n, num_nodes=P,
+                      device=owner_new.device) == "scatter":
         dest, counts, offsets = mig_ops.scatter_dest(owner_new, C=P)
         # dest is a permutation here (every owner id is valid)
         order = torch.empty(n, dtype=torch.int32, device=owner_new.device)
@@ -158,17 +161,11 @@ def spill_owner(owner_old, owner_new, *, num_nodes: int, capacity):
     keep their old owner and retry at the next rebalance; within each
     (src, dst) flow the first items in slab order are admitted.  Returns
     ``(owner_eff, deferred)``.  The within-flow ranks go through the
-    counting-scatter kernel over C = num_nodes² pair buckets, which it
-    takes up to ``kernels.migrate.ops.MAX_C`` buckets on a card; above
-    that the pair-bucket path is not ported yet and this raises."""
+    counting scatter over C = num_nodes² pair buckets (on a card up to
+    ``kernels.migrate.ops.MAX_C``, radix digits above the shared form)."""
     P = int(num_nodes)
     oo = torch.as_tensor(owner_old).to(torch.int32)
     on = torch.as_tensor(owner_new).to(torch.int32)
-    if oo.device.type == "cuda" and P * P > mig_ops.MAX_C:
-        raise NotImplementedError(
-            f"spill_owner on {P} nodes needs {P * P} pair buckets; the "
-            f"counting-scatter kernel takes at most {mig_ops.MAX_C} (the "
-            "pair-bucket path is not ported yet)")
     move = on != oo
     pair = oo * P + on
     F = segment_count(torch.where(move, pair, P * P), P * P).reshape(P, P)

@@ -175,25 +175,98 @@ def test_histogram_kernel_takes_every_c(dev):
             hops.histogram(ids, w, C=C)
 
 
-@pytest.mark.parametrize("n", [0, 1, 4095, 4097, 100_000])
-@pytest.mark.parametrize("C", [1, 8, 64, 1024])
-def test_scatter_dest_kernel_matches_plain(dev, n, C):
-    """dest, counts and ranks exact, padding ids included."""
-    rng = np.random.default_rng(n + C)
-    ids = torch.as_tensor(rng.integers(-1, C + 1, n), dtype=torch.int32,
-                          device=dev)
+def _k3_exact(ids, C):
+    """dest, counts, offsets and ranks of the kernel equal the plain
+    version's, dest inverts a stable argsort of the valid ids, and two
+    calls agree bit for bit."""
     d, c, off = mops.scatter_dest(ids, C=C)
     dr, cr = scatter_dest_ref(ids, C=C)
     assert torch.equal(d, dr) and torch.equal(c, cr)
+    offr = torch.cat([cr.new_zeros(1), torch.cumsum(cr, 0,
+                                                    dtype=torch.int32)])
+    assert torch.equal(off, offr)
+    valid = (ids >= 0) & (ids < C)
+    order = torch.argsort(torch.where(valid, ids, C), stable=True)
+    nv = int(valid.sum())
+    assert torch.equal(d[order[:nv]], torch.arange(nv, dtype=torch.int32,
+                                                   device=ids.device))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (d, c, off), mops.scatter_dest(ids, C=C)))
     r, c2 = mops.bucket_ranks(ids, C=C)
     rr, _ = bucket_ranks_ref(ids, C=C)
     assert torch.equal(r, rr) and torch.equal(c2, cr)
 
 
+K3_C = [1, 8, mops.SMALL_MAX_C, mops.SMALL_MAX_C + 1, 64, 1024,
+        mops.SHARED_MAX_C, mops.SHARED_MAX_C + 1, 66049]
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4097, 100_000])
+@pytest.mark.parametrize("C", K3_C)
+@pytest.mark.parametrize("order", ["random", "bucketed"])
+def test_scatter_dest_kernel_matches_plain(dev, n, C, order):
+    """Every form and its boundaries (the small form up to SMALL_MAX_C,
+    the shared form up to SHARED_MAX_C, radix digits above), in random
+    order and bucketed (sorted, as after an exchange), padding ids (-1
+    and C) mixed in: all outputs exact.  At the radix sizes n stays at
+    2^16 or below (the plain version costs O(n·C))."""
+    n = min(n, 1 << 16) if C > mops.SHARED_MAX_C else n
+    rng = np.random.default_rng(n + C)
+    ids = rng.integers(-1, C + 1, n)
+    if order == "bucketed":
+        ids = np.sort(ids)
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    _k3_exact(ids, C)
+    if n:
+        form = mops.scatter_form(n, C)
+        before = mops.form_launches[form]
+        mops.scatter_dest(ids, C=C)
+        assert mops.form_launches[form] == before + 1
+
+
+@pytest.mark.parametrize("C", [8, 1024])
+def test_scatter_dest_kernel_pic_shape_and_views(dev, C):
+    """2^22 ids in the PIC exchange's two orders (random owners, then
+    bucketed by a stable sort), the kernel against the plain version; a
+    misaligned view (ids[1:]) is taken too."""
+    rng = np.random.default_rng(C)
+    ids = torch.as_tensor(rng.integers(0, C, 1 << 22), dtype=torch.int32,
+                          device=dev)
+    _k3_exact(ids, C)
+    _k3_exact(ids[torch.argsort(ids, stable=True)], C)
+    _k3_exact(ids[1:], C)
+
+
 def test_scatter_dest_kernel_rejects_large_c(dev):
-    with pytest.raises(ValueError):
-        mops.scatter_dest(torch.zeros(4, dtype=torch.int32, device=dev),
-                          C=mops.MAX_C + 1)
+    """Above MAX_C (and below 1) a card raises ValueError naming the
+    limit; one bucket past the shared form (radix digits) answers
+    exactly."""
+    ids = torch.zeros(4, dtype=torch.int32, device=dev)
+    for C in (0, mops.MAX_C + 1):
+        with pytest.raises(ValueError, match="MAX_C"):
+            mops.scatter_dest(ids, C=C)
+    C = mops.SHARED_MAX_C + 1
+    assert mops.scatter_form(1000, C) == "radix"
+    rng = np.random.default_rng(0)
+    _k3_exact(torch.as_tensor(rng.integers(-1, C + 1, 30_000),
+                              dtype=torch.int32, device=dev), C)
+
+
+def test_scatter_dest_kernel_large_c_against_argsort(dev):
+    """C = 1024^2 (the scheduler's spill at 1023 replicas and the park
+    node): dest against an independent oracle, a stable argsort."""
+    C = 1 << 20
+    rng = np.random.default_rng(1)
+    ids = torch.as_tensor(rng.integers(-1, C + 1, 1 << 20),
+                          dtype=torch.int32, device=dev)
+    d, c, off = mops.scatter_dest(ids, C=C)
+    valid = (ids >= 0) & (ids < C)
+    order = torch.argsort(torch.where(valid, ids, C), stable=True)
+    nv = int(valid.sum())
+    assert torch.equal(d[order[:nv]], torch.arange(nv, dtype=torch.int32,
+                                                   device=dev))
+    assert bool((d[~valid] == ids.shape[0]).all())
+    assert int(c.sum()) == nv and int(off[-1]) == nv
 
 
 @pytest.mark.parametrize("P,K", [(8, 4), (64, 4), (257, 8), (8192, 8)])
@@ -714,13 +787,14 @@ def test_served_model_cuda_matches_cpu(dev):
 def test_scheduler_cuda_matches_cpu(dev):
     """The DiffusionScheduler planning and exchanging on the card (K3 for
     the manifest and, under a slot budget, for spill_owner's (R+1)^2 pair
-    buckets) equals the same scheduler on the CPU; past 31 replicas a
-    slot budget needs the pair-bucket path, which raises."""
-    from repro_torch.runtime import migrate as rt_migrate
+    buckets) equals the same scheduler on the CPU, also at 40 replicas
+    with a slot budget (1681 pair buckets, the shared form): heavy
+    sessions on half the replicas, the other half full of light ones, so
+    the moves into full replicas are deferred."""
     from repro_torch.serve.scheduler import DiffusionScheduler, Session
 
-    def build(d, R):
-        s = DiffusionScheduler(R, k=3, device=d)
+    def build(d):
+        s = DiffusionScheduler(4, k=3, device=d)
         rng = np.random.default_rng(7)
         for i in range(40):
             s.add(Session(uid=100 + i, replica=int(rng.integers(0, 2)),
@@ -729,14 +803,27 @@ def test_scheduler_cuda_matches_cpu(dev):
                           kv_bytes=float(rng.uniform(10, 200))))
         return s
 
-    for cap in (None, 12):
-        c, g = build("cpu", 4), build(dev, 4)
+    def skewed(d, R=40, heavy=5, light=10):
+        s = DiffusionScheduler(R, k=3, device=d)
+        rng = np.random.default_rng(7)
+        uid = 0
+        for r in range(R):
+            hot = r < R // 2
+            for _ in range(heavy if hot else light):
+                s.add(Session(uid=uid, replica=r, tokens_per_s=float(
+                    rng.uniform(3, 5) if hot else rng.uniform(0.2, 0.6)),
+                    prefix_group=uid // 5,
+                    kv_bytes=float(rng.uniform(10, 200))))
+                uid += 1
+        return s
+
+    for make, cap in ((build, None), (build, 12), (skewed, 10)):
+        c, g = make("cpu"), make(dev)
         ic = c.rebalance(slot_capacity=cap)
         ig = g.rebalance(slot_capacity=cap)
         assert g.sessions == c.sessions
         for key in ("moved_sessions", "deferred_sessions", "moved_kv_bytes",
                     "prefix_local", "max_avg_load"):
             assert ig[key] == pytest.approx(ic[key], rel=1e-6), key
-    owner = torch.zeros(8, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="pair-bucket"):
-        rt_migrate.spill_owner(owner, owner, num_nodes=33, capacity=8)
+        if make is skewed:
+            assert ic["deferred_sessions"] > 0

@@ -28,7 +28,9 @@ from repro_torch.kernels.diffusion import ops as t_dops
 from repro_torch.kernels.histogram import ops as t_hops
 from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.migrate import ops as t_mops
-from repro_torch.kernels.migrate.ref import bucket_ranks_ref, scatter_dest_ref
+from repro_torch.kernels.migrate.ref import (bucket_counts_ref,
+                                             bucket_ranks_ref,
+                                             scatter_dest_ref)
 from repro_torch.kernels.pic_push import ops as t_pops
 from repro_torch.kernels.pic_push.ref import pic_push_ref
 from tests.conftest import random_symmetric_graph
@@ -155,6 +157,90 @@ def test_scatter_dest_is_inverse_stable_argsort():
     dest, _ = scatter_dest_ref(torch.as_tensor(ids), C=8)
     order = np.argsort(ids, kind="stable")
     np.testing.assert_array_equal(dest.numpy()[order], np.arange(3000))
+
+
+@pytest.mark.parametrize("P", [33, 40, 65])
+@pytest.mark.parametrize("limit", [16, 64, t_mops.SHARED_MAX_C])
+def test_scatter_by_digits_exact(P, limit):
+    """The radix-digit composition over the plain per-digit primitive
+    equals JAX's full-C reference (dest, counts, ranks) at C = P^2, the
+    spill's pair buckets, with padding ids (-1 and P^2) mixed in; one,
+    two or three digits by ``limit``."""
+    C = P * P
+    rng = np.random.default_rng(P + limit)
+    n = 5000
+    ids = rng.integers(0, C, n).astype(np.int32)
+    ids[rng.random(n) < 0.1] = -1
+    ids[rng.random(n) < 0.05] = C
+    ids[:1000] = np.sort(ids[:1000])          # a bucketed stretch too
+    bases = t_mops.digit_bases(C, limit)
+    prod = int(np.prod(bases[:-1]))
+    assert all(b + 1 <= limit for b in bases[:-1]) and bases[-1] <= limit
+    assert prod * bases[-1] >= C
+    dest, counts = t_mops.scatter_by_digits(
+        torch.as_tensor(ids), C, bases, scatter_dest_ref, bucket_counts_ref)
+    j_dest, j_counts = j_scatter_dest_ref(jnp.asarray(ids), C=C)
+    np.testing.assert_array_equal(dest.numpy(), np.asarray(j_dest))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(j_counts))
+    offsets = np.concatenate([[0], np.cumsum(counts.numpy())])
+    valid = (ids >= 0) & (ids < C)
+    rank = np.where(valid, dest.numpy() - offsets[np.clip(ids, 0, C - 1)], -1)
+    np.testing.assert_array_equal(
+        rank, np.asarray(j_bucket_ranks_ref(jnp.asarray(ids), C=C)[0]))
+
+
+@pytest.mark.parametrize("C,limit,bases", [
+    (8, 4096, (8,)), (4096, 4096, (4096,)), (4097, 4096, (65, 64)),
+    (66049, 4096, (257, 257)), (1 << 20, 4096, (1024, 1024)),
+    (1 << 24, 4096, (256, 256, 256)), (1089, 16, (11, 11, 9))])
+def test_digit_bases(C, limit, bases):
+    """The fewest digits whose scatters fit ``limit`` buckets (the lower
+    digits one more, for the padding), then the smallest base."""
+    assert t_mops.digit_bases(C, limit) == bases
+
+
+def test_scatter_form_and_limits():
+    """small up to SMALL_MAX_C, shared up to SHARED_MAX_C, radix digits up
+    to MAX_C (at least 1024^2: a scheduler of 1023 replicas and the park
+    node); outside [1, MAX_C] a ValueError naming the limit."""
+    assert t_mops.MAX_C >= 1024 ** 2
+    assert t_mops.digit_bases(t_mops.MAX_C) is not None
+    S1, S = t_mops.SMALL_MAX_C, t_mops.SHARED_MAX_C
+    assert [t_mops.scatter_form(10, C) for C in (1, S1, S1 + 1, S, S + 1,
+                                                  t_mops.MAX_C)] == \
+        ["small", "small", "shared", "shared", "radix", "radix"]
+    for C in (0, t_mops.MAX_C + 1):
+        with pytest.raises(ValueError, match="MAX_C"):
+            t_mops.scatter_form(10, C)
+
+
+@pytest.mark.parametrize("n,C", [(0, 8), (4097, 8), (1 << 24, 8),
+                                 (1 << 20, 1024), (1 << 24, 4096),
+                                 (1 << 24, t_mops.SMALL_MAX_C + 1)])
+def test_scatter_plan(n, C):
+    """Whole tiles a block in input order covering n, a block count that
+    is a multiple of 4 (16-byte table loads), no more blocks than four an
+    SM or than the (C, blocks) table allows, and shared memory within an
+    H100 block's."""
+    form, blocks, tpb, smem_count, smem_rank = t_mops.scatter_plan(n, C)
+    tiles = max(1, -(-n // t_mops.TILE))
+    assert form == t_mops.scatter_form(n, C)
+    assert blocks % 4 == 0 and (blocks - 4) * tpb < tiles <= blocks * tpb
+    assert blocks <= max(4, 132 * t_mops.BLOCKS_PER_SM)
+    assert blocks * C <= max(4 * C, t_mops.TABLE_MAX)
+    assert max(smem_count, smem_rank) <= t_mops.SMEM_MAX
+
+
+def test_preferred_method_on_a_card():
+    """CUDA tensors follow the crossover measured on the card (the
+    counting scatter up to CUDA_SORT_CROSSOVER_C buckets); CPU tensors and
+    no device the JAX package's rule."""
+    X = t_mops.CUDA_SORT_CROSSOVER_C
+    assert t_mops.preferred_method(1 << 20, X, "cuda") == "scatter"
+    assert t_mops.preferred_method(1 << 20, X + 1, "cuda:0") == "sort"
+    for dev in (None, "cpu"):
+        assert t_mops.preferred_method(1 << 20, 65, dev) == \
+            j_mig_ops.preferred_method(1 << 20, 65) == "sort"
 
 
 def test_preferred_method_resolves_as_jax_off_tpu():

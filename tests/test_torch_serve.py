@@ -211,7 +211,7 @@ def test_migrate_and_moved_sum_exact():
 
 
 @pytest.mark.parametrize("P,cap,seed", [(2, 8, 0), (3, 5, 1), (5, 4, 2),
-                                        (6, 9, 3)])
+                                        (6, 9, 3), (33, 6, 4), (40, 5, 5)])
 def test_spill_owner_and_admissions_exact(P, cap, seed):
     rng = np.random.default_rng(seed)
     n = P * cap - 2
@@ -330,6 +330,32 @@ def test_rebalance_slot_capacity_matches_jax():
     occ = np.bincount([x.replica for x in scheds[1].sessions.values()],
                       minlength=2)
     assert occ.max() <= 8 and len(scheds[1].sessions) == 12
+
+
+def test_rebalance_slot_capacity_40_replicas_matches_jax():
+    """A slot budget at 40 replicas (41^2 pair buckets in the spill):
+    heavy sessions on the first half of the replicas, the second half full
+    of light ones, so the moves into full replicas are deferred; every
+    record equals JAX's."""
+    R, cap = 40, 10
+    scheds = _both_schedulers(R, k=3)
+    rng = np.random.default_rng(7)
+    uid = 0
+    for r in range(R):
+        for _ in range(5 if r < R // 2 else cap):
+            _add(scheds, uid=uid, replica=r, prefix_group=uid // 5,
+                 tokens_per_s=float(rng.uniform(3, 5) if r < R // 2
+                                    else rng.uniform(0.2, 0.6)),
+                 kv_bytes=float(rng.uniform(10, 200)))
+            uid += 1
+    want, got = (s.rebalance(strategy="diff-comm", slot_capacity=cap)
+                 for s in scheds)
+    _same_info(got, want)
+    _same_store(scheds)
+    assert got["deferred_sessions"] > 0
+    occ = np.bincount([x.replica for x in scheds[1].sessions.values()],
+                      minlength=R)
+    assert occ.max() <= cap and len(scheds[1].sessions) == uid
 
 
 def test_maybe_rebalance_fire_steps_match_jax():
