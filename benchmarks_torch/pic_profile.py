@@ -15,7 +15,8 @@ prints:
   * device time by kernel name inside that window (top 25), with counts.
 
 Run from the repository root:  python3 benchmarks_torch/pic_profile.py
-It needs a card and fails without one.  The full table is also written as
+[--strategy greedy-refine] (the strategy of the run; diff-comm by
+default).  It needs a card and fails without one.  The full table is also written as
 JSON to ``--out`` (default ``artifacts/pic_profile.json``).
 """
 from __future__ import annotations
@@ -53,7 +54,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
                     default=ROOT / "artifacts" / "pic_profile.json")
+    ap.add_argument("--strategy", default=CFG["strategy"])
     args = ap.parse_args()
+    cfg = dict(CFG, strategy=args.strategy,
+               strategy_kwargs=(CFG["strategy_kwargs"]
+                                if args.strategy.startswith("diff") else {}))
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -69,13 +74,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
     kernels.build_all()
-    driver.run(driver.PICConfig(**{**CFG, "steps": 20}, device="cuda"))
+    driver.run(driver.PICConfig(**{**cfg, "steps": 20}, device="cuda"))
     torch.cuda.reset_peak_memory_stats()
-    plain = driver.run(driver.PICConfig(**CFG, device="cuda"))
+    plain = driver.run(driver.PICConfig(**cfg, device="cuda"))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = driver.run(driver.PICConfig(**CFG, device="cuda"))
+        res = driver.run(driver.PICConfig(**cfg, device="cuda"))
         torch.cuda.synchronize()
 
     dev_events = [e for e in prof.events()
@@ -99,7 +104,7 @@ def main() -> int:
                    for n, v in by_name.items()),
                   key=lambda r: -r["device_ms"])
     loop_ms = res.wall_seconds * 1e3
-    out = dict(device=torch.cuda.get_device_name(0),
+    out = dict(device=torch.cuda.get_device_name(0), strategy=args.strategy,
                step_loop_ms=plain.wall_seconds * 1e3,
                steps_per_s=CFG["steps"] / plain.wall_seconds,
                peak_device_gib=peak_gib,

@@ -14,7 +14,12 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      and checks its invariants against a ``strategy="none"`` run of the
      same configuration;
   2. checks a small PIC run on the card against the same run on the CPU
-     (plain PyTorch versions);
+     (plain PyTorch versions), under diff-comm and under greedy-refine;
+     then drives the same full-size PIC configuration under
+     ``greedy-refine`` (a host planner: NumPy on the host at each fired
+     step, the exchange on the card), the launch counts set to 0 just
+     before and read just after (K5 and K4 every step, K3 at each
+     exchange), its mean max/avg held below the ``none`` run's;
   3. drives the simulator path — ``repro_torch.sim.simulator.run_series``
      on the ``stencil-wave`` scenario at grid 1024 × 1024 (2^20 objects,
      5-point edges) over 8192 nodes tiled 64 × 128, diff-comm k = 8, 30
@@ -25,9 +30,17 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      ``LBEngine(step_fn=ops.diffusion_sweep)`` (K2's path, with the launch
      counts set to 0 just before and read just after) and the default
      engine, and stage 2 through the selected chunk (K1) against the
-     streaming one (K2 in a replayed CUDA graph);
+     streaming one (K2 in a replayed CUDA graph); holds K4's ordered form
+     (the card's f32 segment sums) at the PIC path's PE loads and the
+     snapshot's node loads and node-pair bytes against the CPU, bit for
+     bit;
   5. runs the port's Table I and Fig 2 scripts on the card, and a small
-     replay on the card against the same replay on the CPU;
+     replay on the card against the same replay on the CPU; a small
+     ``greedy-refine`` replay and a small batched replay of every
+     registered scenario against the CPU's (fire steps and final
+     assignments equal); then Table II, Fig 4 and Fig 5 at their
+     published sizes with their assertions, each with the launch counts
+     set to 0 just before and read just after;
   6. drives the serving path — what ``repro_torch.launch.serve`` does, at
      gemma3-1b's full width (26 layers, d_model 1152, vocab 262144,
      window 1024, random weights from seed 0): a ``DiffusionScheduler``
@@ -91,7 +104,7 @@ PIC_KERNELS = ("diffusion_nsweeps", "histogram", "pic_push", "scatter_dest")
 SIM_SCENARIO = dict(grid=1024, num_nodes=8192, mapping="tiled")
 SIM = dict(steps=30, lb_every=10, strategy="diff-comm",
            strategy_kwargs={"k": 8})
-SIM_KERNELS = ("diffusion_nsweeps",)
+SIM_KERNELS = ("diffusion_nsweeps", "histogram")   # K4: segment sums
 # K2 (the streaming sweep) runs where a caller plans with
 # LBEngine(step_fn=ops.diffusion_sweep): the snapshot's plan in sim_engines
 STEP_KERNELS = ("diffusion_sweep",)
@@ -105,11 +118,24 @@ SERVE = dict(replicas=2, slots=4, max_len=1056, dtype="bfloat16",
              max_new=32,
              prompt_lens=(1000, 996, 512, 576, 640, 704, 768, 832))
 SERVE_KERNELS = ("flash_attention", "scatter_dest")
+# the host-planner PIC path: the PIC configuration under greedy-refine
+PIC_HOST = dict(PIC, strategy="greedy-refine", strategy_kwargs={})
+PIC_HOST_KERNELS = ("histogram", "pic_push", "scatter_dest")
+# the paper scripts that assert against the host baselines, at their
+# published sizes (``run(device=..., **kw)``; a rehearsal shrinks them),
+# and the kernels each must launch
+PAPER_HOST = {"table2_strategies": {}, "fig4_pic_lb": {},
+              "fig5_scaling": {}}
+PAPER_HOST_KERNELS = {"table2_strategies": ("diffusion_nsweeps",),
+                      "fig4_pic_lb": PIC_KERNELS,
+                      "fig5_scaling": PIC_KERNELS}
 DEV = "cuda"   # the card; a rehearsal on the CPU sets "cpu"
 # K1's and K3's calls by form on each path's run (filled as the paths run)
 K1_PATH_FORMS: dict = {}
 K3_PATH_FORMS: dict = {}
 K3_LAUNCHES: dict = {}       # K3's launches on each path's run
+K4_PATH_FORMS: dict = {}     # K4's calls by form on each path's run
+K4_ORDERED_MS: dict = {}     # K4's ordered form by case (k4_ordered_check)
 # the serving spill: a scheduler of 63 replicas and a park node (64^2 pair
 # buckets) whose slot budget defers moves; heavy sessions on the first
 # half of the replicas, the second half full of light ones
@@ -208,20 +234,24 @@ def k3_forms_since(before, path, launches):
 
 
 def main_path():
-    import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels.diffusion import ops as dops
-    from repro_torch.pic import chares, driver
+    from repro_torch.pic import driver
 
     from repro_torch.kernels.migrate import ops as mops
+
+    from repro_torch.kernels.histogram import ops as hops
 
     kernels.reset_launch_counts()
     k1_0 = dict(dops.form_launches)
     k3_0 = dict(mops.form_launches)
+    k4_0 = dict(hops.form_launches)
     t0 = time.perf_counter()
     res = driver.run(driver.PICConfig(**PIC, device="cuda"))
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    K4_PATH_FORMS["PIC"] = {f: n - k4_0[f]
+                            for f, n in hops.form_launches.items()}
     k1_forms_since(k1_0, "PIC", PIC["num_pes"], PIC["strategy_kwargs"]["k"],
                    counts["diffusion_nsweeps"])
     forms = k3_forms_since(k3_0, "PIC", counts["scatter_dest"])
@@ -236,55 +266,121 @@ def main_path():
         check(counts[name] > 0, f"kernel {name} was not launched on the PIC "
               "path")
 
-    N = PIC["n_particles"]
-    fx, fy = res.final_x, res.final_y
-    check(fx.shape == (N,) and fy.shape == (N,), "particles not conserved")
-    check(np.isfinite(fx).all() and np.isfinite(fy).all(),
-          "non-finite positions")
-    check(((fx >= 0) & (fx <= PIC["L"]) & (fy >= 0)
-           & (fy <= PIC["L"])).all(), "positions left the grid")
-    import torch
-
-    xt = torch.as_tensor(fx, device="cuda")
-    yt = torch.as_tensor(fy, device="cuda")
-    from repro_torch.kernels.histogram.ops import histogram
-
-    loads = histogram(chares.chare_of_device(xt, yt, PIC["L"], PIC["cx"],
-                                             PIC["cy"]),
-                      torch.ones_like(xt), C=PIC["cx"] * PIC["cy"])
-    check(float(loads.sum()) == N, f"chare loads sum to {float(loads.sum())}"
-          f", not {N}")
-    fired = int(res.lb_steps.sum())
-    check(fired == (PIC["steps"] - 1) // PIC["lb_every"],
-          f"LB fired {fired} times")
-    check(res.migrated_bytes.sum() > 0, "no particle was migrated")
-
+    check_pic_result(res, PIC)
     none = driver.run(driver.PICConfig(**{**PIC, "strategy": "none"},
                                        device="cuda"))
     bal, ref = res.summary()["mean_max_avg"], none.summary()["mean_max_avg"]
     print(f"mean max/avg: diff-comm {bal:.6f} vs none {ref:.6f}; migrated "
-          f"{res.migrated_bytes.sum():.0f} B over {fired} rebalances")
+          f"{res.migrated_bytes.sum():.0f} B over {int(res.lb_steps.sum())} "
+          "rebalances")
     check(bal < ref, "diff-comm did not lower mean max/avg below none")
-    return counts, res
+    return counts, res, none
+
+
+def host_pic_path(diff, none):
+    """The PIC configuration above under ``greedy-refine``, a host planner
+    (NumPy on the host at each fired step, the exchange on the card), with
+    the launch counts set to 0 just before and read just after: K5 and K4
+    every step, K3 at each exchange, no K1; its mean max/avg below the
+    ``none`` run's.  Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.pic import driver
+
+    from repro_torch.kernels.histogram import ops as hops
+
+    cfg = PIC_HOST
+    kernels.reset_launch_counts()
+    k4_0 = dict(hops.form_launches)
+    t0 = time.perf_counter()
+    res = driver.run(driver.PICConfig(**cfg, device=DEV))
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    k4 = K4_PATH_FORMS["PIC greedy-refine"] = {
+        f: n - k4_0[f] for f, n in hops.form_launches.items()}
+    fired = int(res.lb_steps.sum())
+    print(f"PIC path under greedy-refine: {cfg['n_particles']} particles, "
+          f"{cfg['steps']} steps in {wall:.3f} s end to end "
+          f"({res.wall_seconds:.3f} s step loop, "
+          f"{cfg['steps'] / res.wall_seconds:.2f} steps/s against "
+          f"diff-comm's {diff['steps'] / diff['wall_seconds']:.2f}); "
+          f"{fired} host plans, {res.lb_seconds:.6f} s of planning "
+          f"(diff-comm charged {diff['lb_seconds']:.6f}); launches {counts}"
+          f", K4 calls by form {k4}")
+    for name in PIC_HOST_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "greedy-refine PIC path")
+    if PIC_HOST_KERNELS:
+        # K4: the chare loads (private form) every step, the segment sums
+        # of the PE loads and the trigger's statistics (ordered form)
+        want = dict(pic_push=cfg["steps"], scatter_dest=fired,
+                    diffusion_nsweeps=0, private=cfg["steps"],
+                    histogram=k4["private"] + k4["ordered"])
+        got = {**{k: counts[k] for k in ("pic_push", "scatter_dest",
+                                          "diffusion_nsweeps", "histogram")},
+               "private": k4["private"]}
+        check(got == want and k4["ordered"] >= cfg["steps"],
+              f"greedy-refine PIC path: launches {got}, K4 forms {k4}, not "
+              f"{want}")
+    check_pic_result(res, cfg)
+    bal, ref = res.summary()["mean_max_avg"], none.summary()["mean_max_avg"]
+    print(f"mean max/avg: greedy-refine {bal:.6f} vs none {ref:.6f}; "
+          f"migrated {res.migrated_bytes.sum():.0f} B over {fired} "
+          "rebalances")
+    check(bal < ref, "greedy-refine did not lower mean max/avg below none")
+    return counts
+
+
+def check_pic_result(res, cfg):
+    """A PIC run's invariants: particles conserved, finite and on the
+    grid, chare loads summing to the particle count, the fixed cadence's
+    rebalances fired, particles migrated."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.histogram.ops import histogram
+    from repro_torch.pic import chares
+
+    N = cfg["n_particles"]
+    fx, fy = res.final_x, res.final_y
+    check(fx.shape == (N,) and fy.shape == (N,), "particles not conserved")
+    check(np.isfinite(fx).all() and np.isfinite(fy).all(),
+          "non-finite positions")
+    check(((fx >= 0) & (fx <= cfg["L"]) & (fy >= 0)
+           & (fy <= cfg["L"])).all(), "positions left the grid")
+    xt = torch.as_tensor(fx, device=DEV)
+    yt = torch.as_tensor(fy, device=DEV)
+    loads = histogram(chares.chare_of_device(xt, yt, cfg["L"], cfg["cx"],
+                                             cfg["cy"]),
+                      torch.ones_like(xt), C=cfg["cx"] * cfg["cy"])
+    check(float(loads.sum()) == N, f"chare loads sum to {float(loads.sum())}"
+          f", not {N}")
+    fired = int(res.lb_steps.sum())
+    check(fired == (cfg["steps"] - 1) // cfg["lb_every"],
+          f"LB fired {fired} times")
+    check(res.migrated_bytes.sum() > 0, "no particle was migrated")
 
 
 def cpu_parity():
-    """A small PIC run on the card equals the same run on the CPU."""
+    """A small PIC run on the card equals the same run on the CPU, under
+    diff-comm and under greedy-refine (a host planner)."""
     import numpy as np
     from repro_torch.pic import driver
 
-    small = dict(L=100, n_particles=4000, steps=40, cx=8, cy=8, num_pes=4,
-                 lb_every=10, strategy="diff-comm")
-    g = driver.run(driver.PICConfig(**small, device="cuda"))
-    c = driver.run(driver.PICConfig(**small, device="cpu"))
-    for f in ("lb_steps", "migrations", "migrated_bytes", "ext_bytes",
-              "int_bytes", "max_avg"):
-        check(np.array_equal(getattr(g, f), getattr(c, f)),
-              f"small PIC run: {f} differs between cuda and cpu")
-    err = max(np.abs(g.final_x - c.final_x).max(),
-              np.abs(g.final_y - c.final_y).max())
-    check(err <= 1e-3, f"small PIC run: positions differ by {err}")
-    print(f"small PIC run on cuda == cpu (positions within {err:.3g})")
+    for strategy in ("diff-comm", "greedy-refine"):
+        small = dict(L=100, n_particles=4000, steps=40, cx=8, cy=8,
+                     num_pes=4, lb_every=10, strategy=strategy)
+        g = driver.run(driver.PICConfig(**small, device="cuda"))
+        c = driver.run(driver.PICConfig(**small, device="cpu"))
+        for f in ("lb_steps", "migrations", "migrated_bytes", "ext_bytes",
+                  "int_bytes", "max_avg"):
+            check(np.array_equal(getattr(g, f), getattr(c, f)),
+                  f"small PIC run ({strategy}): {f} differs between cuda "
+                  "and cpu")
+        err = max(np.abs(g.final_x - c.final_x).max(),
+                  np.abs(g.final_y - c.final_y).max())
+        check(err <= 1e-3, f"small PIC run ({strategy}): positions differ "
+              f"by {err}")
+        print(f"small PIC run ({strategy}) on cuda == cpu (positions "
+              f"within {err:.3g})")
 
 
 # ------------------------------------------------------- simulator path --
@@ -312,12 +408,17 @@ def sim_path():
     print(f"sweep_impl({P}, {K}) = {dops.sweep_impl(P, K, DEV)!r} (the "
           f"fused kernel up to P*K = {dops.FUSED_MAX_PK}), k1_form = "
           f"{dops.k1_form(P, K)!r}")
+    from repro_torch.kernels.histogram import ops as hops
+
     kernels.reset_launch_counts()
     k1_0 = dict(dops.form_launches)
+    k4_0 = dict(hops.form_launches)
     t0 = time.perf_counter()
     res = simulator.run_series(problem, evolve, **SIM)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    K4_PATH_FORMS["simulator"] = {f: n - k4_0[f]
+                                  for f, n in hops.form_launches.items()}
     if "diffusion_nsweeps" in SIM_KERNELS:
         k1_forms_since(k1_0, "simulator", P, K, counts["diffusion_nsweeps"])
     fired = np.nonzero(res.lb_fired)[0].tolist()
@@ -470,6 +571,130 @@ def paper_scripts_and_small_replay():
                   "and cpu")
     print("small stencil-wave replay on cuda == cpu on both loops "
           f"(fired {int(cpu.lb_fired.sum())} times)")
+
+
+def k4_ordered_check(snap):
+    """K4's ordered form — the card's f32 segment sums — at the PIC path's
+    PE loads (144 chares into 8 PEs, the unsorted walk) and the simulator
+    snapshot's shapes (node loads: 2^20 objects into 8192 nodes; pair
+    bytes: the edges into P^2 node pairs), and on loads of three
+    magnitudes, bit for bit against its plain version on the CPU, timed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.histogram import ops as hops
+    from repro_torch.kernels.histogram.ref import histogram_ref
+
+    P = snap.num_nodes
+    a = snap.assignment.long()
+    valid = snap.edges_src >= 0
+    pair = torch.where(valid, a[snap.edges_src.clamp(min=0).long()] * P
+                       + a[snap.edges_dst.clamp(min=0).long()], 0)
+    n = snap.num_objects
+    rng = np.random.default_rng(0)
+    mixed = torch.as_tensor((rng.random(n) * 1000).astype(np.float32)
+                            * rng.choice(np.array([1e-3, 1, 1e3],
+                                                  np.float32), n),
+                            device=DEV)
+    C_pic = PIC["cx"] * PIC["cy"]
+    cases = {"PIC PE loads (unsorted walk)": (
+                 torch.as_tensor(rng.integers(0, PIC["num_pes"], C_pic),
+                                 device=DEV), mixed[:C_pic],
+                 PIC["num_pes"]),
+             "node loads": (a, snap.loads, P),
+             "pair bytes": (pair, torch.where(valid, snap.edges_bytes, 0.0),
+                            P * P),
+             "mixed loads": (a, mixed, P)}
+    for name, (ids, w, C) in cases.items():
+        got = hops.histogram_ordered(ids, w, C=C)
+        want = histogram_ref(ids.cpu(), w.cpu(), C=C)
+        check(torch.equal(got.cpu(), want), f"K4 ordered form ({name}): "
+              "differs from the plain version")
+        ms = time_ms(lambda: hops.histogram_ordered(ids, w, C=C), reps=5) \
+            if DEV == "cuda" else float("nan")
+        K4_ORDERED_MS[name] = ms
+        print(f"K4 ordered form, {name}: {ids.shape[0]} items into {C} "
+              f"bins equal to the CPU's bit for bit, {ms:.4f} ms")
+
+
+def host_and_batched_replays():
+    """A small greedy-refine replay (the host loop) and a small batched
+    replay (every registered scenario, diff-comm) on the card, each
+    against the same replay on the CPU: fire steps and final assignments
+    equal."""
+    import numpy as np
+    from repro_torch.sim import scenarios, simulator
+
+    kw = dict(steps=24, lb_every=6, strategy="greedy-refine")
+    small = dict(grid=16, num_nodes=8)
+    cpu = simulator.run_series(*scenarios.get("stencil-wave").instantiate(
+        device="cpu", **small), **kw)
+    g = simulator.run_series(*scenarios.get("stencil-wave").instantiate(
+        device=DEV, **small), **kw)
+    check(not g.scanned, "greedy-refine did not take the host loop")
+    for f in ("lb_fired", "final_assignment"):
+        check(np.array_equal(getattr(g, f), getattr(cpu, f)),
+              f"greedy-refine replay: {f} differs between {DEV} and cpu")
+    bkw = dict(steps=24, lb_every=6, strategy="diff-comm",
+               strategy_kwargs=dict(k=3))
+    bc = simulator.run_series_batch(scenarios.batch_instances(
+        8, grid=16, num_nodes=8, device="cpu"), **bkw)
+    inst = scenarios.batch_instances(8, grid=16, num_nodes=8, device=DEV)
+    bg = simulator.run_series_batch(inst, **bkw)
+    for (name, _, _), lg, lc in zip(inst, bg.series, bc.series):
+        for f in ("lb_fired", "final_assignment"):
+            check(np.array_equal(getattr(lg, f), getattr(lc, f)),
+                  f"batched replay, lane {name}: {f} differs between "
+                  f"{DEV} and cpu")
+    print(f"greedy-refine replay on {DEV} == cpu (fired "
+          f"{int(cpu.lb_fired.sum())} times, {g.plan_seconds:.6f} s of "
+          f"planning); batched replay of {bg.batch} lanes on {DEV} == cpu "
+          f"({bg.wall_seconds:.3f} s, {bg.lane_steps_per_sec:.1f} "
+          "lane-steps/s)")
+
+
+def paper_scripts_host():
+    """Table II, Fig 4 and Fig 5 on the card, their assertions holding,
+    each with the launch counts set to 0 just before and read just after;
+    prints each script's wall time, Table II's plan seconds and Fig 5's
+    planning seconds."""
+    import importlib
+
+    from repro_torch import kernels
+
+    out = {}
+    for name, kw in PAPER_HOST.items():
+        mod = importlib.import_module(f"benchmarks_torch.{name}")
+        kernels.reset_launch_counts()
+        _sync()
+        t0 = time.perf_counter()
+        res = mod.run(device=DEV, **kw)
+        _sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        print(f"{name}: {wall:.3f} s on {DEV}; launches {counts}")
+        for k in PAPER_HOST_KERNELS[name]:
+            check(counts[k] > 0, f"kernel {k} was not launched by {name}")
+        out[name] = res
+    t2 = out["table2_strategies"]
+    print("table2 plan seconds: " + ", ".join(
+        f"{pes} PEs " + " ".join(
+            f"{s}={t2[pes][s]['plan_seconds']!r}" for s in t2[pes])
+        for pes in t2 if isinstance(pes, int)))
+    print("table2 trigger policies (wall s): " + ", ".join(
+        f"{s}={v['wall_seconds']!r} (plans {v['plan_seconds']!r})"
+        for s, v in t2["trigger_policies"].items()))
+    f4 = out["fig4_pic_lb"]
+    print("fig4 step-loop wall s: " + ", ".join(
+        f"{s}={v['wall_seconds']!r}" for s, v in f4.items()))
+    f5 = out["fig5_scaling"]
+    print("fig5 modeled s / lb s / wall s: " + "; ".join(
+        f"{pes} PEs " + " ".join(
+            f"{s}={c['modeled_time']!r}/{c['lb_seconds']!r}/"
+            f"{c['wall_seconds']!r}" for s, c in f5[pes].items())
+        for pes in f5 if isinstance(pes, int)))
+    print(f"fig5 batched sweep: {f5['batched_scenarios']['wall_seconds']!r}"
+          f" s, {f5['batched_scenarios']['lane_steps_per_sec']!r} "
+          "lane-steps/s")
 
 
 # --------------------------------------------------------- serving path --
@@ -1113,7 +1338,9 @@ def kernel_rows(counts, sim_graph, spill):
         time_ms(lambda: histogram_ref(ids_x, w, C=C), reps=5),
         bound_ms(8 * N + 4 * C, N), x_lib)
     rows[-1].update(device_ms=x_dev, initial_ms=k4["initial"][0],
-                    initial_device_ms=k4["initial"][1])
+                    initial_device_ms=k4["initial"][1],
+                    ordered_ms=K4_ORDERED_MS,
+                    forms_by_path=K4_PATH_FORMS)
 
     # K3 — owners of those particles under a random chare → PE map, in the
     # initial order and bucketed (a stable sort: what an exchange leaves,
@@ -1324,11 +1551,16 @@ def main() -> int:
     print(f"built {sorted(kernels.registry())} in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    counts, _ = main_path()
+    counts, pic_diff, pic_none = main_path()
     cpu_parity()
+    host_pic_path(dict(steps=PIC["steps"], wall_seconds=pic_diff.wall_seconds,
+                       lb_seconds=pic_diff.lb_seconds), pic_none)
     sim_counts, snap = sim_path()
     sim_graph, step_counts = sim_engines(snap)
+    k4_ordered_check(snap)
     paper_scripts_and_small_replay()
+    host_and_batched_replays()
+    paper_scripts_host()
     serve_counts = serve_path()
     serve_cpu_parity()
     spill_counts = serve_spill()
@@ -1343,7 +1575,8 @@ def main() -> int:
     counts["flash_attention"] = serve_counts["flash_attention"]
     print(f"K1 calls by form on each path: {K1_PATH_FORMS}; K2 launches "
           f"in the step_fn plan: {counts['diffusion_sweep']}; K3 calls by "
-          f"form on each path: {K3_PATH_FORMS}, launches {K3_LAUNCHES}")
+          f"form on each path: {K3_PATH_FORMS}, launches {K3_LAUNCHES}; "
+          f"K4 calls by form on each path: {K4_PATH_FORMS}")
     rows = kernel_rows(counts, sim_graph, spill)
     rows.append(flash_row(counts))
     check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")

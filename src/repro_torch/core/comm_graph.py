@@ -5,11 +5,14 @@ object-communication graph, and the current object→node assignment, as
 fixed-shape tensors on one device.  Counterpart of ``repro.core.comm_graph``.
 
 Float segment sums here feed planning decisions, so they must give the
-same bits on every run: :func:`segment_sum` is a sort-based reduction
-(stable sort by segment, then one sequential sum per segment), never a
-float ``index_add_``, whose CUDA atomics add in a varying order; and
+same bits on every run and on every device: :func:`segment_sum` adds each
+segment's items one at a time in index order (on the CPU a stable sort and
+``segment_reduce``, on a card K4's ordered form), never a float
+``index_add_``, whose CUDA atomics add in a varying order; and
 :func:`cumsum` replaces ``torch.cumsum``, whose CUDA scan adds floats in
-an order that varies from run to run.
+an order that varies from run to run and whose CPU scan accumulates
+float32 in float64: it adds in the order the JAX package's ``jnp.cumsum``
+adds in on the CPU, on every device.
 """
 from __future__ import annotations
 
@@ -20,17 +23,22 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.histogram.ops import histogram_ordered
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``out[s] = Σ_{i: ids_i = s} values_i`` in a fixed order.
 
-    Deterministic on every device: items are stably sorted by segment and
-    each segment is summed in index order (the order XLA's CPU
-    ``segment_sum`` adds in).  Ids outside ``[0, num_segments)`` are
-    dropped, as ``jax.ops.segment_sum`` drops them."""
+    The same bits on every device: each segment's items are added in
+    index order (the order XLA's CPU ``segment_sum`` adds in) — on the CPU
+    by a stable sort and ``segment_reduce``, on a card for f32 by K4's
+    ordered form (``torch.segment_reduce``'s CUDA reduction adds in
+    another order).  Ids outside ``[0, num_segments)`` are dropped, as
+    ``jax.ops.segment_sum`` drops them."""
     S = int(num_segments)
+    if values.is_cuda and values.dtype == torch.float32:
+        return histogram_ordered(segment_ids, values, C=S)
     ids = segment_ids.to(torch.int64)
     ids = torch.where((ids >= 0) & (ids < S), ids, S)       # drop bucket S
     order = torch.sort(ids, stable=True).indices
@@ -43,22 +51,46 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     return out[:S].to(values.dtype)
 
 
-def cumsum(values: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along dim 0, the same bits on every run.
+#: XLA's CPU cumsum is a reduce-window that XLA rewrites into a scan of
+#: 16-element blocks (sequential within a block, the block totals scanned
+#: the same way, recursively); :func:`cumsum` reproduces that order
+SCAN_BLOCK = 16
 
-    On the CPU ``torch.cumsum`` adds in index order (as XLA's CPU cumsum
-    does).  On CUDA ``torch.cumsum`` is a decoupled look-back scan whose
-    float additions vary with timing, so a float tensor there takes a
-    Hillis–Steele scan instead: log2(n) rounds of shifted adds, each
-    element's partial sums combined in one fixed order."""
-    if values.device.type == "cpu" or not values.is_floating_point():
+
+def _sequential_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along dim 1 of a (rows, B) tensor, each row
+    added left to right."""
+    cols = [x[:, 0]]
+    for k in range(1, x.shape[1]):
+        cols.append(cols[-1] + x[:, k])
+    return torch.stack(cols, dim=1)
+
+
+def cumsum(values: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor, the same bits on every run
+    and every device.
+
+    Integers take ``torch.cumsum`` (exact in any order).  Floats are
+    added in the order of the JAX package's ``jnp.cumsum`` on the CPU
+    (XLA's blocked scan, :data:`SCAN_BLOCK`): left to right within each
+    block of 16, then each block offset by the exclusive prefix of the
+    block totals, themselves scanned the same way.  Neither
+    ``torch.cumsum`` gives those bits: on the CPU it accumulates float32
+    in float64, and on CUDA its scan adds in an order that varies from
+    run to run.  Stage 3's take-while compares these sums with a budget,
+    so the order decides which objects move."""
+    if not values.is_floating_point():
         return torch.cumsum(values, 0)
-    out = values
-    k = 1
-    while k < out.shape[0]:
-        out = torch.cat([out[:k], out[k:] + out[:-k]])
-        k *= 2
-    return out
+    n = values.shape[0]
+    B = SCAN_BLOCK
+    if n <= B:
+        return _sequential_rows(values[None, :])[0] if n else values
+    rows = -(-n // B)
+    x = torch.cat([values, values.new_zeros(rows * B - n)]).reshape(rows, B)
+    inner = _sequential_rows(x)
+    carry = cumsum(inner[:, -1].contiguous())
+    carry = torch.cat([carry.new_zeros(1), carry[:-1]])
+    return (inner + carry[:, None]).reshape(-1)[:n]
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
@@ -224,3 +256,61 @@ def make_problem(loads, assignment, edges, edge_bytes, num_nodes: int,
         num_nodes=int(num_nodes),
         coords=None if coords is None else t(coords, torch.float32),
     )
+
+
+def common_shape(problems) -> tuple:
+    """``(num_nodes, num_objects)`` shared by every problem of a batch;
+    ``ValueError`` if there is none (or no problem)."""
+    if not problems:
+        raise ValueError("a batch needs at least one problem")
+    P, N = problems[0].num_nodes, problems[0].num_objects
+    for p in problems:
+        if p.num_nodes != P or p.num_objects != N:
+            raise ValueError(
+                "a batch needs a common (num_nodes, num_objects) shape; "
+                f"got ({p.num_nodes}, {p.num_objects}) vs ({P}, {N})")
+    return P, N
+
+
+def stack_problems(problems) -> LBProblem:
+    """Stack B same-shaped problems into one batched ``LBProblem``.
+
+    Every tensor gains a leading batch axis — the input of
+    ``engine.LBEngine.plan_batch_fn``.  Requirements: identical
+    ``num_nodes`` and object count; edge lists may differ in length and
+    are padded to the longest with the standard (-1, -1, 0.0) padding
+    (every consumer masks on ``edges_src >= 0``).  ``coords`` are kept
+    only when every problem has them (the comm variant never reads them).
+    The batch lives on the first problem's device."""
+    problems = list(problems)
+    P, _ = common_shape(problems)
+    E = max(p.num_edges for p in problems)
+    dev = problems[0].device
+
+    def stack(field, dtype, fill=None):
+        rows = []
+        for p in problems:
+            a = getattr(p, field).to(device=dev, dtype=dtype)
+            if fill is not None and a.shape[0] < E:
+                a = torch.cat([a, a.new_full((E - a.shape[0],), fill)])
+            rows.append(a)
+        return torch.stack(rows)
+
+    keep_coords = all(p.coords is not None for p in problems)
+    return LBProblem(
+        loads=stack("loads", torch.float32),
+        assignment=stack("assignment", torch.int32),
+        edges_src=stack("edges_src", torch.int32, -1),
+        edges_dst=stack("edges_dst", torch.int32, -1),
+        edges_bytes=stack("edges_bytes", torch.float32, 0.0),
+        num_nodes=P,
+        coords=stack("coords", torch.float32) if keep_coords else None)
+
+
+def lane(problems: LBProblem, b: int) -> LBProblem:
+    """Problem ``b`` of a stacked batch (its edges keep the padding)."""
+    return LBProblem(
+        loads=problems.loads[b], assignment=problems.assignment[b],
+        edges_src=problems.edges_src[b], edges_dst=problems.edges_dst[b],
+        edges_bytes=problems.edges_bytes[b], num_nodes=problems.num_nodes,
+        coords=None if problems.coords is None else problems.coords[b])

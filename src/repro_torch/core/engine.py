@@ -10,12 +10,17 @@ caps, device)`` and exposes
     by ``sweep_impl``, on the CPU the plain chunk), or, with an explicit
     ``step_fn``, that sweep inside the plain chunk body;
   * ``plan(problem) -> LBPlan`` — eager convenience with timing and the
-    ``info`` dict.
+    ``info`` dict;
+  * ``plan_batch_fn`` / ``plan_batch`` — one plan per problem of a batch
+    (``comm_graph.stack_problems``).
 
-Strategies ported so far: ``none``, ``diff-comm``, ``diff-coord`` and their
-``+threshold`` / ``+predictive`` trigger-wrapped variants.  The host
-baselines (greedy, metis, ...), batched and hierarchical planning belong to
-a later slice; their names raise ``KeyError`` like any unknown name.
+The registry holds every strategy the JAX package registers: ``none``,
+``diff-comm``, ``diff-coord`` and their ``+threshold`` / ``+predictive``
+trigger-wrapped variants plan on the problem's device; ``greedy``,
+``ep-greedy``, ``greedy-refine``, ``metis`` and ``parmetis`` are host
+planners (``Strategy.host``, NumPy in ``core.baselines``) that read the
+problem from its device once a plan and put the assignment back there.
+Hierarchical planning belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -23,9 +28,10 @@ import dataclasses
 import time
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core import comm_graph
+from repro_torch.core import baselines, comm_graph
 from repro_torch.core import neighbor_selection as ns
 from repro_torch.core import object_selection as osel
 from repro_torch.core import virtual_lb as vlb
@@ -117,6 +123,53 @@ class LBEngine:
         return _timed_plan(self.plan_fn, problem, f"diff-{self.variant}",
                            self.device, dict(k=self.k))
 
+    # ------------------------------------------------------ batched path --
+
+    def plan_batch_fn(self, problems: comm_graph.LBProblem
+                      ) -> Tuple[torch.Tensor, PlanStats]:
+        """:meth:`plan_fn` over a stacked batch (every tensor with a
+        leading B axis, ``comm_graph.stack_problems``): ``(assignments
+        (B, N), PlanStats of (B,) tensors)``.
+
+        The JAX package vmaps the planner; its stages end on
+        data-dependent loops that ``torch.vmap`` cannot trace, so the
+        lanes are planned one after another on the device, each lane's
+        padded edges masked as every consumer masks them (so a lane plans
+        as its unpadded problem does)."""
+        plans = [self.plan_fn(comm_graph.lane(problems, b))
+                 for b in range(problems.loads.shape[0])]
+        assignments = torch.stack([a.to(torch.int32) for a, _ in plans])
+        stats = PlanStats(*(torch.stack(field)
+                            for field in zip(*(s for _, s in plans))))
+        return assignments, stats
+
+    def plan_batch(self, problems):
+        """Eager batched planning: a list of ``LBPlan``s, one a problem.
+
+        Accepts a sequence of same-shaped ``LBProblem``s (stacked here) or
+        an already-stacked batch; ``info["plan_seconds"]`` is the
+        synchronized wall time of the whole batch."""
+        from repro_torch.core.api import LBPlan  # local import: api imports us
+
+        if not isinstance(problems, comm_graph.LBProblem):
+            problems = comm_graph.stack_problems(problems)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        assignments, stats = self.plan_batch_fn(problems)
+        assignments = assignments.cpu().numpy()   # waits for the device
+        stats = PlanStats(*(f.cpu().numpy() for f in stats))
+        dt = time.perf_counter() - t0
+        B = assignments.shape[0]
+        return [LBPlan(assignments[b], dict(
+            strategy=f"diff-{self.variant}", k=self.k, batch_index=b,
+            batch_size=B,
+            protocol_rounds=int(stats.protocol_rounds[b]),
+            mean_degree=float(stats.mean_degree[b]),
+            diffusion_iters=int(stats.diffusion_iters[b]),
+            diffusion_residual=float(stats.diffusion_residual[b]),
+            unrealized_flow=float(stats.unrealized_flow[b]),
+            plan_seconds=dt)) for b in range(B)]
+
 
 def _timed_plan(plan_fn, problem, name: str, device, params: Dict):
     from repro_torch.core.api import LBPlan  # local import: api imports us
@@ -184,14 +237,18 @@ def get_engine(variant: str = "comm", k: int = 4, tol: float = 0.02,
 class Strategy:
     """A registered load-balancing strategy.
 
-    ``plan_fn(problem, **params) -> (assignment, PlanStats)`` runs on the
-    problem's device.  ``defaults`` are merged under caller params.
+    ``plan_fn(problem, **params) -> (assignment, PlanStats)`` returns
+    tensors on the problem's device.  ``host`` marks a planner that runs
+    NumPy on the host (the JAX package's strategies that are not
+    ``jittable``): the device-resident replay loops and the batched
+    replay refuse it.  ``defaults`` are merged under caller params.
     ``trigger`` names the strategy's default rebalancing policy
     (``runtime.triggers``); ``variant`` the diffusion variant behind a
     diff-* strategy (None for ``none``)."""
 
     name: str
     plan_fn: Callable[..., Tuple[torch.Tensor, PlanStats]]
+    host: bool = False
     defaults: Mapping = dataclasses.field(default_factory=dict)
     trigger: Optional[str] = None
     variant: Optional[str] = None
@@ -215,10 +272,6 @@ class Strategy:
 
 
 _REGISTRY: Dict[str, Strategy] = {}
-
-#: the JAX package's host (NumPy) baselines, ported with a later slice
-HOST_BASELINES = ("greedy", "ep-greedy", "greedy-refine", "metis",
-                  "parmetis")
 
 
 def register(strategy: Strategy) -> Strategy:
@@ -250,7 +303,24 @@ def _none_plan_fn(problem):
     return problem.assignment.to(torch.int32), zero_stats(problem.device)
 
 
+def _host(fn):
+    """Wrap a NumPy baseline as a Strategy plan_fn: the assignment goes
+    back to the problem's device as int32."""
+    def plan_fn(problem, **params):
+        a = np.asarray(fn(problem, **params), np.int32)
+        return (torch.as_tensor(a, device=problem.device),
+                zero_stats(problem.device))
+    return plan_fn
+
+
 register(Strategy("none", _none_plan_fn))
+register(Strategy("greedy", _host(baselines.greedy), host=True))
+register(Strategy("ep-greedy", _host(baselines.greedy_capped), host=True,
+                  defaults=dict(cap=0)))
+register(Strategy("greedy-refine", _host(baselines.greedy_refine),
+                  host=True))
+register(Strategy("metis", _host(baselines.metis_like), host=True))
+register(Strategy("parmetis", _host(baselines.parmetis_like), host=True))
 for _variant in ("comm", "coord"):
     register(Strategy(f"diff-{_variant}", _diffusion_plan_fn(_variant),
                       variant=_variant))

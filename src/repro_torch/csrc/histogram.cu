@@ -211,7 +211,54 @@ __global__ void __launch_bounds__(NT) hist_shared_kernel(
     if (h[c] != 0.0f) atomicAdd(out + c, h[c]);
 }
 
+// the ordered form: w sorted stably by bin, bounds (C + 1) each bin's run;
+// one thread a bin adds its run one item at a time in index order (the
+// order of a sequential scatter-add), so the bits are those of the CPU
+__global__ void __launch_bounds__(NT) hist_ordered_kernel(
+    const float* __restrict__ w, const long long* __restrict__ bounds,
+    float* __restrict__ out, long long C) {
+  const long long c = (long long)blockIdx.x * NT + threadIdx.x;
+  if (c >= C) return;
+  float s = 0.0f;
+  for (long long j = bounds[c], e = bounds[c + 1]; j < e; ++j)
+    s = __fadd_rn(s, w[j]);
+  out[c] = s;
+}
+
+// the ordered form on few items: ids and w as given; one thread a bin
+// walks every item in index order and adds its bin's (no sort)
+__global__ void __launch_bounds__(NT) hist_ordered_scan_kernel(
+    const int* __restrict__ ids, const float* __restrict__ w,
+    float* __restrict__ out, int n, int C) {
+  const int c = blockIdx.x * NT + threadIdx.x;
+  if (c >= C) return;
+  float s = 0.0f;
+  for (int i = 0; i < n; ++i)
+    if (ids[i] == c) s = __fadd_rn(s, w[i]);
+  out[c] = s;
+}
+
 }  // namespace
+
+// ids i32 and w f32 as given, n items (few: each thread reads them all)
+extern "C" int histogram_ordered_scan_launch(void* ids, void* w, void* out,
+                                             int n, int C, void* stream) {
+  if (C <= 0) return 0;
+  hist_ordered_scan_kernel<<<(C + NT - 1) / NT, NT, 0,
+                             (cudaStream_t)stream>>>(
+      (const int*)ids, (const float*)w, (float*)out, n, C);
+  return (int)cudaGetLastError();
+}
+
+// w (sorted by bin) f32, bounds (C + 1) i64 offsets of the bins' runs
+extern "C" int histogram_ordered_launch(void* w, void* bounds, void* out,
+                                        long long C, void* stream) {
+  if (C <= 0) return 0;
+  const long long blocks = (C + NT - 1) / NT;
+  hist_ordered_kernel<<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (const long long*)bounds, (float*)out, C);
+  return (int)cudaGetLastError();
+}
 
 // form 0: private (partial is C * blocks f32 scratch, blocks <= 256);
 // form 1: shared

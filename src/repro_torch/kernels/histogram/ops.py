@@ -11,9 +11,16 @@ The kernel has two forms; :func:`histogram_plan` picks one from ``(n, C)``:
   a block, merged into ``out`` by atomics.  Float sums may differ from run
   to run in the last bits; integer-valued weights are exact while a bin's
   total stays below 2^24.
+
+:func:`histogram_ordered` is the third form, ``"ordered"``, for any ``C``:
+each bin's weights added one at a time in index order — the order of the
+plain version and of XLA's CPU ``segment_sum`` — so its float sums are the
+CPU's bits.  ``comm_graph.segment_sum`` takes it for f32 on a card, where
+the sums feed planning decisions.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -23,6 +30,8 @@ from repro_torch.kernels.histogram.ref import histogram_ref
 
 KERNEL = CudaKernel("histogram", "histogram.cu", {
     "histogram_launch": [PTR] * 4 + [INT] * 5,
+    "histogram_ordered_launch": [PTR] * 3 + [ctypes.c_longlong],
+    "histogram_ordered_scan_launch": [PTR] * 3 + [INT] * 2,
 })
 
 THREADS = 256         # threads a block (csrc/histogram.cu NT)
@@ -34,6 +43,13 @@ PRIVATE_MAX_C = (SMEM_MAX - 1024) // (4 * THREADS)
 MAX_C = 12288         # one f32 histogram a block in 48 KB (the shared form)
 H100_SMS = 132
 FORMS = ("private", "shared")
+#: the ordered form walks the items unsorted, one thread a bin reading
+#: them all, up to this many items and bins (the PIC path's PE loads:
+#: 144 chares into 8 PEs); above, it sorts them into runs first
+ORDERED_SCAN_MAX_N = 4096
+ORDERED_SCAN_MAX_C = 65536
+#: calls by form (the registry counts one launch a call of any form)
+form_launches = dict.fromkeys(FORMS + ("ordered",), 0)
 
 
 def histogram_plan(n: int, C: int, sms: int = H100_SMS):
@@ -86,4 +102,46 @@ def histogram(ids: torch.Tensor, weights: torch.Tensor, *, C: int):
     KERNEL.launch("histogram_launch", ids.data_ptr(), w.data_ptr(),
                   partial.data_ptr(), out.data_ptr(), n, C,
                   FORMS.index(form), blocks, smem)
+    form_launches[form] += 1
+    return out
+
+
+def ordered_runs(ids: torch.Tensor, weights: torch.Tensor, C: int):
+    """``(w_sorted f32, bounds i64 (C + 1))``: the weights stably sorted by
+    bin (ids outside [0, C) last, past ``bounds[C]``) and the offsets of
+    each bin's run — the ordered form's input, on the ids' device."""
+    idx = ids.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < C), idx, C)
+    sorted_ids, order = torch.sort(idx, stable=True)
+    bounds = torch.searchsorted(
+        sorted_ids, torch.arange(C + 1, device=ids.device))
+    return weights.to(torch.float32)[order].contiguous(), bounds
+
+
+def histogram_ordered(ids: torch.Tensor, weights: torch.Tensor, *, C: int):
+    """(C,) f32 per-bin weight sums, each bin's weights added one at a time
+    in index order (the plain version's bits on every device); ids outside
+    [0, C) are ignored.  Any ``C``: one thread a bin over its run of
+    :func:`ordered_runs`, or, for few items and bins
+    (:data:`ORDERED_SCAN_MAX_N`, :data:`ORDERED_SCAN_MAX_C`), over all the
+    items unsorted."""
+    if ids.device.type == "cpu":
+        return histogram_ref(ids, weights, C=C)
+    if not ids.is_cuda or not weights.is_cuda:
+        raise ValueError(f"expected CUDA tensors, got {ids.device} and "
+                         f"{weights.device}")
+    if weights.shape != ids.shape or ids.dim() != 1:
+        raise ValueError("ids and weights must be 1-D of the same shape")
+    C, n = int(C), ids.shape[0]
+    out = torch.empty(C, dtype=torch.float32, device=ids.device)
+    if n <= ORDERED_SCAN_MAX_N and C <= ORDERED_SCAN_MAX_C:
+        i = ids.to(torch.int32).contiguous()
+        w = weights.to(torch.float32).contiguous()
+        KERNEL.launch("histogram_ordered_scan_launch", i.data_ptr(),
+                      w.data_ptr(), out.data_ptr(), n, C)
+    else:
+        w, bounds = ordered_runs(ids, weights, C)
+        KERNEL.launch("histogram_ordered_launch", w.data_ptr(),
+                      bounds.data_ptr(), out.data_ptr(), C)
+    form_launches["ordered"] += 1
     return out

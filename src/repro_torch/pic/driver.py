@@ -1,5 +1,5 @@
 """PIC PRK end-to-end driver with integrated load balancing (paper §VI),
-counterpart of the device-resident path of ``repro.pic.driver``.
+counterpart of ``repro.pic.driver``.
 
 Each step, on one device:
 
@@ -16,9 +16,24 @@ The host reads one scalar per step — the trigger's decision (none for the
 fixed ``every`` cadence) — plus the planner's loop flags on fired steps.
 Final positions come back in particle-id order.
 
+A host planner (``greedy-refine``, ``metis``, ..., ``Strategy.host``)
+plans inside the same loop: on fired steps its ``plan_fn`` reads the
+chare problem to the host and puts the assignment back on the device, and
+the exchange runs on the device as for any strategy.  The JAX package
+runs such strategies in its host loop, which takes chare ids with a
+float64 NumPy floor division and per-PE loads with a float64
+``np.bincount``; this loop keeps the float32 device versions, which give
+the same chare ids wherever the chare width is exact in float32 (as at
+the test sizes), and ``max_avg`` within float32 rounding.
+
+``lb_seconds``: a device planner is charged one warmed-up estimate (its
+plan timed once on the initial snapshot) at every fired step, as the JAX
+package's scanned path charges it; a host planner is timed at each fired
+plan, synchronized, as the JAX host loop times it.
+
 Not in this slice (they raise ``NotImplementedError``): two-level
 placement (``threads_per_node``), telemetry, the sharded replay and its
-fault injection, and the host baselines (``greedy``, ``metis``, ...).
+fault injection.
 """
 from __future__ import annotations
 
@@ -130,10 +145,6 @@ def _lb_amort(cfg: PICConfig, trig) -> int:
 
 
 def _check_slice(cfg: PICConfig) -> None:
-    if cfg.strategy in core_engine.HOST_BASELINES:
-        raise NotImplementedError(
-            f"strategy {cfg.strategy!r} is a host baseline; the host "
-            "baselines slice of the port has not been ported yet")
     later = [("threads_per_node", cfg.threads_per_node is not None,
               "two-level placement"),
              ("telemetry", cfg.telemetry is not None, "telemetry"),
@@ -184,10 +195,12 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
                                 k=cfg.k, vy0=cfg.vy0, lb_period=cfg.lb_every,
                                 bytes_per_particle=bpp)
 
-    # planning cost for the CostModel: measured once on the initial
-    # snapshot (after a warm-up call) and charged at every LB step
+    # planning cost for the CostModel: a device planner's measured once
+    # on the initial snapshot (after a warm-up call) and charged at every
+    # LB step; a host planner's timed at each fired plan
     lb_est = 0.0
-    if lb_on:
+    plan_s = np.zeros(cfg.steps)
+    if lb_on and not strat.host:
         problem0 = problem_of(histogram(chare_id, ones, C=n_chares),
                               assignment)
         strat.run(problem0, **kw)
@@ -219,7 +232,14 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
             do, tstate = trig.decide(tstate, t, mx, av, tot)
             do = bool(do)                   # the step's one device read
             if do:
-                new_assignment, _ = plan(problem_of(loads, assignment))
+                problem = problem_of(loads, assignment)
+                if strat.host:
+                    _sync(dev)
+                    t_plan = time.perf_counter()
+                new_assignment, _ = plan(problem)
+                if strat.host:
+                    _sync(dev)
+                    plan_s[t] = time.perf_counter() - t_plan
                 new_assignment = new_assignment.to(torch.int32)
                 migf = (new_assignment != assignment).to(
                     torch.float32).mean()
@@ -243,7 +263,7 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
 
     stats = torch.stack(rows).cpu().numpy().astype(np.float64)
     ma, pe_max, ext_b, int_b, mig, mig_bytes, fired = stats.T
-    lb_s_t = np.where(fired > 0, lb_est, 0.0)
+    lb_s_t = plan_s if strat.host else np.where(fired > 0, lb_est, 0.0)
     step_s = (pe_max * cost.t_particle
               + (ext_b + mig_bytes) * cost.t_byte
               + np.array([cost.lb_seconds(s, cfg.strategy, P)
@@ -256,6 +276,6 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
     fx[order] = x
     fy[order] = y
     return PICResult(ma, ext_b, int_b, mig, mig_bytes,
-                     float(lb_est * (fired > 0).sum()), step_s,
+                     float(lb_s_t.sum()), step_s,
                      fx.cpu().numpy(), fy.cpu().numpy(), wall_seconds=wall,
                      lb_steps=fired)

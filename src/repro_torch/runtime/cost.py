@@ -52,6 +52,24 @@ class RuntimeCostModel:
                 * self.bytes_per_load * self.t_byte
                 + torch.as_tensor(lb_fired, dtype=f32) * self.lb_overhead)
 
+    @classmethod
+    def from_pic(cls, pic_cost, *, strategy: str, num_pes: int,
+                 bytes_per_particle: float, plan_seconds: float = 0.0,
+                 moved_frac_est: float = 0.15) -> "RuntimeCostModel":
+        """Bridge from the PIC driver's ``pic.driver.CostModel``.
+
+        ``plan_seconds`` is the measured planning wall time, amortized as
+        ``CostModel.lb_seconds`` amortizes it (diffusion is distributed —
+        divided by ``num_pes``; centralized planners pay it in full)."""
+        return cls(
+            t_load=float(pic_cost.t_particle),
+            t_byte=float(pic_cost.t_byte),
+            bytes_per_load=float(bytes_per_particle),
+            lb_overhead=float(
+                pic_cost.lb_seconds(plan_seconds, strategy, num_pes)),
+            moved_frac_est=float(moved_frac_est),
+        )
+
 
 def series_modeled_seconds(result, model: RuntimeCostModel) -> np.ndarray:
     """(T,) modeled seconds per step of a ``sim.simulator.SeriesResult``

@@ -1,10 +1,12 @@
 """Load-balancing simulation infrastructure (paper §V) in PyTorch."""
-from repro_torch.sim.simulator import (CompareRow, SeriesResult, compare,
-                                       format_table, run_series)
+from repro_torch.sim.simulator import (BatchSeriesResult, CompareRow,
+                                       SeriesResult, compare, format_table,
+                                       run_series, run_series_batch)
 from repro_torch.sim.stencil import stencil_2d, stencil_3d
 from repro_torch.sim.synthetic import hotspot, mod7, random_pm
 
 __all__ = [
+    "BatchSeriesResult",
     "CompareRow",
     "SeriesResult",
     "compare",
@@ -13,6 +15,7 @@ __all__ = [
     "mod7",
     "random_pm",
     "run_series",
+    "run_series_batch",
     "stencil_2d",
     "stencil_3d",
 ]

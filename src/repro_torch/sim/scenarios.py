@@ -22,8 +22,9 @@ Registered workloads:
   bimodal-churn       — bimodal object loads whose heavy-set membership
                         churns over time.
 
-``serving-trace`` and ``routing-skew`` come with the serving and MoE
-slices of the port; ``batch_instances`` with batched planning.
+``batch_instances`` instantiates every registered scenario at one common
+shape for the batched replay.  ``serving-trace`` and ``routing-skew`` come
+with the serving-replay and MoE slices of the port.
 """
 from __future__ import annotations
 
@@ -111,6 +112,53 @@ def get(name: str) -> Scenario:
 
 def available() -> Tuple[str, ...]:
     return tuple(sorted(SCENARIOS))
+
+
+#: per scenario, ``(replica v, grid, num_nodes) -> instantiate kwargs`` at
+#: the common shape of ``batch_instances`` (the JAX package's entries)
+BATCH_VARIANTS: Dict[str, Callable[[int, int, int], Dict]] = {
+    "stencil-wave": lambda v, grid, num_nodes: dict(
+        grid=grid, num_nodes=num_nodes, period=40 + 10 * v,
+        amp=6.0 + 2.0 * v),
+    "adversarial-hotspot": lambda v, grid, num_nodes: dict(
+        grid=grid, num_nodes=num_nodes, dwell=6 + 2 * v, seed=v),
+    "bimodal-churn": lambda v, grid, num_nodes: dict(
+        grid=grid, num_nodes=num_nodes, churn_every=4 + v, seed=v),
+    "pic-geometric": lambda v, grid, num_nodes: dict(
+        cx=grid, cy=grid, num_pes=num_nodes, rho=0.85 + 0.03 * v,
+        n_particles=20_000.0),
+}
+
+
+def batch_instances(batch: int = 16, *, grid: int = 16, num_nodes: int = 16,
+                    device="cuda"):
+    """B ``(name, problem, evolve)`` instances at one common shape.
+
+    Feeds ``simulator.run_series_batch``: every registered scenario is
+    instantiated at the same ``(N, P)`` envelope — the stencil family at
+    ``grid²`` objects / ``num_nodes`` nodes, the PIC proxy at a
+    ``grid×grid`` chare array over ``num_nodes`` PEs — cycling through the
+    names in sorted order; replicas beyond one a scenario vary workload
+    parameters (period, dwell, churn seed, density), so the B lanes are
+    independent problems, not copies.
+
+    Raises for a registered scenario without a :data:`BATCH_VARIANTS`
+    entry: the batched sweeps cover the whole registry, so a new scenario
+    must be taught its shape there rather than silently dropped."""
+    missing = sorted(set(SCENARIOS) - set(BATCH_VARIANTS))
+    if missing:
+        raise ValueError(
+            f"scenarios {missing} have no common-shape variant entry in "
+            "batch_instances; add one so the batched sweeps keep covering "
+            "the whole registry")
+    names = sorted(SCENARIOS)
+    out = []
+    for i in range(batch):
+        name = names[i % len(names)]
+        kw = BATCH_VARIANTS[name](i // len(names), grid, num_nodes)
+        problem, evolve = SCENARIOS[name].instantiate(device=device, **kw)
+        out.append((name, problem, evolve))
+    return out
 
 
 # ------------------------------------------------------------ stencil wave --

@@ -8,20 +8,23 @@ replays a time-evolving workload with trigger-policed rebalancing.
 
 ``run_series`` has two loops:
 
-  * **device-resident** (``scan=True``; the default for a registered
-    strategy and an evolve marked ``device_resident``, as every scenario
-    of ``sim/scenarios.py`` is): evolve, trigger and plan stay on the
+  * **device-resident** (``scan=True``; the default for a device planner
+    and an evolve marked ``device_resident``, as every scenario of
+    ``sim/scenarios.py`` is): evolve, trigger and plan stay on the
     problem's device, per-step records are 0-d device tensors copied to
     the host once, after the run.  The host reads only the trigger's
     decision (nothing for the fixed ``every`` cadence) and, on fired
     steps, the planner's loop flags.
-  * **host loop** (``scan=False``): eager planning through
-    ``core.api.run_strategy`` with per-step host metrics, for host-side
-    ``evolve`` callables.
+  * **host loop** (``scan=False``; the default for a host planner such as
+    ``greedy-refine`` or ``metis``, ``engine.Strategy.host``): eager
+    planning through ``core.api.run_strategy`` with per-step host
+    metrics, also for host-side ``evolve`` callables.
 
-Later slices of the port bring ``threads_per_node``, telemetry,
-``run_series_batch``, ``run_series_sharded`` and the host baselines; here
-they raise ``NotImplementedError``.
+``run_series_batch`` replays B workloads at a common shape (e.g.
+``scenarios.batch_instances``) under one fixed cadence.
+
+Later slices of the port bring ``threads_per_node``, telemetry and
+``run_series_sharded``; here they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -119,11 +122,7 @@ def _later_slice(what: str, slice_name: str):
         "ported")
 
 
-def _check_slice(strategy: str, threads_per_node, telemetry) -> None:
-    if strategy in engine.HOST_BASELINES:
-        raise NotImplementedError(
-            f"strategy {strategy!r} is a host baseline; the host "
-            "baselines slice of the port has not been ported yet")
+def _check_slice(threads_per_node, telemetry) -> None:
     if threads_per_node is not None:
         _later_slice("run_series(threads_per_node=...)",
                      "two-level placement")
@@ -151,24 +150,93 @@ def run_series(
     policy (``runtime.triggers``): ``None`` takes the strategy's registered
     trigger, then the fixed ``lb_every`` period.  ``scan=True`` runs the
     device-resident loop, ``scan=False`` the host loop; ``None`` picks the
-    device-resident loop for a registered strategy and an evolve marked
-    ``device_resident``.  Both loops fire on the same steps and plan
-    alike."""
-    _check_slice(strategy, threads_per_node, telemetry)
+    device-resident loop for a device planner and an evolve marked
+    ``device_resident``, else the host loop.  Both loops fire on the same
+    steps and plan alike.  A host planner with ``scan=True`` raises
+    ``ValueError``."""
+    _check_slice(threads_per_node, telemetry)
     strategy_kwargs = strategy_kwargs or {}
-    engine.get_strategy(strategy)                # KeyError if unknown
+    strat = engine.get_strategy(strategy)        # KeyError if unknown
     trig = rt_triggers.resolve_for_strategy(trigger, lb_every=lb_every,
                                             strategy=strategy)
+    if scan and strat.host:
+        raise ValueError(
+            f"strategy {strategy!r} is not jittable: it plans on the host; "
+            "the device-resident replay needs a device plan_fn (use "
+            "scan=False or a diff-* / none strategy)")
     if scan is None:
-        scan = bool(getattr(evolve, "device_resident", False))
+        scan = (not strat.host
+                and bool(getattr(evolve, "device_resident", False)))
     run = _run_series_device if scan else _run_series_host
     return run(initial, evolve, steps=steps, strategy=strategy,
                strategy_kwargs=strategy_kwargs, trig=trig)
 
 
-def run_series_batch(instances, **kwargs):
-    """B workloads in one batched replay: the batched-planning slice."""
-    _later_slice("run_series_batch", "batched planning")
+@dataclasses.dataclass
+class BatchSeriesResult:
+    """A replay of B workloads: per-lane series and the batch's wall."""
+
+    series: List[SeriesResult]   # one per input instance, in order
+    wall_seconds: float          # wall time of the whole batched replay
+    steps: int
+
+    @property
+    def batch(self) -> int:
+        return len(self.series)
+
+    @property
+    def lane_steps_per_sec(self) -> float:
+        """Aggregate throughput: (B × T) scenario-steps per second."""
+        return self.batch * self.steps / max(self.wall_seconds, 1e-12)
+
+
+def run_series_batch(instances: Sequence, *, steps: int, lb_every: int,
+                     strategy: str = "diff-comm",
+                     strategy_kwargs: Optional[Dict] = None
+                     ) -> BatchSeriesResult:
+    """Replay B workloads under the fixed ``lb_every`` cadence.
+
+    ``instances`` is a sequence of ``(problem, evolve)`` pairs, or
+    ``(name, problem, evolve)`` triples as ``scenarios.batch_instances``
+    gives them, at a common ``(num_nodes, num_objects)`` shape; every
+    evolve must be ``device_resident`` and the strategy a device planner
+    without a trigger of its own.
+
+    The JAX package runs the B lanes as one vmapped scan.  The planner's
+    data-dependent loops cannot be traced by ``torch.vmap``, so here the
+    lanes run one after another, each as ``run_series``'s device-resident
+    loop on its problem's device; each lane's ``SeriesResult`` is that
+    run's own, and ``wall_seconds`` is the synchronized wall time of the
+    whole batch."""
+    strategy_kwargs = strategy_kwargs or {}
+    strat = engine.get_strategy(strategy)
+    if strat.host:
+        raise ValueError(
+            f"strategy {strategy!r} is not jittable: it plans on the host; "
+            "the batched replay needs a device plan_fn (diff-* / none)")
+    if strat.trigger is not None:
+        raise ValueError(
+            f"strategy {strategy!r} carries an adaptive trigger; the "
+            "batched replay only supports the fixed lb_every cadence — "
+            "use run_series or the base strategy")
+    pairs = [inst[-2:] for inst in instances]
+    for _, ev in pairs:
+        if not getattr(ev, "device_resident", False):
+            raise ValueError(
+                "every evolve in a batched replay must be device-resident "
+                "(scenarios from sim/scenarios.py are)")
+    comm_graph.common_shape([p for p, _ in pairs])
+    trig = rt_triggers.resolve(None, lb_every=lb_every)
+    devices = {p.device for p, _ in pairs}
+    for dev in devices:
+        _sync(dev)
+    t_start = time.perf_counter()
+    series = [_run_series_device(p, ev, steps=steps, strategy=strategy,
+                                 strategy_kwargs=strategy_kwargs, trig=trig)
+              for p, ev in pairs]
+    for dev in devices:
+        _sync(dev)
+    return BatchSeriesResult(series, time.perf_counter() - t_start, steps)
 
 
 def run_series_sharded(initial, evolve, **kwargs):

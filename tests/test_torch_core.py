@@ -82,9 +82,26 @@ def _pic_problem():
     return _as_dict(prob)
 
 
+def _pic_sparse_chares():
+    """Fig 5's chare problem at 8 PEs (L = 1200, 20×10 chares, GEOMETRIC
+    ρ = 0.9, 50k particles): 180 of 200 chares empty (loads clamped to
+    1e-3) beside loads in the thousands, so stage 3's running sums round
+    and their order decides which empty chares move."""
+    from repro.pic.particles import initialize
+
+    p = initialize("GEOMETRIC", 1200, 50_000, k=4, rho=0.9, seed=0)
+    ids = j_chares.chare_of(p.x, p.y, 1200, 20, 10)
+    loads = np.bincount(ids, minlength=200).astype(np.float32)
+    prob = j_chares.build_problem(
+        loads, j_chares.initial_mapping(20, 10, 8), L=1200, cx=20, cy=10,
+        num_pes=8, k=4, vy0=1.0, lb_period=5)
+    return _as_dict(prob)
+
+
 PROBLEMS = {"stencil-hotspot": _stencil_hotspot,
             "stencil-random": _stencil_random_loads,
-            "pic-chares": _pic_problem}
+            "pic-chares": _pic_problem,
+            "pic-sparse-chares": _pic_sparse_chares}
 
 
 def _ulp_close(a, b, n_ulp):
@@ -95,6 +112,18 @@ def _ulp_close(a, b, n_ulp):
 
 
 # ---------------------------------------------------------------- problem --
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 200, 4097, 65537])
+def test_cumsum_adds_in_jax_cpu_order(n):
+    """``comm_graph.cumsum`` gives ``jnp.cumsum``'s bits on the CPU (XLA's
+    16-element blocked scan), on loads of three magnitudes where another
+    order of additions rounds differently."""
+    rng = np.random.default_rng(n)
+    v = (rng.random(n) * 1000).astype(np.float32) * rng.choice(
+        np.array([1e-3, 1.0, 1e3], np.float32), n)
+    got = t_cg.cumsum(torch.as_tensor(v)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jnp.cumsum(v)))
 
 
 def test_interop_roundtrip_and_problem_views():
@@ -315,18 +344,21 @@ def test_metrics_and_run_strategy_match():
 
 
 def test_strategy_registry_ported_subset():
+    """Every strategy of the JAX package's core registry is ported (the
+    ``-sharded`` planners belong to the sharded slice); the host
+    baselines are marked as host planners."""
     names = set(t_engine.available())
     assert {"none", "diff-comm", "diff-coord", "diff-comm+threshold",
             "diff-comm+predictive", "diff-coord+threshold",
-            "diff-coord+predictive"} == names
-    assert names <= set(j_engine.available())
+            "diff-coord+predictive", "greedy", "ep-greedy", "greedy-refine",
+            "metis", "parmetis"} == names
+    assert names == {n for n in j_engine.available()
+                     if not n.endswith("-sharded")}
     for n in names:
         assert t_engine.get_strategy(n).trigger == \
             j_engine.get_strategy(n).trigger
-    for name in t_engine.HOST_BASELINES:   # registered in JAX, not here yet
-        assert name in j_engine.available()
-        with pytest.raises(KeyError):
-            t_engine.get_strategy(name)
+        assert t_engine.get_strategy(n).host == \
+            (not j_engine.get_strategy(n).jittable)
     tp = interop.problem_from_numpy(_stencil_hotspot(), device=CPU)
     a, stats = t_engine.get_strategy("none").plan_fn(tp)
     assert torch.equal(a, tp.assignment)

@@ -483,10 +483,33 @@ def test_streaming_graph_chunk_equals_eager(dev, P, K):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n,C", [(1, 1), (144, 8), (4096, 8), (3000, 70_000),
+                                 (4097, 8), (1 << 20, 8192),
+                                 (1 << 20, 1 << 22)])
+def test_histogram_ordered_equals_cpu_bit_for_bit(dev, n, C):
+    """K4's ordered form (the card's f32 segment sums; unsorted walk up to
+    4096 items and 65536 bins, sorted runs above) on weights of three
+    magnitudes: the plain version's bits, and ``comm_graph.segment_sum``
+    on the card equals it on the CPU."""
+    from repro_torch.core.comm_graph import segment_sum
+
+    rng = np.random.default_rng(n + C)
+    ids = torch.as_tensor(rng.integers(0, C + 2, n).astype(np.int32))
+    w = torch.as_tensor((rng.random(n) * 1000).astype(np.float32)
+                        * rng.choice(np.array([1e-3, 1, 1e3], np.float32),
+                                     n))
+    before = dict(hops.form_launches)
+    got = hops.histogram_ordered(ids.to(dev), w.to(dev), C=C)
+    assert hops.form_launches["ordered"] == before["ordered"] + 1
+    assert torch.equal(got.cpu(), histogram_ref(ids, w, C=C))
+    assert torch.equal(segment_sum(w.to(dev), ids.to(dev), C).cpu(),
+                       segment_sum(w, ids, C))
+
+
 def test_cumsum_repeats_bit_for_bit_on_cuda(dev):
-    """``comm_graph.cumsum`` on a card: the same bits on every call, and
-    within 1e-5 relative of a float64 prefix sum (torch.cumsum's CUDA scan
-    adds floats in a varying order)."""
+    """``comm_graph.cumsum`` on a card: the same bits on every call and as
+    on the CPU, and within 1e-5 relative of a float64 prefix sum
+    (torch.cumsum's CUDA scan adds floats in a varying order)."""
     from repro_torch.core.comm_graph import cumsum
 
     v = torch.as_tensor(np.random.default_rng(0).random(1 << 20).astype(
@@ -496,6 +519,8 @@ def test_cumsum_repeats_bit_for_bit_on_cuda(dev):
         assert torch.equal(cumsum(v), a)
     want = torch.cumsum(v.double(), 0)
     assert float(((a.double() - want).abs() / want).max()) <= 1e-5
+    # the order of additions is the CPU's (the JAX package's), bit for bit
+    assert torch.equal(a.cpu(), cumsum(v.cpu()))
 
 
 def test_run_series_cuda_matches_cpu(dev):
@@ -515,6 +540,33 @@ def test_run_series_cuda_matches_cpu(dev):
         np.testing.assert_array_equal(got.final_assignment,
                                       cpu.final_assignment)
         np.testing.assert_allclose(got.max_avg, cpu.max_avg, rtol=1e-5)
+
+
+@pytest.mark.parametrize("strategy", ["greedy-refine", "metis"])
+def test_host_strategy_replay_cuda_matches_cpu(dev, strategy):
+    """A host planner's replay on the card (the host loop; plans read from
+    and put back on the card) equals the same replay on the CPU."""
+    kw = dict(steps=24, lb_every=6, strategy=strategy)
+    runs = [simulator.run_series(
+        *scenarios.get("stencil-wave").instantiate(device=d, grid=16,
+                                                  num_nodes=8), **kw)
+        for d in ("cpu", dev)]
+    assert not runs[1].scanned
+    np.testing.assert_array_equal(runs[1].lb_fired, runs[0].lb_fired)
+    np.testing.assert_array_equal(runs[1].final_assignment,
+                                  runs[0].final_assignment)
+
+
+def test_run_series_batch_cuda_matches_cpu(dev):
+    """The batched replay of every registered scenario on the card: each
+    lane's fire steps and final assignment equal the CPU's."""
+    kw = dict(steps=24, lb_every=6, strategy="diff-comm",
+              strategy_kwargs=dict(k=3))
+    cpu, got = (simulator.run_series_batch(scenarios.batch_instances(
+        8, grid=16, num_nodes=8, device=d), **kw) for d in ("cpu", dev))
+    for a, b in zip(got.series, cpu.series):
+        np.testing.assert_array_equal(a.lb_fired, b.lb_fired)
+        np.testing.assert_array_equal(a.final_assignment, b.final_assignment)
 
 
 def test_pic_driver_cuda_matches_cpu(dev):

@@ -108,8 +108,9 @@ def test_chip_smoke_refuses_without_a_card():
 
 def test_chip_smoke_simulator_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke's simulator phases (replay against ``none``, the plan of
-    one snapshot through K1, the streaming chunk and ``step_fn``, Table I,
-    Fig 2, the small replay) run end to end on the CPU's plain versions at
+    one snapshot through K1, the streaming chunk and ``step_fn``, K4's
+    ordered form at the snapshot's shapes, Table I, Fig 2, the small
+    replay) run end to end on the CPU's plain versions at
     a small size, so a fault in their Python shows here first."""
     monkeypatch.syspath_prepend(str(ROOT))
     monkeypatch.syspath_prepend(str(ROOT / "src"))
@@ -125,6 +126,7 @@ def test_chip_smoke_simulator_phases_rehearse_on_cpu(monkeypatch):
     (loads, nbr, mask), step_counts = chip_smoke.sim_engines(snap)
     assert step_counts["diffusion_sweep"] == 0
     assert loads.shape == (16,) and nbr.shape == mask.shape
+    chip_smoke.k4_ordered_check(snap)
     chip_smoke.paper_scripts_and_small_replay()
 
 
@@ -145,3 +147,46 @@ def test_chip_smoke_serving_phases_rehearse_on_cpu(monkeypatch):
     counts = chip_smoke.serve_path()
     assert counts["flash_attention"] == 0        # plain versions on the CPU
     chip_smoke.serve_cpu_parity()
+
+
+def test_chip_smoke_host_planner_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's host-planner and batched phases (the greedy-refine PIC
+    path, the greedy-refine and batched replays against the CPU, Table II,
+    Fig 4 and Fig 5 with their assertions) run end to end on the CPU's
+    plain versions at reduced sizes."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+    from repro_torch.pic import driver
+
+    small = dict(L=100, n_particles=8000, steps=21, cx=8, cy=8, num_pes=4,
+                 rho=0.9, mode="GEOMETRIC", lb_every=10)
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "PIC_HOST",
+                        dict(small, strategy="greedy-refine",
+                             strategy_kwargs={}))
+    monkeypatch.setattr(chip_smoke, "PIC_HOST_KERNELS", ())  # CPU: none
+    monkeypatch.setattr(chip_smoke, "PAPER_HOST", {
+        "table2_strategies": dict(bench=[(32, (16, 16, 8))],
+                                  trigger_steps=20),
+        "fig4_pic_lb": dict(steps=40, n=20_000),
+        "fig5_scaling": dict(n=50_000, steps=50, scales=[4, 8],
+                             sweep=dict(batch=4, steps=12))})
+    monkeypatch.setattr(chip_smoke, "PAPER_HOST_KERNELS",
+                        dict.fromkeys(chip_smoke.PAPER_HOST, ()))
+    # many small CPU ops: one intra-op thread, so that beside other test
+    # workers the threads do not spin against each other
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        diff = driver.run(driver.PICConfig(**small, device="cpu"))
+        none = driver.run(driver.PICConfig(**small, strategy="none",
+                                           device="cpu"))
+        counts = chip_smoke.host_pic_path(
+            dict(steps=small["steps"], wall_seconds=diff.wall_seconds,
+                 lb_seconds=diff.lb_seconds), none)
+        assert counts["pic_push"] == 0           # plain versions on the CPU
+        chip_smoke.host_and_batched_replays()
+        chip_smoke.paper_scripts_host()
+    finally:
+        torch.set_num_threads(threads)

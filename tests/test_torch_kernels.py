@@ -275,6 +275,32 @@ def test_histogram_plain_matches_jax(N, C):
                                             torch.as_tensor(w), C=C), got)
 
 
+@pytest.mark.parametrize("N,C", [(1, 1), (3000, 144), (20_000, 8),
+                                 (5000, 70_000)])
+def test_histogram_ordered_runs_add_in_jax_segment_sum_order(N, C):
+    """The ordered form's input (``ordered_runs``: weights stably sorted by
+    bin, each bin's run) added one item at a time — what its kernel does,
+    one thread a bin — gives the plain version's bits, which are
+    ``jax.ops.segment_sum``'s on the CPU, on weights of three magnitudes
+    (where another order rounds differently); ids past C are dropped."""
+    rng = np.random.default_rng(N + C)
+    ids = rng.integers(0, C + 2, N).astype(np.int32)
+    w = (rng.random(N) * 1000).astype(np.float32) * rng.choice(
+        np.array([1e-3, 1.0, 1e3], np.float32), N)
+    ws, bounds = t_hops.ordered_runs(torch.as_tensor(ids),
+                                     torch.as_tensor(w), C)
+    ws, bounds = ws.numpy(), bounds.numpy()
+    seq = np.zeros(C, np.float32)
+    for c in np.nonzero(np.diff(bounds))[0]:
+        for j in range(bounds[c], bounds[c + 1]):
+            seq[c] = np.float32(seq[c] + ws[j])
+    plain = t_hops.histogram_ordered(torch.as_tensor(ids),
+                                     torch.as_tensor(w), C=C).numpy()
+    np.testing.assert_array_equal(seq, plain)
+    np.testing.assert_array_equal(plain, np.asarray(jax.ops.segment_sum(
+        jnp.asarray(w), jnp.asarray(ids), num_segments=C)))
+
+
 # -------------------------------------------------------------- pic push --
 
 

@@ -62,6 +62,22 @@ def test_pic_run_matches_jax_scanned(strategy, trigger):
         assert gs[k] == pytest.approx(ws[k], rel=1e-12)
 
 
+def test_pic_run_at_fig5_shape_matches_jax_scanned():
+    """Fig 5's strong-scaling run at 8 PEs (L = 1200, 20×10 chares, k = 4,
+    LB every 5, diff-comm k = 3), 50k particles: most chares are empty, so
+    the stage-3 prefix sums round, and the port adds them in JAX's order.
+    Every record exact."""
+    cfg = dict(L=1200, n_particles=50_000, steps=12, k=4, rho=0.9,
+               mode="GEOMETRIC", cx=20, cy=10, num_pes=8, mapping="striped",
+               lb_every=5, strategy="diff-comm", strategy_kwargs=dict(k=3))
+    want = j_driver.run(j_driver.PICConfig(**cfg, scan=True))
+    got = t_driver.run(t_driver.PICConfig(**cfg, device="cpu"))
+    for f in EXACT:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert got.lb_steps.sum() == 2
+
+
 def test_same_particles_from_one_seed():
     for mode in ("GEOMETRIC", "SINUSOIDAL", "LINEAR", "PATCH"):
         a = j_particles.initialize(mode, 50, 1000, k=2, seed=4)
@@ -95,9 +111,10 @@ def test_later_slice_options_raise():
                dict(sharded_replay=True), dict(faults=object())):
         with pytest.raises(NotImplementedError):
             t_driver.run(t_driver.PICConfig(**BASE, **kw, device="cpu"))
-    with pytest.raises(NotImplementedError, match="host baselines"):
-        t_driver.run(t_driver.PICConfig(**BASE, strategy="greedy",
-                                        device="cpu"))
+    # the host baselines have been ported: greedy plans in the step loop
+    res = t_driver.run(t_driver.PICConfig(**BASE, strategy="greedy",
+                                          device="cpu"))
+    assert res.lb_steps.sum() == 3
     with pytest.raises(KeyError):
         t_driver.run(t_driver.PICConfig(**BASE, strategy="no-such",
                                         device="cpu"))
