@@ -60,7 +60,25 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      the CPU given the card's plan; then ``spill_owner`` at 64 nodes over
      2^18 items against the CPU, and at 64 and 257 nodes (4096 and 66049
      pair buckets) over 2^20 items against an argsort oracle;
-  9. holds each kernel against its plain PyTorch version on the card at the
+  9. drives the serving fleet replay — ``repro_torch.serve.replay.
+     run_serve_replay`` on ``ServeWorkload(num_sessions=131072,
+     num_replicas=64, seed=1)``, 30 ticks, LB every 10, diff-comm under the
+     fixed cadence — with the launch counts set to 0 just before and read
+     just after (K1 at each plan, K3 at each exchange, K4 every tick),
+     checks that sessions and each session's KV bytes are conserved, times
+     it and reads its device idle share under the profiler; runs it again
+     with ``telemetry="full"`` under a slot budget, holds the records
+     against the result and its Chrome trace to the port's checker; holds
+     the serve bench's two gates (p95 max/avg, moved KV) on both its
+     workloads; holds a 4096-session fleet under diff-comm+predictive and
+     a slot budget on the card equal to the CPU's (fire steps, placements,
+     moved sessions, deferred counts, moved KV);
+ 10. two-level placement: the LPT threads (T = 16) of the simulator path's
+     snapshot on the card equal the host oracle's, with their thread
+     loads; a 20-step replay of that configuration records thread
+     max/avg; a small PIC run's thread max/avg is equal on the card and
+     the CPU;
+ 11. holds each kernel against its plain PyTorch version on the card at the
      shapes its path gives it, timing kernel, plain version and the
      one-call PyTorch yardstick where there is one: K3 in both orders the
      PIC path gives it (initial, and bucketed by PE) in every form that
@@ -144,6 +162,29 @@ SPILL_SERVE = dict(replicas=63, heavy=44, light=86, slot_capacity=86)
 # (C = 66049) over 2^20 items, and 64 over 2^18 against the CPU
 SPILL_SIZES = ((64, 1 << 20), (257, 1 << 20))
 SPILL_CPU = (64, 1 << 18)
+# the serving fleet replay at the scale of the JAX serve bench's scale
+# entry: 131072 sessions on 64 replicas, 30 ticks, LB every 10, diff-comm
+# under the fixed cadence; its telemetry run under a slot budget above the
+# 2048 sessions the initial block placement puts on each replica
+FLEET = dict(num_sessions=131_072, num_replicas=64, seed=1)
+FLEET_RUN = dict(steps=30, lb_every=10, strategy="diff-comm",
+                 trigger="every")
+FLEET_TEL_CAPACITY = 2150
+FLEET_KERNELS = ("diffusion_nsweeps", "histogram", "scatter_dest")
+# the serve bench's gated comparison (serve_bench.WORKLOADS, 120 ticks)
+SERVE_BENCH = dict(steps=120)
+# the fleet on the card against the CPU: 4096 sessions on 16 replicas,
+# 60 ticks of diff-comm+predictive under a slot budget above the 256
+# sessions a replica starts with
+FLEET_CPU = dict(num_sessions=4096, num_replicas=16, steps=60,
+                 slot_capacity=288)
+# two-level placement: T threads a node at the simulator path's snapshot,
+# a 20-step replay of that configuration, and a small PIC run
+HIER_T = 16
+HIER_SIM = dict(steps=20, lb_every=10, strategy="diff-comm",
+                strategy_kwargs={"k": 8})
+HIER_PIC = dict(L=100, n_particles=4000, steps=40, cx=8, cy=8, num_pes=4,
+                lb_every=10, threads_per_node=4)
 
 
 def fail(msg: str):
@@ -574,11 +615,13 @@ def paper_scripts_and_small_replay():
 
 
 def k4_ordered_check(snap):
-    """K4's ordered form — the card's f32 segment sums — at the PIC path's
-    PE loads (144 chares into 8 PEs, the unsorted walk) and the simulator
+    """K4's ordered form — the card's f32 segment sums — at the fleet's
+    replica loads (131072 sessions into 64 replicas), the PIC path's PE
+    loads (144 chares into 8 PEs, the unsorted walk) and the simulator
     snapshot's shapes (node loads: 2^20 objects into 8192 nodes; pair
     bytes: the edges into P^2 node pairs), and on loads of three
-    magnitudes, bit for bit against its plain version on the CPU, timed."""
+    magnitudes, bit for bit against its plain version on the CPU, timed;
+    then ``comm_graph.ordered_sum`` (its window form) over 131072 items."""
     import numpy as np
     import torch
     from repro_torch.kernels.histogram import ops as hops
@@ -596,7 +639,17 @@ def k4_ordered_check(snap):
                                                   np.float32), n),
                             device=DEV)
     C_pic = PIC["cx"] * PIC["cy"]
-    cases = {"PIC PE loads (unsorted walk)": (
+    # the fleet's replica loads: its sessions in the initial block
+    # placement, their floored loads at tick 0 (the sorted-runs route)
+    from repro_torch.serve import replay as sr
+
+    fw = sr.ServeWorkload(**FLEET)
+    S, R = FLEET["num_sessions"], FLEET["num_replicas"]
+    uid = torch.arange(S, dtype=torch.int32, device=DEV)
+    cases = {"fleet replica loads": (
+                 torch.div(uid * R, S, rounding_mode="floor"),
+                 torch.clamp(fw.loads_at(0, uid), min=1e-3), R),
+             "PIC PE loads (unsorted walk)": (
                  torch.as_tensor(rng.integers(0, PIC["num_pes"], C_pic),
                                  device=DEV), mixed[:C_pic],
                  PIC["num_pes"]),
@@ -614,6 +667,18 @@ def k4_ordered_check(snap):
         K4_ORDERED_MS[name] = ms
         print(f"K4 ordered form, {name}: {ids.shape[0]} items into {C} "
               f"bins equal to the CPU's bit for bit, {ms:.4f} ms")
+    # comm_graph.ordered_sum over the fleet's sessions: one ordered-form
+    # launch over 32-item windows a level (131072 → 4096 → 128 → 4 → 1)
+    from repro_torch.core.comm_graph import ordered_sum
+
+    check(torch.equal(ordered_sum(mixed[:S]).cpu(),
+                      ordered_sum(mixed[:S].cpu())),
+          "ordered_sum on the card differs from the CPU's")
+    ms = time_ms(lambda: ordered_sum(mixed[:S]), reps=5) \
+        if DEV == "cuda" else float("nan")
+    K4_ORDERED_MS["ordered_sum of the fleet's sessions"] = ms
+    print(f"ordered_sum over {S} items equal to the CPU's bit for bit, "
+          f"{ms:.4f} ms")
 
 
 def host_and_batched_replays():
@@ -1051,6 +1116,233 @@ def spill_sizes():
               f"{int(deferred.sum())} deferred; {ms:.4f} ms a call, its "
               f"ranks {rk:.4f} ms")
     return out
+
+
+# ------------------------------------------------- serving fleet replay --
+
+
+def fleet_path():
+    """The serving fleet replay at full size (launch counts set to 0 just
+    before and read just after), its invariants, its device idle share
+    (a second run under the profiler), its telemetry run and trace;
+    returns the launch counts of the first run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.diffusion import ops as dops
+    from repro_torch.kernels.histogram import ops as hops
+    from repro_torch.kernels.migrate import ops as mops
+    from repro_torch.serve import replay as sr
+
+    w = sr.ServeWorkload(**FLEET)
+    S, R, T = FLEET["num_sessions"], FLEET["num_replicas"], \
+        FLEET_RUN["steps"]
+    sr.run_serve_replay(w, **dict(FLEET_RUN, steps=min(11, T)),
+                        device=DEV)                          # warm-up
+    _sync()
+    kernels.reset_launch_counts()
+    k1_0, k3_0 = dict(dops.form_launches), dict(mops.form_launches)
+    k4_0 = dict(hops.form_launches)
+    t0 = time.perf_counter()
+    res = sr.run_serve_replay(w, **FLEET_RUN, device=DEV)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    K4_PATH_FORMS["fleet"] = {f: n - k4_0[f]
+                              for f, n in hops.form_launches.items()}
+    k3_forms_since(k3_0, "fleet", counts["scatter_dest"])
+    if "diffusion_nsweeps" in FLEET_KERNELS:
+        k1_forms_since(k1_0, "fleet", R, min(4, R - 1),
+                       counts["diffusion_nsweeps"])
+    for name in FLEET_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "fleet path")
+    check(res.scanned, "the fleet did not take the device-resident loop")
+    fired = np.flatnonzero(res.lb_fired).tolist()
+    want = [t for t in range(1, T) if t % FLEET_RUN["lb_every"] == 0]
+    check(fired == want and len(fired) > 0,
+          f"fleet fired at ticks {fired}, not {want}")
+    check(np.isfinite(res.max_avg).all() and np.isfinite(
+        res.prefix_local).all(), "fleet: non-finite max/avg")
+    check(res.total_moved_kv > 0 and res.moved_sessions.sum() > 0,
+          "fleet: no exchange moved a session")
+    # sessions conserved: the slots hold a permutation of the fleet
+    check(np.array_equal(np.sort(res.final_uid), np.arange(S)),
+          "fleet: sessions not conserved")
+    # KV conserved: each session's final KV is its initial KV plus its
+    # decode growth, added in the same order (exchanges add nothing)
+    uid = torch.arange(S, dtype=torch.int32, device=DEV)
+    kv = w.kv0_of(uid)
+    for t in range(T):
+        kv = kv + w.kv_per_token * w.loads_at(t, uid)
+    kv_by_uid = np.empty(S, np.float32)
+    kv_by_uid[res.final_uid] = res.final_kv
+    check(np.array_equal(kv_by_uid, kv.cpu().numpy()),
+          "fleet: KV bytes not conserved across the exchanges")
+    p95 = float(np.percentile(res.max_avg, 95))
+    print(f"fleet path: {S} sessions on {R} replicas, {T} ticks in "
+          f"{wall:.3f} s end to end ({res.wall_seconds:.3f} s tick loop, "
+          f"{S * T / res.wall_seconds:.6g} session-ticks/s); fired at "
+          f"{fired}, moved {int(res.moved_sessions.sum())} sessions and "
+          f"{res.total_moved_kv:.1f} KV bytes, p95 max/avg {p95:.6f}, mean "
+          f"prefix-local {res.prefix_local.mean():.6f}; launches {counts}; "
+          f"K3 forms {K3_PATH_FORMS['fleet']}, K4 forms "
+          f"{K4_PATH_FORMS['fleet']}")
+    if DEV == "cuda":
+        from benchmarks_torch.serve_replay_profile import profile_replay
+
+        _, prof = profile_replay(
+            lambda: sr.run_serve_replay(w, **FLEET_RUN, device=DEV))
+        top = ", ".join(f"{r['name'][:40]} {r['device_ms']:.3f} ms "
+                        f"x{r['count']}" for r in prof["kernels"][:8])
+        print(f"fleet path under the profiler: tick loop "
+              f"{prof['loop_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle share "
+              f"{prof['idle_share']:.4f}; top device time: {top}")
+    fleet_telemetry(w, res)
+    return counts
+
+
+def fleet_telemetry(w, off):
+    """The fleet again with ``telemetry="full"`` under a slot budget: its
+    records agree with its own result arrays, its Chrome trace passes the
+    port's checker; its wall time beside the ``off`` run's."""
+    import json as _json
+
+    import numpy as np
+    from repro_torch.obs import trace_export
+    from repro_torch.serve import replay as sr
+
+    T, R = FLEET_RUN["steps"], FLEET["num_replicas"]
+    res = sr.run_serve_replay(w, **FLEET_RUN, device=DEV, telemetry="full",
+                              slot_capacity=FLEET_TEL_CAPACITY)
+    snap = res.telemetry
+    check(snap is not None and snap.steps_total == T and snap.dropped == 0,
+          "fleet telemetry: not one record a tick")
+    check(res.occ_max.max() <= FLEET_TEL_CAPACITY,
+          "fleet telemetry: a replica above its slot budget")
+    check(np.array_equal(np.sort(res.final_uid),
+                         np.arange(FLEET["num_sessions"])),
+          "fleet telemetry: sessions not conserved")
+    for col, arr in (("t", np.arange(T)), ("fired", res.lb_fired),
+                     ("moved_items", res.moved_sessions),
+                     ("moved_bytes", res.moved_kv_bytes),
+                     ("deferred", res.deferred)):
+        check(np.array_equal(snap.column(col),
+                             np.asarray(arr, np.float32)),
+              f"fleet telemetry: record {col} disagrees with the result")
+    check(snap.node_loads.shape == (T, R), "fleet telemetry: lane shape")
+    check(np.allclose(snap.node_loads.mean(axis=1), snap.column("avg_load"),
+                      rtol=1e-5), "fleet telemetry: lanes and avg disagree")
+    trace = trace_export.export_chrome_trace(snap, label="serve-replay")
+    errs = trace_export.validate_chrome_trace(trace)
+    errs += trace_export.validate_chrome_trace(
+        _json.loads(_json.dumps(trace)))
+    check(not errs, f"fleet telemetry: trace invalid: {errs[:3]}")
+    print(f"fleet telemetry (full, slot_capacity {FLEET_TEL_CAPACITY}): "
+          f"tick loop {res.wall_seconds:.3f} s against {off.wall_seconds:.3f}"
+          f" s off; fired {int(res.lb_fired.sum())}, deferred "
+          f"{int(res.deferred.sum())}, max occupancy "
+          f"{int(res.occ_max.max())}; trace of "
+          f"{len(trace['traceEvents'])} events valid")
+
+
+def serve_bench_gates():
+    """The serve bench's gated comparison on the card: diff-comm +
+    predictive no worse than greedy + every in p95 max/avg and moved KV on
+    both workloads (serve_bench asserts both gates)."""
+    from benchmarks_torch import serve_bench
+
+    out = {}
+    t0 = time.perf_counter()
+    serve_bench.bench_policies(out, device=DEV, repeats=1, **SERVE_BENCH)
+    for wname, e in out["workloads"].items():
+        check(all(e["gates"].values()), f"serve bench {wname}: gates "
+              f"{e['gates']}")
+    print(f"serve bench gates hold on {sorted(out['workloads'])} in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
+def fleet_cpu_parity():
+    """A 4096-session fleet under diff-comm+predictive (the serve bench's
+    cost model, which fires about every other tick) and a slot budget on
+    the card equals the same fleet on the CPU: fire steps, placements,
+    moved sessions, deferred counts and moved KV."""
+    import numpy as np
+    from benchmarks_torch import serve_bench
+    from repro_torch.serve import replay as sr
+
+    cfg = dict(FLEET_CPU)
+    w = sr.ServeWorkload(num_sessions=cfg.pop("num_sessions"),
+                         num_replicas=cfg.pop("num_replicas"))
+    kw = dict(cfg, lb_every=10,
+              **serve_bench.policies()["diff-comm+predictive"])
+    g = sr.run_serve_replay(w, **kw, device=DEV)
+    c = sr.run_serve_replay(w, **kw, device="cpu")
+    check(g.lb_fired.sum() > 0, "fleet on the card vs the CPU: no fire")
+    for f in ("lb_fired", "final_replica_by_uid", "moved_sessions",
+              "deferred", "moved_kv_bytes", "occ_max"):
+        check(np.array_equal(getattr(g, f), getattr(c, f)),
+              f"fleet: {f} differs between {DEV} and cpu")
+    err = float(np.abs(g.max_avg - c.max_avg).max())
+    check(err <= 1e-6 * float(np.abs(c.max_avg).max()),
+          f"fleet: max/avg differs by {err}")
+    print(f"fleet of {w.num_sessions} sessions on {DEV} == cpu: fired "
+          f"{int(g.lb_fired.sum())} times at "
+          f"{np.flatnonzero(g.lb_fired).tolist()}, moved "
+          f"{g.total_moved_kv:.1f} KV bytes (equal), deferred "
+          f"{int(g.deferred.sum())}, max/avg within {err:.3g}")
+
+
+def two_level(snap):
+    """Two-level placement: LPT threads of the simulator snapshot on the
+    card equal the host oracle; the simulator replay and a small PIC run
+    record thread max/avg (the PIC run's equal on the card and the CPU)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hierarchical
+    from repro_torch.pic import driver
+    from repro_torch.sim import scenarios, simulator
+
+    P = snap.num_nodes
+    _sync()
+    t0 = time.perf_counter()
+    thr = hierarchical.lpt_threads(snap.loads, snap.assignment,
+                                   num_nodes=P, threads_per_node=HIER_T)
+    tl = hierarchical.thread_loads(snap.loads, snap.assignment, thr,
+                                   num_nodes=P, threads_per_node=HIER_T)
+    _sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    loads = snap.loads.cpu().numpy().astype(np.float32)
+    a = snap.assignment.cpu().numpy()
+    want = hierarchical.within_node_lpt(loads, a, P, HIER_T)
+    check(np.array_equal(thr.cpu().numpy(), want),
+          "lpt_threads on the card differs from the host oracle")
+    want_tl = np.zeros(P * HIER_T, np.float32)
+    np.add.at(want_tl, a * HIER_T + want, loads)
+    check(np.array_equal(tl.cpu().numpy(), want_tl),
+          "thread loads on the card differ from the host oracle's")
+    depth = int(np.bincount(a, minlength=P).max())
+    print(f"two-level placement: lpt_threads over {a.shape[0]} objects, {P}"
+          f" nodes x {HIER_T} threads in {ms:.3f} ms (loop depth {depth}) "
+          "== the host oracle, thread loads equal")
+    problem, evolve = scenarios.get("stencil-wave").instantiate(
+        device=DEV, **SIM_SCENARIO)
+    res = simulator.run_series(problem, evolve, threads_per_node=HIER_T,
+                               **HIER_SIM)
+    tma = res.thread_max_avg
+    check(tma is not None and tma.shape == (HIER_SIM["steps"],)
+          and np.isfinite(tma).all() and (tma >= 1.0 - 1e-5).all(),
+          f"run_series thread_max_avg {tma}")
+    g = driver.run(driver.PICConfig(**HIER_PIC, device=DEV))
+    c = driver.run(driver.PICConfig(**HIER_PIC, device="cpu"))
+    check(np.array_equal(g.thread_max_avg, c.thread_max_avg),
+          "PIC thread_max_avg differs between the card and the CPU")
+    print(f"two-level replay: {res.wall_seconds:.3f} s for "
+          f"{HIER_SIM['steps']} steps, thread max/avg "
+          f"{float(tma.min()):.6f}..{float(tma.max()):.6f}; small PIC run "
+          f"thread max/avg on {DEV} == cpu (mean "
+          f"{float(g.thread_max_avg.mean()):.6f})")
+
 
 
 def flash_row(counts):
@@ -1565,11 +1857,20 @@ def main() -> int:
     serve_cpu_parity()
     spill_counts = serve_spill()
     spill = spill_sizes()
+    fleet_counts = fleet_path()
+    serve_bench_gates()
+    fleet_cpu_parity()
+    two_level(snap)
     K3_LAUNCHES.update(PIC=counts["scatter_dest"],
                        serving=serve_counts["scatter_dest"],
-                       serving_spill=spill_counts["scatter_dest"])
-    # each kernel's launches on its own path's run (K3 on the PIC path's;
-    # K1 on the PIC and simulator paths together; K2 in the step_fn plan)
+                       serving_spill=spill_counts["scatter_dest"],
+                       fleet=fleet_counts["scatter_dest"])
+    print(f"fleet path launches: {fleet_counts}")
+    # each kernel's launches on its own paths' runs (K3 on the PIC path's
+    # and the fleet's; K1 on the PIC, simulator and fleet paths together;
+    # K4 on the PIC path's and the fleet's; K2 in the step_fn plan)
+    for name in FLEET_KERNELS:
+        counts[name] += fleet_counts[name]
     counts["diffusion_nsweeps"] += sim_counts["diffusion_nsweeps"]
     counts["diffusion_sweep"] = step_counts["diffusion_sweep"]
     counts["flash_attention"] = serve_counts["flash_attention"]

@@ -12,7 +12,8 @@ segment's items one at a time in index order (on the CPU a stable sort and
 :func:`cumsum` replaces ``torch.cumsum``, whose CUDA scan adds floats in
 an order that varies from run to run and whose CPU scan accumulates
 float32 in float64: it adds in the order the JAX package's ``jnp.cumsum``
-adds in on the CPU, on every device.
+adds in on the CPU, on every device; :func:`ordered_sum` does the same
+for a plain float sum (``x.sum()``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import resolve_device
-from repro_torch.kernels.histogram.ops import histogram_ordered
+from repro_torch.kernels.histogram.ops import histogram_ordered, run_sums
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -91,6 +92,63 @@ def cumsum(values: torch.Tensor) -> torch.Tensor:
     carry = cumsum(inner[:, -1].contiguous())
     carry = torch.cat([carry.new_zeros(1), carry[:-1]])
     return (inner + carry[:, None]).reshape(-1)[:n]
+
+
+#: XLA's CPU reduce of a 1-D f32 vector longer than this is rewritten into
+#: windows of this many items (its zero padding split evenly, the odd one
+#: at the back), each added left to right, recursively; at most this many
+#: are added left to right; :func:`ordered_sum` reproduces that order
+SUM_WINDOW = 32
+
+_WINDOW_BOUNDS: dict = {}
+
+
+def _window_bounds(n: int, device) -> torch.Tensor:
+    """(rows + 1,) int64 run bounds of one level of :func:`ordered_sum`
+    over ``n`` items, cached per device (no host copy a call)."""
+    key = (n, str(device))
+    b = _WINDOW_BOUNDS.get(key)
+    if b is None:
+        W = SUM_WINDOW
+        rows = max(1, -(-n // W))
+        lo = (rows * W - n) // 2 if n > W else 0
+        edges = np.clip(np.arange(rows + 1) * W - lo, 0, n)
+        edges[-1] = n
+        b = _WINDOW_BOUNDS[key] = torch.as_tensor(edges, dtype=torch.int64,
+                                                  device=device)
+    return b
+
+
+def ordered_sum(values: torch.Tensor) -> torch.Tensor:
+    """0-d f32 sum of a float tensor, the same bits on every device: the
+    order of the JAX package's ``x.sum()`` on the CPU.
+
+    XLA rewrites a 1-D reduce of more than :data:`SUM_WINDOW` items into
+    windows of 32 added left to right, over the vector padded with zeros
+    split evenly between its ends, and reduces the window sums the same
+    way until at most 32 remain, which it adds left to right.  A sum that
+    feeds a decision (the trigger's load total and trend, the moved KV
+    that the predictive gate prices) takes this order: ``torch.sum``
+    adds in another on the CPU, and in yet another on a card.  On a card
+    each level is one launch of K4's ordered form over the windows."""
+    x = values.to(torch.float32).reshape(-1)
+    W = SUM_WINDOW
+    while True:
+        n = x.shape[0]
+        if x.is_cuda:
+            x = run_sums(x, _window_bounds(n, x.device))
+        else:
+            rows = max(1, -(-n // W))
+            pad = rows * W - n if n > W else 0
+            lo = pad // 2
+            y = torch.cat([x.new_zeros(lo), x, x.new_zeros(pad - lo)])
+            y = y.reshape(rows, -1) if n else y.reshape(1, 0)
+            acc = y.new_zeros(rows)
+            for k in range(y.shape[1]):
+                acc = acc + y[:, k]
+            x = acc
+        if n <= W:
+            return x[0]
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,

@@ -12,7 +12,10 @@ caps, device)`` and exposes
   * ``plan(problem) -> LBPlan`` — eager convenience with timing and the
     ``info`` dict;
   * ``plan_batch_fn`` / ``plan_batch`` — one plan per problem of a batch
-    (``comm_graph.stack_problems``).
+    (``comm_graph.stack_problems``);
+  * with ``threads_per_node`` set, ``plan_hier_fn`` / ``plan_hier`` — the
+    plan plus the within-node LPT thread of every object (paper §III.D,
+    ``core.hierarchical``), and ``plan`` adds ``info["thread"]``.
 
 The registry holds every strategy the JAX package registers: ``none``,
 ``diff-comm``, ``diff-coord`` and their ``+threshold`` / ``+predictive``
@@ -20,7 +23,6 @@ trigger-wrapped variants plan on the problem's device; ``greedy``,
 ``ep-greedy``, ``greedy-refine``, ``metis`` and ``parmetis`` are host
 planners (``Strategy.host``, NumPy in ``core.baselines``) that read the
 problem from its device once a plan and put the assignment back there.
-Hierarchical planning belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import baselines, comm_graph
+from repro_torch.core import baselines, comm_graph, hierarchical
 from repro_torch.core import neighbor_selection as ns
 from repro_torch.core import object_selection as osel
 from repro_torch.core import virtual_lb as vlb
@@ -68,7 +70,7 @@ class LBEngine:
                  tol: float = 0.02, max_iters: int = 512,
                  max_rounds: int = 64, single_hop: bool = True,
                  step_fn: Optional[Callable] = None, sweep_chunk: int = 8,
-                 device="cuda"):
+                 threads_per_node: Optional[int] = None, device="cuda"):
         if variant not in ("comm", "coord"):
             raise ValueError(f"unknown variant {variant!r}")
         self.variant = variant
@@ -79,6 +81,9 @@ class LBEngine:
         self.single_hop = bool(single_hop)
         self.step_fn = step_fn
         self.sweep_chunk = int(sweep_chunk)
+        # optional stage 4 (paper §III.D): within-node LPT over T threads
+        self.threads_per_node = (None if threads_per_node is None
+                                 else int(threads_per_node))
         self.device = resolve_device(device)
         # production stage 2: the S-sweep chunk picked by sweep_impl; an
         # explicit step_fn opts out and runs per sweep inside the chunk
@@ -119,9 +124,67 @@ class LBEngine:
         return sres.assignment, stats
 
     def plan(self, problem: comm_graph.LBProblem):
-        """Eager plan with wall-clock timing and the ``info`` dict."""
-        return _timed_plan(self.plan_fn, problem, f"diff-{self.variant}",
-                           self.device, dict(k=self.k))
+        """Eager plan with wall-clock timing and the ``info`` dict; with
+        ``threads_per_node`` set, ``info`` also holds the two-level
+        placement: ``thread`` ((N,) i32) and ``threads_per_node`` (object
+        ``o`` runs on global PE ``assignment[o] * T + thread[o]``)."""
+        if not self.threads_per_node:
+            return _timed_plan(self.plan_fn, problem,
+                               f"diff-{self.variant}", self.device,
+                               dict(k=self.k))
+        out = {}
+
+        def fn(p):
+            assignment, out["thread"], stats = self.plan_hier_fn(p)
+            return assignment, stats
+
+        plan = _timed_plan(fn, problem, f"diff-{self.variant}", self.device,
+                           dict(k=self.k))
+        plan.info.update(thread=out["thread"].cpu().numpy(),
+                         threads_per_node=self.threads_per_node)
+        return plan
+
+    # ------------------------------------------------- hierarchical stage --
+
+    def plan_hier_fn(self, problem: comm_graph.LBProblem
+                     ) -> Tuple[torch.Tensor, torch.Tensor, PlanStats]:
+        """Two-level placement: :meth:`plan_fn` then the within-node LPT
+        (``hierarchical.lpt_threads``) on the planned assignment.  Returns
+        ``(assignment (N,), thread (N,), stats)``; needs
+        ``threads_per_node``."""
+        if not self.threads_per_node:
+            raise ValueError(
+                "plan_hier_fn needs threads_per_node set on the engine "
+                "(get_engine(..., threads_per_node=T))")
+        if problem.device != self.device:
+            problem = problem.to(self.device)
+        assignment, stats = self.plan_fn(problem)
+        thread = hierarchical.lpt_threads(
+            problem.loads, assignment, num_nodes=problem.num_nodes,
+            threads_per_node=self.threads_per_node)
+        return assignment, thread, stats
+
+    def plan_hier(self, problem: comm_graph.LBProblem):
+        """Eager two-level plan: :meth:`plan` with ``info["thread"]``;
+        needs ``threads_per_node``."""
+        if not self.threads_per_node:
+            raise ValueError(
+                "plan_hier needs threads_per_node set on the engine "
+                "(get_engine(..., threads_per_node=T))")
+        return self.plan(problem)
+
+    def plan_hier_batch_fn(self, problems: comm_graph.LBProblem
+                           ) -> Tuple[torch.Tensor, torch.Tensor, PlanStats]:
+        """:meth:`plan_hier_fn` over a stacked batch, the lanes one after
+        another as in :meth:`plan_batch_fn`: ``(assignments (B, N),
+        threads (B, N), PlanStats of (B,) tensors)``."""
+        plans = [self.plan_hier_fn(comm_graph.lane(problems, b))
+                 for b in range(problems.loads.shape[0])]
+        assignments = torch.stack([a.to(torch.int32) for a, _, _ in plans])
+        threads = torch.stack([t for _, t, _ in plans])
+        stats = PlanStats(*(torch.stack(field)
+                            for field in zip(*(s for _, _, s in plans))))
+        return assignments, threads, stats
 
     # ------------------------------------------------------ batched path --
 
@@ -209,17 +272,20 @@ def _engine_key(cfg: Dict) -> tuple:
     return (str(cfg["variant"]), int(cfg["k"]), float(cfg["tol"]),
             int(cfg["max_iters"]), int(cfg["max_rounds"]),
             bool(cfg["single_hop"]), step_fn, int(cfg["sweep_chunk"]),
-            str(cfg["device"]))
+            None if cfg["threads_per_node"] is None
+            else int(cfg["threads_per_node"]), str(cfg["device"]))
 
 
 def get_engine(variant: str = "comm", k: int = 4, tol: float = 0.02,
                max_iters: int = 512, max_rounds: int = 64,
                single_hop: bool = True, step_fn: Optional[Callable] = None,
-               sweep_chunk: int = 8, device="cuda") -> LBEngine:
+               sweep_chunk: int = 8, threads_per_node: Optional[int] = None,
+               device="cuda") -> LBEngine:
     """Engine cache — one engine per static configuration and device."""
     cfg = dict(variant=variant, k=k, tol=tol, max_iters=max_iters,
                max_rounds=max_rounds, single_hop=single_hop,
                step_fn=step_fn, sweep_chunk=sweep_chunk,
+               threads_per_node=threads_per_node,
                device=resolve_device(device))
     key = _engine_key(cfg)
     eng = _ENGINE_CACHE.get(key)

@@ -16,7 +16,8 @@ The kernel has two forms; :func:`histogram_plan` picks one from ``(n, C)``:
 each bin's weights added one at a time in index order — the order of the
 plain version and of XLA's CPU ``segment_sum`` — so its float sums are the
 CPU's bits.  ``comm_graph.segment_sum`` takes it for f32 on a card, where
-the sums feed planning decisions.
+the sums feed planning decisions; :func:`run_sums` runs it on runs the
+caller already has (``comm_graph.ordered_sum``'s windows).
 """
 from __future__ import annotations
 
@@ -143,5 +144,28 @@ def histogram_ordered(ids: torch.Tensor, weights: torch.Tensor, *, C: int):
         w, bounds = ordered_runs(ids, weights, C)
         KERNEL.launch("histogram_ordered_launch", w.data_ptr(),
                       bounds.data_ptr(), out.data_ptr(), C)
+    form_launches["ordered"] += 1
+    return out
+
+
+def run_sums(weights: torch.Tensor, bounds: torch.Tensor):
+    """(C,) f32 sums of the runs ``weights[bounds[c]:bounds[c + 1]]``, each
+    run added one at a time in index order (the ordered form on runs the
+    caller already has: no sort); ``bounds`` is (C + 1,) int64,
+    non-decreasing, within ``[0, n]``."""
+    C = int(bounds.shape[0]) - 1
+    if weights.device.type == "cpu":
+        ids = torch.repeat_interleave(
+            torch.arange(C, device=weights.device), bounds.diff())
+        lo = int(bounds[0])
+        return histogram_ref(ids, weights[lo:lo + ids.shape[0]], C=C)
+    if not weights.is_cuda or not bounds.is_cuda:
+        raise ValueError(f"expected CUDA tensors, got {weights.device} and "
+                         f"{bounds.device}")
+    w = weights.to(torch.float32).contiguous()
+    b = bounds.to(torch.int64).contiguous()
+    out = torch.empty(C, dtype=torch.float32, device=w.device)
+    KERNEL.launch("histogram_ordered_launch", w.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), C)
     form_launches["ordered"] += 1
     return out

@@ -31,9 +31,16 @@ plan timed once on the initial snapshot) at every fired step, as the JAX
 package's scanned path charges it; a host planner is timed at each fired
 plan, synchronized, as the JAX host loop times it.
 
-Not in this slice (they raise ``NotImplementedError``): two-level
-placement (``threads_per_node``), telemetry, the sharded replay and its
-fault injection.
+``threads_per_node`` adds the two-level view (paper §III.D): each step
+records the max/avg particles per global PE (``num_pes × T`` threads,
+chares placed on threads by the within-node LPT of ``core.hierarchical``)
+in ``PICResult.thread_max_avg``.  ``telemetry`` records the StepRecord
+ring of ``obs.telemetry`` into ``PICResult.telemetry``; ``off`` and
+``None`` add nothing to the loop.
+
+The sharded replay and its fault injection belong to the sharded slice
+of the port (``sharded_replay`` and ``faults`` raise
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -45,11 +52,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as core_engine
+from repro_torch.core import hierarchical
 from repro_torch.core.comm_graph import segment_sum
 from repro_torch.core.metrics import EXT_INT_ALL_EXTERNAL
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.histogram.ops import histogram
 from repro_torch.kernels.pic_push.ops import pic_push
+from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.pic import chares as ch
 from repro_torch.pic.grid import alternating_grid
 from repro_torch.pic.particles import initialize
@@ -81,9 +90,13 @@ class PICConfig:
     bytes_per_particle: float = 48.0
     seed: int = 0
     device: str = "cuda"
-    # later slices: each raises NotImplementedError when set
+    # two-level view: max/avg particles per global PE (num_pes × T
+    # threads) in PICResult.thread_max_avg
     threads_per_node: Optional[int] = None
+    # StepRecord telemetry (obs/telemetry.py): a TelemetryConfig, a level
+    # name or None; "off" / None add nothing
     telemetry: Optional[object] = None
+    # the sharded slice: each raises NotImplementedError when set
     sharded_replay: bool = False
     faults: Optional[object] = None
 
@@ -118,6 +131,10 @@ class PICResult:
     final_y: np.ndarray
     wall_seconds: float = 0.0   # wall time of the step loop (synchronized)
     lb_steps: Optional[np.ndarray] = None  # (T,) 1.0 where LB executed
+    # (T,) max/avg per global PE; None unless threads_per_node was set
+    thread_max_avg: Optional[np.ndarray] = None
+    # StepRecord ring snapshot when PICConfig.telemetry was enabled
+    telemetry: Optional[obs_telemetry.TelemetrySnapshot] = None
 
     def summary(self) -> Dict[str, float]:
         # mean ext/int ratio; all-external steps use the metrics sentinel
@@ -145,10 +162,7 @@ def _lb_amort(cfg: PICConfig, trig) -> int:
 
 
 def _check_slice(cfg: PICConfig) -> None:
-    later = [("threads_per_node", cfg.threads_per_node is not None,
-              "two-level placement"),
-             ("telemetry", cfg.telemetry is not None, "telemetry"),
-             ("sharded_replay", cfg.sharded_replay,
+    later = [("sharded_replay", cfg.sharded_replay,
               "sharded planning and replay"),
              ("faults", cfg.faults is not None,
               "sharded planning and replay")]
@@ -166,6 +180,8 @@ def _sync(dev: torch.device) -> None:
 
 def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
     _check_slice(cfg)
+    tel = obs_telemetry.enabled_or_none(cfg.telemetry)
+    T = cfg.threads_per_node
     dev = resolve_device(cfg.device)
     kw = dict(cfg.strategy_kwargs or {})
     if cfg.sweep_chunk is not None and cfg.strategy.startswith("diff"):
@@ -207,6 +223,8 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
         lb_est = strat.run(problem0, **kw).info["plan_seconds"]
 
     tstate = trig.init_state(dev)
+    obs_state = obs_telemetry.init_state(tel, P, dev) if tel else None
+    tkind = obs_telemetry.trigger_kind(trig) if tel else 0
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     rows = []                               # per-step device scalars
     _sync(dev)
@@ -226,7 +244,7 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
         pe_max = pe_loads.max()
         ma = pe_max / (pe_loads.mean() + 1e-30)
 
-        migf = migb = fired = zero
+        migf = migb = fired = sweeps = zero
         if lb_on:
             mx, av, tot = rt_triggers.load_stats(loads, assignment, P)
             do, tstate = trig.decide(tstate, t, mx, av, tot)
@@ -236,7 +254,7 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
                 if strat.host:
                     _sync(dev)
                     t_plan = time.perf_counter()
-                new_assignment, _ = plan(problem)
+                new_assignment, stats = plan(problem)
                 if strat.host:
                     _sync(dev)
                     plan_s[t] = time.perf_counter() - t_plan
@@ -257,12 +275,24 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
                 assignment = new_assignment
                 # measured feedback for the predictive gate (particles)
                 tstate = trig.observe(tstate, moved_n, True)
-        rows.append(torch.stack([ma, pe_max, ext, intra, migf, migb, fired]))
+                if tel:
+                    sweeps = stats.diffusion_iters
+        row = [ma, pe_max, ext, intra, migf, migb, fired]
+        if T:
+            row.append(hierarchical.thread_max_avg(
+                loads, assignment, num_nodes=P, threads_per_node=T))
+        rows.append(torch.stack(row))
+        if tel:
+            obs_state = obs_telemetry.record(
+                obs_state, tel, t=t,
+                node_loads=obs_telemetry.node_loads(loads, assignment, P),
+                fired=fired, trigger_kind=tkind, sweeps=sweeps,
+                moved_items=migb / bpp, moved_bytes=migb)
     _sync(dev)
     wall = time.perf_counter() - t_start
 
     stats = torch.stack(rows).cpu().numpy().astype(np.float64)
-    ma, pe_max, ext_b, int_b, mig, mig_bytes, fired = stats.T
+    ma, pe_max, ext_b, int_b, mig, mig_bytes, fired = stats.T[:7]
     lb_s_t = plan_s if strat.host else np.where(fired > 0, lb_est, 0.0)
     step_s = (pe_max * cost.t_particle
               + (ext_b + mig_bytes) * cost.t_byte
@@ -278,4 +308,7 @@ def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
     return PICResult(ma, ext_b, int_b, mig, mig_bytes,
                      float(lb_s_t.sum()), step_s,
                      fx.cpu().numpy(), fy.cpu().numpy(), wall_seconds=wall,
-                     lb_steps=fired)
+                     lb_steps=fired,
+                     thread_max_avg=stats[:, 7] if T else None,
+                     telemetry=(obs_telemetry.snapshot(obs_state, tel)
+                                if tel else None))

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.comm_graph import segment_count
+from repro_torch.core.comm_graph import ordered_sum, segment_count
 from repro_torch.kernels import migrate as mig_ops
 
 
@@ -49,13 +49,15 @@ class Manifest(NamedTuple):
     def moved_sum(self, weights, where=None) -> torch.Tensor:
         """f32 0-d tensor — executed exchange volume with per-item sizes
         ``weights`` (n,), optionally restricted to the live mask
-        ``where`` (free fleet slots move for free)."""
+        ``where`` (free fleet slots move for free).  It adds in the JAX
+        package's CPU order on every device (``comm_graph.ordered_sum``):
+        the volume feeds the predictive trigger's gate."""
         w = torch.where(self.moved, torch.as_tensor(
             weights, dtype=torch.float32, device=self.moved.device), 0.0)
         if where is not None:
             w = torch.where(torch.as_tensor(where, device=w.device).bool(),
                             w, 0.0)
-        return w.sum()
+        return ordered_sum(w)
 
 
 def resolve_method(method: str, *, n: int, num_nodes: int,

@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.core.comm_graph import segment_sum
+from repro_torch.core.comm_graph import ordered_sum, segment_sum
 from repro_torch.kernels import resolve_device
 from repro_torch.runtime.cost import RuntimeCostModel
 
@@ -59,9 +59,10 @@ def _init_state(window: int, device) -> TriggerState:
 
 
 def load_stats(loads, assignment, num_nodes: int):
-    """(max, avg, total) node load as f32 0-d tensors — the trigger inputs."""
+    """(max, avg, total) node load as f32 0-d tensors — the trigger inputs;
+    the total adds in the JAX package's CPU order on every device."""
     nl = segment_sum(loads.to(torch.float32), assignment, num_nodes)
-    total = nl.sum()
+    total = ordered_sum(nl)
     return nl.max(), total / num_nodes, total
 
 
@@ -151,14 +152,16 @@ class PredictiveTrigger:
             max=W)
         x = torch.arange(W, dtype=f32, device=dev)
         valid = (x >= W - hist_len).to(f32)
+        # counts and index sums are exact in any order; the float sums
+        # decide the gate, so they add in the JAX package's order
         n = torch.clamp(valid.sum(), min=1.0)
         xm = (x * valid).sum() / n
-        ym = (hist * valid).sum() / n
-        var = (valid * (x - xm) ** 2).sum()
+        ym = ordered_sum(hist * valid) / n
+        var = ordered_sum(valid * (x - xm) ** 2)
         slope = torch.where(
-            var > 0, (valid * (x - xm) * (hist - ym)).sum() / var, 0.0)
+            var > 0, ordered_sum(valid * (x - xm) * (hist - ym)) / var, 0.0)
         h = torch.arange(1, self.horizon + 1, dtype=f32, device=dev)
-        projected = torch.clamp(excess + slope * h, min=0.0).sum()
+        projected = ordered_sum(torch.clamp(excess + slope * h, min=0.0))
         loss = projected * self.cost.t_load * self.efficiency
         est = self.cost.est_migration_seconds(total_load.to(f32))
         if self.measured_gate:

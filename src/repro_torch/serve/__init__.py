@@ -1,5 +1,5 @@
-"""Serving layer: the batched prefill/decode engine (serve/engine.py) and
-the session scheduler with executed KV migration (serve/scheduler.py).
-Submodules are imported directly: the engine pulls the model stack, which
-the scheduler does not need.  The scan-compiled serving replay
-(``serve/replay.py`` in the JAX package) belongs to a later slice."""
+"""Serving layer: the batched prefill/decode engine (serve/engine.py), the
+session scheduler with executed KV migration (serve/scheduler.py) and the
+serving fleet replay (serve/replay.py).  Submodules are imported
+directly: the engine pulls the model stack, which the scheduler and the
+replay do not need."""

@@ -22,9 +22,13 @@ Registered workloads:
   bimodal-churn       — bimodal object loads whose heavy-set membership
                         churns over time.
 
+  serving-trace       — a recorded trace of the serving fleet replay's
+                        bursty multi-turn sessions over replicas, with
+                        prefix-sharing comm edges (``serve/replay.py``).
+
 ``batch_instances`` instantiates every registered scenario at one common
-shape for the batched replay.  ``serving-trace`` and ``routing-skew`` come
-with the serving-replay and MoE slices of the port.
+shape for the batched replay.  ``routing-skew`` comes with the MoE slice
+of the port.
 """
 from __future__ import annotations
 
@@ -127,6 +131,9 @@ BATCH_VARIANTS: Dict[str, Callable[[int, int, int], Dict]] = {
     "pic-geometric": lambda v, grid, num_nodes: dict(
         cx=grid, cy=grid, num_pes=num_nodes, rho=0.85 + 0.03 * v,
         n_particles=20_000.0),
+    "serving-trace": lambda v, grid, num_nodes: dict(
+        num_sessions=grid * grid, num_replicas=num_nodes,
+        burst_period=20 + 5 * v, seed=v),
 }
 
 
@@ -318,4 +325,62 @@ register(Scenario(
     _bimodal_churn,
     defaults=dict(grid=32, num_nodes=16, mapping="tiled", heavy_frac=0.1,
                   heavy_load=20.0, churn_every=5, stride=7919, seed=0),
+))
+
+
+# --------------------------------------------------------- serving trace --
+
+
+def _serving_trace(*, device, num_sessions: int = 256,
+                   num_replicas: int = 16, group_size: int = 4,
+                   trace_len: int = 64, turn_period: int = 12,
+                   turn_len: int = 6, burst_waves: int = 4,
+                   burst_period: int = 25, burst_amp: float = 3.0,
+                   seed: int = 0):
+    """A recorded serving trace as a registry workload: ``trace_len`` ticks
+    of ``serve.replay.ServeWorkload``'s traffic in a ``(T, S)`` table,
+    sessions as objects (identity fixed to the slot: the simulator moves
+    no payload), replicas as nodes, the prefix-sharing star and ring edges
+    (``comm_graph.prefix_group_edges``) re-priced from the floored loads
+    every step.  The table loops past its length."""
+    from repro_torch.serve import replay as serve_replay  # serve uses core
+
+    w = serve_replay.ServeWorkload(
+        num_sessions=num_sessions, num_replicas=num_replicas,
+        group_size=group_size, turn_period=turn_period, turn_len=turn_len,
+        burst_waves=burst_waves, burst_period=burst_period,
+        burst_amp=burst_amp, seed=seed)
+    trace = serve_replay.record_trace(w, steps=trace_len, device=device)
+    table, group = trace.table, trace.group
+    S, T = num_sessions, trace_len
+    uid = torch.arange(S, dtype=torch.int32, device=device)
+    assignment = torch.div(uid * num_replicas, S,
+                           rounding_mode="floor").to(torch.int32)
+
+    def edges(loads):
+        return comm_graph.prefix_group_edges(group, loads, None)
+
+    loads0 = finite_loads(table[0])
+    es, ed, ew = edges(loads0)
+    problem = comm_graph.LBProblem(
+        loads=loads0, assignment=assignment, edges_src=es, edges_dst=ed,
+        edges_bytes=ew, num_nodes=num_replicas)
+
+    def evolve(p: comm_graph.LBProblem, t) -> comm_graph.LBProblem:
+        row = torch.remainder(_step(t, device), T).reshape(1).long()
+        loads = finite_loads(table.index_select(0, row)[0])
+        _, _, ew = edges(loads)
+        return dataclasses.replace(p, loads=loads, edges_bytes=ew)
+
+    return problem, evolve
+
+
+register(Scenario(
+    "serving-trace",
+    "trace-driven serving replay: recorded bursty multi-turn session "
+    "loads with prefix-sharing comm edges (serve/replay.py)",
+    _serving_trace,
+    defaults=dict(num_sessions=256, num_replicas=16, group_size=4,
+                  trace_len=64, turn_period=12, turn_len=6, burst_waves=4,
+                  burst_period=25, burst_amp=3.0, seed=0),
 ))

@@ -20,11 +20,16 @@ replays a time-evolving workload with trigger-policed rebalancing.
     planning through ``core.api.run_strategy`` with per-step host
     metrics, also for host-side ``evolve`` callables.
 
-``run_series_batch`` replays B workloads at a common shape (e.g.
-``scenarios.batch_instances``) under one fixed cadence.
+Both loops take ``threads_per_node`` (the two-level view of paper
+§III.D: ``SeriesResult.thread_max_avg``, the max/avg over the ``P * T``
+global PEs under the within-node LPT, ``core.hierarchical``) and
+``telemetry`` (the StepRecord ring of ``obs.telemetry``; ``off`` and
+``None`` add nothing to the loop).
 
-Later slices of the port bring ``threads_per_node``, telemetry and
-``run_series_sharded``; here they raise ``NotImplementedError``.
+``run_series_batch`` replays B workloads at a common shape (e.g.
+``scenarios.batch_instances``) under one fixed cadence; it takes neither
+knob, as in the JAX package.  ``run_series_sharded`` belongs to the
+sharded slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import api, comm_graph, engine, metrics
+from repro_torch.core import api, comm_graph, engine, hierarchical, metrics
+from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.runtime import triggers as rt_triggers
 
 
@@ -98,7 +104,7 @@ class SeriesResult:
     plan_seconds: float        # cumulative planning wall time (both loops)
     scanned: bool = False      # True for the device-resident loop
     wall_seconds: float = 0.0  # total replay wall time (both loops)
-    # two-level placement (later slice): always None here
+    # (T,) max/avg over the P*T global PEs; None without threads_per_node
     thread_max_avg: Optional[np.ndarray] = None
     # per-step records: whether the trigger fired, the max node load, and
     # the total load of the objects the rebalance moved — the inputs to
@@ -108,9 +114,10 @@ class SeriesResult:
     migrated_load: Optional[np.ndarray] = None  # (T,)
     # (N,) final object→node assignment after the last step
     final_assignment: Optional[np.ndarray] = None
-    # resilient sharded replay and telemetry (later slices): always None
+    # resilient sharded replay (a later slice): always None
     plan_rejected: Optional[np.ndarray] = None
-    telemetry: Optional[object] = None
+    # StepRecord ring snapshot when an enabled telemetry config was passed
+    telemetry: Optional[obs_telemetry.TelemetrySnapshot] = None
     # (T,) planning wall seconds of each fired step (0 elsewhere); the JAX
     # package's scanned replay cannot time a plan inside its scan
     plan_step_seconds: Optional[np.ndarray] = None
@@ -120,14 +127,6 @@ def _later_slice(what: str, slice_name: str):
     raise NotImplementedError(
         f"{what} belongs to the {slice_name} slice of the port, not yet "
         "ported")
-
-
-def _check_slice(threads_per_node, telemetry) -> None:
-    if threads_per_node is not None:
-        _later_slice("run_series(threads_per_node=...)",
-                     "two-level placement")
-    if telemetry is not None:
-        _later_slice("run_series(telemetry=...)", "telemetry")
 
 
 def run_series(
@@ -153,8 +152,12 @@ def run_series(
     device-resident loop for a device planner and an evolve marked
     ``device_resident``, else the host loop.  Both loops fire on the same
     steps and plan alike.  A host planner with ``scan=True`` raises
-    ``ValueError``."""
-    _check_slice(threads_per_node, telemetry)
+    ``ValueError``.
+
+    ``threads_per_node`` records ``SeriesResult.thread_max_avg`` each
+    step; ``telemetry`` (a ``TelemetryConfig``, a level name or None)
+    records the StepRecord ring into ``SeriesResult.telemetry``."""
+    tel = obs_telemetry.enabled_or_none(telemetry)
     strategy_kwargs = strategy_kwargs or {}
     strat = engine.get_strategy(strategy)        # KeyError if unknown
     trig = rt_triggers.resolve_for_strategy(trigger, lb_every=lb_every,
@@ -169,7 +172,8 @@ def run_series(
                 and bool(getattr(evolve, "device_resident", False)))
     run = _run_series_device if scan else _run_series_host
     return run(initial, evolve, steps=steps, strategy=strategy,
-               strategy_kwargs=strategy_kwargs, trig=trig)
+               strategy_kwargs=strategy_kwargs, trig=trig,
+               threads_per_node=threads_per_node, tel=tel)
 
 
 @dataclasses.dataclass
@@ -253,16 +257,19 @@ def _sync(device: torch.device) -> None:
 
 
 def _run_series_host(initial, evolve, *, steps, strategy, strategy_kwargs,
-                     trig) -> SeriesResult:
+                     trig, threads_per_node=None, tel=None) -> SeriesResult:
     dev = initial.device
     t_start = time.perf_counter()
     problem = initial
-    ma, ei, mig, fired, mxl, migl = [], [], [], [], [], []
+    ma, ei, mig, fired, mxl, migl, tma = [], [], [], [], [], [], []
     plan_t = np.zeros(steps)
     lb_on = strategy != "none" and not trig.never
     # the fixed cadence ignores the load stats: decide it on the host
     is_every = isinstance(trig, rt_triggers.EveryTrigger)
     tstate = trig.init_state(dev)
+    obs_state = (obs_telemetry.init_state(tel, initial.num_nodes, dev)
+                 if tel else None)
+    tkind = obs_telemetry.trigger_kind(trig) if tel else 0
     for t in range(steps):
         problem = evolve(problem, t)
         do = False
@@ -274,13 +281,16 @@ def _run_series_host(initial, evolve, *, steps, strategy, strategy_kwargs,
                     problem.loads, problem.assignment, problem.num_nodes)
                 d, tstate = trig.decide(tstate, t, mx, av, tot)
                 do = bool(d)
+        moved_n = sweeps = 0.0
         if do:
             plan = api.run_strategy(strategy, problem, **strategy_kwargs)
             delta = plan.assignment != problem.assignment.cpu().numpy()
             mig.append(float(np.mean(delta)))
-            migl.append(float(torch.where(
+            moved_n = float(np.sum(delta))
+            sweeps = float(plan.info.get("diffusion_iters", 0.0))
+            migl.append(float(comm_graph.ordered_sum(torch.where(
                 torch.as_tensor(delta, device=dev),
-                problem.loads.to(torch.float32), 0.0).sum()))
+                problem.loads.to(torch.float32), 0.0))))
             problem = problem.with_assignment(
                 torch.as_tensor(plan.assignment, device=dev))
             plan_t[t] = plan.info["plan_seconds"]
@@ -297,12 +307,26 @@ def _run_series_host(initial, evolve, *, steps, strategy, strategy_kwargs,
         ma.append(m["max_avg_load"])
         ei.append(m["ext_int_comm"])
         mxl.append(m["max_load"])
+        if threads_per_node:
+            tma.append(float(hierarchical.thread_max_avg(
+                problem.loads, problem.assignment,
+                num_nodes=problem.num_nodes,
+                threads_per_node=threads_per_node)))
+        if tel:
+            obs_state = obs_telemetry.record(
+                obs_state, tel, t=t,
+                node_loads=obs_telemetry.node_loads(
+                    problem.loads, problem.assignment, problem.num_nodes),
+                fired=fired[-1], trigger_kind=tkind, sweeps=sweeps,
+                moved_items=moved_n, moved_bytes=migl[-1])
     return SeriesResult(
         np.array(ma), np.array(ei), np.array(mig), float(plan_t.sum()),
         scanned=False, wall_seconds=time.perf_counter() - t_start,
+        thread_max_avg=np.array(tma) if threads_per_node else None,
         lb_fired=np.array(fired), max_load=np.array(mxl),
         migrated_load=np.array(migl),
         final_assignment=problem.assignment.cpu().numpy().astype(np.int32),
+        telemetry=(obs_telemetry.snapshot(obs_state, tel) if tel else None),
         plan_step_seconds=plan_t)
 
 
@@ -310,12 +334,16 @@ def _run_series_host(initial, evolve, *, steps, strategy, strategy_kwargs,
 
 
 def _run_series_device(initial, evolve, *, steps, strategy, strategy_kwargs,
-                       trig) -> SeriesResult:
+                       trig, threads_per_node=None, tel=None
+                       ) -> SeriesResult:
     dev = initial.device
     plan = engine.get_strategy(strategy).bind(**strategy_kwargs)
     lb_on = strategy != "none" and not trig.never
     problem = initial
     tstate = trig.init_state(dev)
+    obs_state = (obs_telemetry.init_state(tel, initial.num_nodes, dev)
+                 if tel else None)
+    tkind = obs_telemetry.trigger_kind(trig) if tel else 0
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     plan_t = np.zeros(steps)
@@ -325,33 +353,55 @@ def _run_series_device(initial, evolve, *, steps, strategy, strategy_kwargs,
     for t in range(steps):
         problem = evolve(problem, t)
         moved = migrated = fired = zero
+        do = False
         if lb_on:
             mx, av, tot = rt_triggers.load_stats(
                 problem.loads, problem.assignment, problem.num_nodes)
-            do, tstate = trig.decide(tstate, t, mx, av, tot)
-            if bool(do):                        # the step's one device read
+            d, tstate = trig.decide(tstate, t, mx, av, tot)
+            do = bool(d)                        # the step's one device read
+            if do:
                 _sync(dev)
                 t_plan = time.perf_counter()
-                new_assignment, _ = plan(problem)
+                new_assignment, stats = plan(problem)
                 new_assignment = new_assignment.to(torch.int32)
                 delta = new_assignment != problem.assignment
                 moved = delta.to(torch.float32).mean()
-                migrated = torch.where(delta, problem.loads, 0.0).sum()
+                migrated = comm_graph.ordered_sum(
+                    torch.where(delta, problem.loads, 0.0))
                 fired = one
                 problem = problem.with_assignment(new_assignment)
                 _sync(dev)
                 plan_t[t] = time.perf_counter() - t_plan
             # executed exchange volume for the measured predictive gate
-            tstate = trig.observe(tstate, migrated, do)
+            tstate = trig.observe(tstate, migrated, d)
         m = metrics.evaluate_device(problem)
-        rows.append(torch.stack([m.max_avg_load, m.ext_int_comm, moved,
-                                 fired, m.max_load, migrated]))
-    stats = (torch.stack(rows).cpu().numpy().astype(np.float64) if rows
-             else np.zeros((0, 6)))
+        row = [m.max_avg_load, m.ext_int_comm, moved, fired, m.max_load,
+               migrated]
+        if threads_per_node:
+            row.append(hierarchical.thread_max_avg(
+                problem.loads, problem.assignment,
+                num_nodes=problem.num_nodes,
+                threads_per_node=threads_per_node))
+        rows.append(torch.stack(row))
+        if tel:
+            obs_state = obs_telemetry.record(
+                obs_state, tel, t=t,
+                node_loads=obs_telemetry.node_loads(
+                    problem.loads, problem.assignment, problem.num_nodes),
+                fired=fired, trigger_kind=tkind,
+                sweeps=stats.diffusion_iters if do else 0.0,
+                moved_items=delta.sum() if do else 0.0,
+                moved_bytes=migrated)
+    width = 7 if threads_per_node else 6
+    stats_np = (torch.stack(rows).cpu().numpy().astype(np.float64) if rows
+                else np.zeros((0, width)))
     final = problem.assignment.cpu().numpy().astype(np.int32)
     wall = time.perf_counter() - t_start
-    ma, ei, mig, fired, mxl, migl = stats.T
+    ma, ei, mig, fired, mxl, migl = stats_np.T[:6]
     return SeriesResult(
         ma, ei, mig, float(plan_t.sum()), scanned=True, wall_seconds=wall,
+        thread_max_avg=stats_np[:, 6] if threads_per_node else None,
         lb_fired=fired, max_load=mxl, migrated_load=migl,
-        final_assignment=final, plan_step_seconds=plan_t)
+        final_assignment=final,
+        telemetry=(obs_telemetry.snapshot(obs_state, tel) if tel else None),
+        plan_step_seconds=plan_t)

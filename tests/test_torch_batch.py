@@ -97,12 +97,13 @@ def test_run_series_batch_matches_single_lanes_and_jax():
     the lanes one after another) and the JAX package's vmapped replay
     within ``tests/test_engine.py``'s tolerances."""
     grid, nodes = 8, 4
-    inst = t_scen.batch_instances(4, grid=grid, num_nodes=nodes, device=CPU)
+    B = len(t_scen.SCENARIOS)
+    inst = t_scen.batch_instances(B, grid=grid, num_nodes=nodes, device=CPU)
     assert [n for n, _, _ in inst] == sorted(t_scen.SCENARIOS)
     kw = dict(steps=12, lb_every=4, strategy="diff-comm",
               strategy_kwargs=dict(k=2))
     bres = t_sim.run_series_batch(inst, **kw)
-    assert bres.batch == 4 and bres.steps == 12
+    assert bres.batch == B and bres.steps == 12
     assert bres.wall_seconds >= sum(s.wall_seconds for s in bres.series)
     want = j_sim.run_series_batch(_jax_lanes(inst, grid, nodes), **kw)
     for (_, p, ev), lane, jlane in zip(inst, bres.series, want.series):
@@ -138,13 +139,14 @@ def test_run_series_batch_rejects_host_evolve():
 
 
 def test_batch_instances_cover_the_registry_and_vary_lanes():
-    inst = t_scen.batch_instances(8, grid=8, num_nodes=4, device=CPU)
+    B = len(t_scen.SCENARIOS)
+    inst = t_scen.batch_instances(2 * B, grid=8, num_nodes=4, device=CPU)
     names = [n for n, _, _ in inst]
     assert names == sorted(t_scen.SCENARIOS) * 2
     for _, p, _ in inst:
         assert (p.num_nodes, p.num_objects) == (4, 64)
     # replicas are independent problems, not copies
-    a, b = inst[0][1:], inst[4][1:]
+    a, b = inst[0][1:], inst[B][1:]
     assert not bool((a[1](a[0], 3).loads == b[1](b[0], 3).loads).all())
     # the JAX package's lane at the same variant gives the same loads
     # (within float32 rounding of exp)

@@ -126,6 +126,26 @@ def test_cumsum_adds_in_jax_cpu_order(n):
     np.testing.assert_array_equal(got, np.asarray(jnp.cumsum(v)))
 
 
+@pytest.mark.parametrize("n", [0, 1, 7, 32, 33, 64, 100, 2048, 4097,
+                               131072])
+def test_ordered_sum_adds_in_jax_cpu_order(n):
+    """``comm_graph.ordered_sum`` gives ``x.sum()``'s bits of the JAX
+    package on the CPU (XLA's windows of 32, padding split between the
+    ends), on values of three magnitudes and both signs, where another
+    order of additions rounds differently; so does a masked sum as the
+    moved-KV volume takes it."""
+    rng = np.random.default_rng(n)
+    v = ((rng.random(n) - 0.3) * 1000).astype(np.float32) * rng.choice(
+        np.array([1e-3, 1.0, 1e3], np.float32), n)
+    got = t_cg.ordered_sum(torch.as_tensor(v))
+    assert got.shape == () and got.dtype == torch.float32
+    assert float(got) == float(jnp.sum(jnp.asarray(v)))
+    m = rng.random(n) < 0.4
+    masked = t_cg.ordered_sum(torch.where(torch.as_tensor(m),
+                                          torch.as_tensor(v), 0.0))
+    assert float(masked) == float(jnp.where(m, v, 0.0).sum())
+
+
 def test_interop_roundtrip_and_problem_views():
     d = _stencil_random_loads()
     tp = interop.problem_from_numpy(d, device=CPU)

@@ -506,6 +506,24 @@ def test_histogram_ordered_equals_cpu_bit_for_bit(dev, n, C):
                        segment_sum(w, ids, C))
 
 
+@pytest.mark.parametrize("n", [1, 32, 33, 64, 2048, 131072, 1 << 20])
+def test_ordered_sum_equals_cpu_bit_for_bit(dev, n):
+    """``comm_graph.ordered_sum`` on a card (one K4 ordered-form launch a
+    level of 32-item windows) gives the CPU's bits, and ``run_sums`` its
+    plain version's."""
+    from repro_torch.core.comm_graph import ordered_sum
+
+    rng = np.random.default_rng(n)
+    v = torch.as_tensor(((rng.random(n) - 0.3) * 1000).astype(np.float32)
+                        * rng.choice(np.array([1e-3, 1, 1e3], np.float32),
+                                     n))
+    assert torch.equal(ordered_sum(v.to(dev)).cpu(), ordered_sum(v))
+    bounds = torch.as_tensor(np.unique(np.concatenate(
+        [[0, n], rng.integers(0, n + 1, 9)])).astype(np.int64))
+    assert torch.equal(hops.run_sums(v.to(dev), bounds.to(dev)).cpu(),
+                       hops.run_sums(v, bounds))
+
+
 def test_cumsum_repeats_bit_for_bit_on_cuda(dev):
     """``comm_graph.cumsum`` on a card: the same bits on every call and as
     on the CPU, and within 1e-5 relative of a float64 prefix sum
@@ -879,3 +897,47 @@ def test_scheduler_cuda_matches_cpu(dev):
             assert ig[key] == pytest.approx(ic[key], rel=1e-6), key
         if make is skewed:
             assert ic["deferred_sessions"] > 0
+
+
+@pytest.mark.parametrize("N,P,T", [(300, 9, 4), (1 << 16, 512, 16)])
+def test_lpt_threads_on_cuda_equals_host_oracle(dev, N, P, T):
+    """Two-level placement on a card: the LPT threads and thread loads of
+    ``core.hierarchical`` equal the host NumPy oracle's, with many ties
+    (most loads one idle value)."""
+    from repro_torch.core import hierarchical
+
+    rng = np.random.default_rng(N)
+    loads = np.where(rng.random(N) < 0.6, np.float32(0.05),
+                     rng.random(N).astype(np.float32) * 4)
+    a = rng.integers(0, P, N).astype(np.int32)
+    thr = hierarchical.lpt_threads(torch.as_tensor(loads, device=dev),
+                                   torch.as_tensor(a, device=dev),
+                                   num_nodes=P, threads_per_node=T)
+    want = hierarchical.within_node_lpt(loads, a, P, T)
+    assert np.array_equal(thr.cpu().numpy(), want)
+    tl = hierarchical.thread_loads(torch.as_tensor(loads, device=dev),
+                                   torch.as_tensor(a, device=dev), thr,
+                                   num_nodes=P, threads_per_node=T)
+    want_tl = np.zeros(P * T, np.float32)
+    np.add.at(want_tl, a * T + want, loads)
+    assert np.array_equal(tl.cpu().numpy(), want_tl)
+
+
+def test_fleet_replay_on_cuda_equals_cpu(dev):
+    """The serving fleet replay under the predictive trigger and a slot
+    budget: fire steps, placements, moved sessions, deferred counts and
+    moved KV on the card equal the CPU's."""
+    from repro_torch.runtime.cost import RuntimeCostModel
+    from repro_torch.runtime.triggers import PredictiveTrigger
+    from repro_torch.serve import replay
+
+    w = replay.ServeWorkload(num_sessions=512, num_replicas=8)
+    kw = dict(steps=30, lb_every=10, strategy="diff-comm+predictive",
+              slot_capacity=72, trigger=PredictiveTrigger(
+                  cost=RuntimeCostModel(t_byte=2e-3, lb_overhead=1.0)))
+    g = replay.run_serve_replay(w, device=dev, **kw)
+    c = replay.run_serve_replay(w, device="cpu", **kw)
+    assert g.lb_fired.sum() > 1
+    for f in ("lb_fired", "final_replica_by_uid", "moved_sessions",
+              "deferred", "moved_kv_bytes", "occ_max", "max_avg"):
+        assert np.array_equal(getattr(g, f), getattr(c, f)), f

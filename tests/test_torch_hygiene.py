@@ -190,3 +190,82 @@ def test_chip_smoke_host_planner_phases_rehearse_on_cpu(monkeypatch):
         chip_smoke.paper_scripts_host()
     finally:
         torch.set_num_threads(threads)
+
+
+def test_fleet_entry_points_default_to_cuda():
+    """The fleet replay's entry points (``run_serve_replay``,
+    ``record_trace``, ``launch.serve --fleet-replay``, the serve bench)
+    run on the card unless asked for the CPU; without one they raise."""
+    import inspect
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks_torch import serve_bench, serve_replay_profile
+    from repro_torch.launch import serve
+    from repro_torch.serve import replay
+
+    for fn in (replay.run_serve_replay, replay.record_trace):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for fn in (serve_bench.run, serve_bench.bench_policies,
+               serve_bench.bench_scale):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    w = replay.ServeWorkload(num_sessions=16, num_replicas=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        replay.run_serve_replay(w, steps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        replay.record_trace(w, steps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--fleet-replay", "16", "--replicas", "2",
+                    "--ticks", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_bench.bench_scale({}, num_sessions=16, num_replicas=2,
+                                steps=2, repeats=1)
+    # the profile script needs a card and says so
+    out = subprocess.run([sys.executable, str(
+        ROOT / "benchmarks_torch" / "serve_replay_profile.py")],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and serve_replay_profile.FLEET
+    # on the CPU when asked
+    r = serve.main(["--fleet-replay", "32", "--replicas", "4", "--ticks",
+                    "12", "--strategy", "diff-comm", "--device", "cpu"])
+    assert r.lb_fired.sum() == 1
+
+
+def test_chip_smoke_fleet_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's fleet phases (the fleet replay with its invariants,
+    its telemetry run and trace, the serve bench's gates, the fleet against
+    the CPU, two-level placement) run end to end on the CPU's plain
+    versions at a small size (the bench's gates are claims at its own
+    sizes, which the card runs; these smaller workloads keep them)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+    from repro_torch.sim import scenarios
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "FLEET",
+                        dict(num_sessions=1024, num_replicas=16, seed=1))
+    monkeypatch.setattr(chip_smoke, "FLEET_TEL_CAPACITY", 80)
+    monkeypatch.setattr(chip_smoke, "FLEET_KERNELS", ())   # none on the CPU
+    monkeypatch.setattr(chip_smoke, "SERVE_BENCH", dict(steps=40, workloads={
+        "synthetic": (512, 8, dict(seed=0), False),
+        "trace": (256, 4, dict(burst_period=18, seed=3), True)}))
+    monkeypatch.setattr(chip_smoke, "FLEET_CPU", dict(
+        num_sessions=256, num_replicas=8, steps=24, slot_capacity=36))
+    monkeypatch.setattr(chip_smoke, "SIM_SCENARIO",
+                        dict(grid=16, num_nodes=8, mapping="tiled"))
+    monkeypatch.setattr(chip_smoke, "HIER_SIM", dict(
+        steps=12, lb_every=10, strategy="diff-comm",
+        strategy_kwargs={"k": 4}))
+    monkeypatch.setattr(chip_smoke, "HIER_PIC", dict(
+        L=100, n_particles=2000, steps=12, cx=8, cy=8, num_pes=4,
+        lb_every=5, threads_per_node=2))
+    counts = chip_smoke.fleet_path()
+    assert counts["scatter_dest"] == 0           # plain versions on the CPU
+    chip_smoke.serve_bench_gates()
+    chip_smoke.fleet_cpu_parity()
+    p, ev = scenarios.get("stencil-wave").instantiate(
+        device="cpu", **chip_smoke.SIM_SCENARIO)
+    chip_smoke.two_level(ev(p, 10))

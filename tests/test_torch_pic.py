@@ -107,10 +107,14 @@ def test_chare_of_device_matches_jax_exactly():
 
 
 def test_later_slice_options_raise():
-    for kw in (dict(threads_per_node=2), dict(telemetry="counters"),
-               dict(sharded_replay=True), dict(faults=object())):
+    for kw in (dict(sharded_replay=True), dict(faults=object())):
         with pytest.raises(NotImplementedError):
             t_driver.run(t_driver.PICConfig(**BASE, **kw, device="cpu"))
+    # two-level placement and telemetry have been ported
+    res = t_driver.run(t_driver.PICConfig(
+        **BASE, threads_per_node=2, telemetry="counters", device="cpu"))
+    assert res.thread_max_avg.shape == res.max_avg.shape
+    assert res.telemetry.steps_total == len(res.max_avg)
     # the host baselines have been ported: greedy plans in the step loop
     res = t_driver.run(t_driver.PICConfig(**BASE, strategy="greedy",
                                           device="cpu"))

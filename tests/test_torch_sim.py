@@ -124,16 +124,20 @@ def test_viz_matches():
 SMALL = {"stencil-wave": dict(grid=16, num_nodes=8),
          "pic-geometric": dict(num_pes=4),
          "adversarial-hotspot": dict(grid=16, num_nodes=8, dwell=3),
-         "bimodal-churn": dict(grid=16, num_nodes=8, churn_every=2)}
+         "bimodal-churn": dict(grid=16, num_nodes=8, churn_every=2),
+         "serving-trace": dict(num_sessions=64, num_replicas=4,
+                               trace_len=8)}
 
 # f32 spacings of the largest value that evolved loads and edge bytes may
 # be apart: exp/cos/sin differ by about 1 ulp between XLA and PyTorch on
 # the CPU (2.5 ulp measured after the Gaussian); pic-geometric normalizes
 # by a 144-term sum that XLA adds in another order (5 ulp measured in the
 # loads, 9 in the edge bytes that scale them, over 40 steps);
-# bimodal-churn is integer arithmetic and exact
+# bimodal-churn is integer arithmetic and serving-trace a table of exact
+# products (rates from NumPy), both exact
 EVOLVE_ULPS = {"stencil-wave": 4, "pic-geometric": 12,
-               "adversarial-hotspot": 4, "bimodal-churn": 0}
+               "adversarial-hotspot": 4, "bimodal-churn": 0,
+               "serving-trace": 0}
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
@@ -159,7 +163,7 @@ def test_scenario_registry_and_memo():
     assert set(t_scen.available()) == set(SMALL)
     assert set(t_scen.available()) <= set(j_scen.available())
     with pytest.raises(KeyError):
-        t_scen.get("serving-trace")
+        t_scen.get("routing-skew")
     s = t_scen.get("stencil-wave")
     p1, e1 = s.instantiate(device=CPU, grid=8, num_nodes=4)
     p2, e2 = s.instantiate(device="cpu", grid=8, num_nodes=4)
@@ -323,7 +327,7 @@ def test_get_engine_cache_keys():
     keyword, int and float spellings share an entry; an unhashable
     ``step_fn`` is keyed by identity; bad arguments raise TypeError."""
     g = t_engine.get_engine
-    e1 = g("comm", 6, 0.02, 512, 64, True, None, 8, CPU)
+    e1 = g("comm", 6, 0.02, 512, 64, True, None, 8, None, CPU)
     assert e1 is g(variant="comm", k=6, device=CPU) is g(k=6.0, device=CPU)
     assert g(k=7, tol=0.02, device=CPU) is g(k=7.0, tol=0.02, device="cpu")
     step = _UnhashableStep()
@@ -339,7 +343,8 @@ def test_get_engine_cache_keys():
     with pytest.raises(TypeError, match="multiple values"):
         g("comm", variant="comm")
     assert list(inspect.signature(g).parameters) == list(
-        inspect.signature(j_engine.get_engine).parameters)[:-1] + ["device"]
+        inspect.signature(j_engine.get_engine).parameters) + ["device"]
+    assert g(k=6, threads_per_node=2, device=CPU) is not e1
 
 
 # ------------------------------------------------------- compare / tables --
@@ -378,9 +383,13 @@ def test_later_slice_knobs_raise():
     p, ev = t_scen.get("stencil-wave").instantiate(device=CPU, grid=8,
                                                    num_nodes=4)
     kw = dict(steps=2, lb_every=1)
-    for extra in (dict(threads_per_node=2), dict(telemetry="counters")):
-        with pytest.raises(NotImplementedError):
-            t_sim.run_series(p, ev, **kw, **extra)
+    # two-level placement and telemetry have been ported: both loops
+    # record them
+    for scan in (True, False):
+        res = t_sim.run_series(p, ev, **kw, scan=scan, threads_per_node=2,
+                               telemetry="counters")
+        assert res.thread_max_avg.shape == (2,)
+        assert res.telemetry.steps_total == 2
     # the host baselines and the batched replay have been ported: a host
     # planner takes the host loop, and refuses the device-resident one
     assert not t_sim.run_series(p, ev, **kw, strategy="greedy").scanned
