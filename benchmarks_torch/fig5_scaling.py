@@ -20,11 +20,22 @@ asserted.
 
 A batched scenario sweep rides along: every registered scenario
 (``scenarios.batch_instances``) replayed at a common chare-level shape by
-``run_series_batch``.  The JAX package's mesh-sharded planner branch is a
-later slice of the port; with it off the assertions always run.
+``run_series_batch``.
+
+``sharded`` plans with the mesh-sharded planner as well
+(``diff-comm-sharded``, ``distributed/lb_shard.py``, over ``shards``
+shards of one device; by default the largest count up to the real devices
+that divides the PEs): the PIC runs under it must equal the single-device
+planner's run (the same fire steps, max/avg, external bytes and
+migrations), as the JAX script's comment states.  Its default follows
+the JAX script's: on where more than one device is present (never on one
+device).  The modeled-time assertions hold on the single-device
+planner's runs, which are always made; the sharded planner's planning
+wall time is printed beside them.
 
 Run from the repository root:
     python3 benchmarks_torch/fig5_scaling.py [--device cuda|cpu]
+        [--sharded] [--shards D]
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import argparse
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -93,32 +105,51 @@ def _warmup(pes: int, cx: int, cy: int, L: int, device):
     api.run_strategy("diff-comm", prob, k=3)
 
 
+#: the fields in which a run under the sharded planner must equal the
+#: single-device planner's
+SHARDED_EQUAL = ("max_avg", "ext_bytes", "int_bytes", "migrations",
+                 "migrated_bytes", "lb_steps")
+
+
 def run(n: int = 200_000, L: int = 1200, steps: int = 50,
         scenario: str = "pic-geometric", device="cuda", scales=SCALES,
-        sweep=None):
+        sweep=None, sharded: Optional[bool] = None,
+        shards: Optional[int] = None):
     # particle mode / mapping / density come from the scenario registry;
     # charge k, the chare grid and the PE scales stay the Fig-5
     # strong-scaling setup
-    print("planning with the single-device engine (the mesh-sharded "
-          "planner is a later slice of the port)")
+    from repro_torch.distributed.mesh import num_devices
+
+    if sharded is None:
+        sharded = num_devices(device) > 1
     diff_name = "diff-comm"
+    strategies = ["none", "greedy-refine", diff_name]
+    if sharded:
+        from repro_torch.distributed import lb_shard  # noqa: F401 (registers)
+
+        strategies.append("diff-comm-sharded")
+        print(f"planning with the mesh-sharded engine as well "
+              f"({'best' if shards is None else shards} shards)")
     sc = dict(scenarios.get(scenario).pic_config or {})
     out = {"batched_scenarios": batched_scenario_sweep(
                device=device, **(sweep or {})),
-           "sharded_planner": False}
+           "sharded_planner": bool(sharded)}
     rows = []
     for pes in scales:
         cell = {}
         _warmup(pes, 20, 10, L, device)
-        for strat in ["none", "greedy-refine", diff_name]:
+        runs = {}
+        for strat in strategies:
             kw = dict(k=3) if strat.startswith("diff") else {}
+            if strat == "diff-comm-sharded" and shards is not None:
+                kw["num_shards"] = shards
             cfg = driver.PICConfig(
                 L=L, n_particles=n, steps=steps, k=4,
                 rho=sc.get("rho", 0.9), mode=sc.get("mode", "GEOMETRIC"),
                 cx=20, cy=10, num_pes=pes,
                 mapping=sc.get("mapping", "striped"), lb_every=5,
                 strategy=strat, strategy_kwargs=kw, device=device)
-            r = driver.run(cfg)
+            r = runs[strat] = driver.run(cfg)
             cell[strat] = dict(
                 modeled_time=float(r.step_seconds.sum()),
                 mean_ext=float(r.ext_bytes.mean()),
@@ -127,6 +158,14 @@ def run(n: int = 200_000, L: int = 1200, steps: int = 50,
                 lb_steps=r.lb_steps.tolist(),
                 wall_seconds=float(r.wall_seconds),
             )
+        if sharded:
+            # the sharded planner's plans are the single-device planner's
+            for f in SHARDED_EQUAL:
+                assert np.array_equal(
+                    getattr(runs["diff-comm-sharded"], f),
+                    getattr(runs[diff_name], f)), (pes, f)
+            assert np.array_equal(runs["diff-comm-sharded"].final_x,
+                                  runs[diff_name].final_x), pes
         out[pes] = cell
         rows.append([
             pes,
@@ -152,6 +191,12 @@ def run(n: int = 200_000, L: int = 1200, steps: int = 50,
     t_diff = [out[p][diff_name]["modeled_time"] for p in scales]
     assert (t_diff[-1] / t_diff[0]
             < t_none[-1] / max(t_none[0], 1e-9) + 0.5)
+    if sharded:
+        print("diff-comm-sharded: the same plans as diff-comm at every "
+              "scale; planning seconds "
+              + ", ".join(f"{p} PEs {out[p]['diff-comm-sharded']['lb_seconds']:.4f}"
+                          f" (single-device {out[p][diff_name]['lb_seconds']:.4f})"
+                          for p in scales))
     save_result("fig5_scaling", out)
     return out
 
@@ -159,4 +204,7 @@ def run(n: int = 200_000, L: int = 1200, steps: int = 50,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    run(device=ap.parse_args().device)
+    ap.add_argument("--sharded", action="store_true", default=None)
+    ap.add_argument("--shards", type=int, default=None)
+    a = ap.parse_args()
+    run(device=a.device, sharded=a.sharded, shards=a.shards)

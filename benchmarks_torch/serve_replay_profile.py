@@ -47,11 +47,13 @@ def _union_us(intervals, lo, hi) -> float:
     return busy
 
 
-def profile_replay(run_fn):
+def profile_replay(run_fn, start=None):
     """Run ``run_fn()`` (a replay returning a result with
     ``wall_seconds``) under ``torch.profiler``: ``(result, dict(loop_ms,
     device_busy_ms, idle_share, kernels))``, the window the replay's
-    synchronized tick loop from its first device event."""
+    synchronized tick loop from its first device event — or, given
+    ``start``, from the first device event whose name contains it (a loop
+    with device work before it: the loop's first kernel)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -65,7 +67,10 @@ def profile_replay(run_fn):
                   and e.name not in _NOT_WORK]
     if not dev_events:
         raise SystemExit("the profiler recorded no device time")
-    lo = min(e.time_range.start for e in dev_events)
+    first = [e for e in dev_events if start is None or start in e.name]
+    if not first:
+        raise SystemExit(f"the profiler recorded no {start!r} event")
+    lo = min(e.time_range.start for e in first)
     hi = lo + res.wall_seconds * 1e6
     window = [e for e in dev_events if lo <= e.time_range.start < hi]
     busy_us = _union_us([(e.time_range.start, e.time_range.end)

@@ -92,8 +92,26 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      SIMT f32 prefill), and its decode also cold: 26 caches, one a layer,
      rotated from call to call as on the serving path.
 
-It prints the card's name and power limit, one JSON line of per-kernel
-numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
+ 12. the sharded paths, each on one card with the D shards as the leading
+     axis of its tensors (``distributed.mesh.ShardMesh``): the PIC
+     configuration of 1. with ``sharded_replay=True`` over 8 shards (K5 on
+     every slab, K4 on the per-shard chare histograms, K3 at every ring
+     hop; launch counts set to 0 just before and read just after), at the
+     slabs' default capacity and at its run's tight one, each equal to the
+     single-device run in the eight PIC fields, steps/s and the idle share
+     printed; the simulator path over 8 shards (fire steps, max/avg there
+     and the final assignment's SHA-256 equal to 3.'s); a fault schedule
+     (die, slow, recover) on a reduced series and a reduced PIC run, card
+     against CPU, the evacuation complete, the checkpointed replay with
+     injected failures equal to the uninterrupted one; ``migrate_sharded``
+     over 2^24 items, 8 shards, 8192 nodes (strict == ``apply_manifest``,
+     spill == the CPU's); the fleet over 8 shards equal to 9.'s; Fig 5
+     with the sharded planner as well; and K3, K4 and K5 against their
+     plain versions at the sharded PIC path's shapes.
+
+It prints the card's name and power limit, one JSON line of the sharded
+phases' numbers, one JSON line of per-kernel numbers, and as its last line
+``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where ``torch.cuda.is_available()`` is False.
 """
@@ -185,6 +203,38 @@ HIER_SIM = dict(steps=20, lb_every=10, strategy="diff-comm",
                 strategy_kwargs={"k": 8})
 HIER_PIC = dict(L=100, n_particles=4000, steps=40, cx=8, cy=8, num_pes=4,
                 lb_every=10, threads_per_node=4)
+# the sharded paths: the PIC configuration over 8 shards of one card (the
+# slabs' default capacity, then the run's tight one), the simulator path
+# over 8 shards, the fleet over 8
+SHARDED_PIC = dict(sharded_replay=True, replay_shards=8)
+SHARDED_PIC_KERNELS = ("histogram", "pic_push", "scatter_dest")
+SHARDED_SIM_KERNELS = ("histogram",)          # K4: segment sums
+SHARDED_EXCHANGE_KERNELS = ("scatter_dest",)
+SHARDED_FLEET_KERNELS = ("histogram", "scatter_dest")
+PIC_FIELDS = ("max_avg", "ext_bytes", "int_bytes", "migrations",
+              "migrated_bytes", "lb_steps", "final_x", "final_y")
+SERIES_FIELDS = ("max_avg", "ext_int", "migrations", "lb_fired",
+                 "max_load", "migrated_load", "final_assignment")
+SHARDED_SIM_SHARDS = 8
+FLEET_SHARDS = 8
+# resilience: one die, one slow, one recover on a reduced series (4 shards
+# of 16 nodes) and a reduced sharded PIC run (4 shards of 4 PEs; cpu_parity's
+# configuration, whose particles the card pushes into the CPU's chares);
+# the checkpointed replay's cadence and injected failures
+RESIL_SIM = dict(scenario=dict(grid=32, num_nodes=16), steps=24, lb_every=4,
+                 strategy_kwargs={"k": 3}, shards=4,
+                 events=((6, 1, "die"), (9, 2, "slow"), (14, 1, "recover")),
+                 every=5, fail_at=(1, 3))
+RESIL_PIC = dict(L=100, n_particles=4000, steps=40, cx=8, cy=8, num_pes=4,
+                 lb_every=10, strategy="diff-comm", shards=4,
+                 events=((12, 3, "die"), (18, 1, "slow"), (26, 3, "recover")))
+# the exchange alone: 2^24 items over 8 shards and 8192 nodes
+EXCHANGE = dict(n=1 << 24, shards=8, nodes=8192)
+# Fig 5 with the sharded planner as well, over 4 shards (dividing every PE
+# count of the figure)
+FIG5_SHARDED = dict(sharded=True, shards=4)
+RESULTS: dict = {}   # single-device results the sharded phases are held to
+SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
 
 
 def fail(msg: str):
@@ -211,6 +261,25 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """``(fn(), ms)``: one call timed by CUDA events (on the CPU, by the
+    host clock) — for plain versions too slow to repeat."""
+    import torch
+
+    if DEV != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -491,6 +560,7 @@ def sim_path():
           f"{[float(res.ext_int[t]) for t in fired]} vs "
           f"{[float(none.ext_int[t]) for t in fired]}; moved "
           f"{[float(res.migrations[t]) for t in fired]} of the objects")
+    RESULTS["sim"] = res
     return counts, evolve(problem, fired[0])
 
 
@@ -1199,6 +1269,7 @@ def fleet_path():
               f"{prof['device_busy_ms']:.1f} ms, idle share "
               f"{prof['idle_share']:.4f}; top device time: {top}")
     fleet_telemetry(w, res)
+    RESULTS["fleet"] = res
     return counts
 
 
@@ -1508,6 +1579,429 @@ def device_ms(fn, reps: int = 20) -> float:
     us = sum(e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == DeviceType.CUDA and "_kernel" in e.name)
     return us / 1e3 / reps
+
+
+# ------------------------------------------------------ sharded paths --
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _equal_fields(got, want, fields, what):
+    import numpy as np
+
+    for f in fields:
+        check(np.array_equal(np.asarray(getattr(got, f)),
+                             np.asarray(getattr(want, f))),
+              f"{what}: {f} differs")
+
+
+def sharded_pic(single):
+    """The PIC configuration with ``sharded_replay=True`` over
+    ``SHARDED_PIC["replay_shards"]`` shards: at the default capacity (the
+    worst case, n a shard) with the launch counts set to 0 just before and
+    read just after, then at the tight capacity of its own run (the most
+    slots a shard held), then that again under the profiler for the idle
+    share; each equal to the single-device PIC run ``single`` in the eight
+    fields.  Returns the launch counts of the first run."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.pic import driver
+
+    cfg = dict(PIC, **SHARDED_PIC)
+    D, T = cfg["replay_shards"], cfg["steps"]
+    _sync()
+    kernels.reset_launch_counts()
+    res = driver.run(driver.PICConfig(**cfg, device=DEV))
+    counts = kernels.launch_counts()
+    for name in SHARDED_PIC_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "sharded PIC path")
+    _equal_fields(res, single, PIC_FIELDS, "sharded PIC (default capacity)")
+    fired = int(res.lb_steps.sum())
+    cap = int(res.shard_counts.max())
+    tight = driver.run(driver.PICConfig(**cfg, replay_capacity=cap,
+                                        device=DEV))
+    _equal_fields(tight, single, PIC_FIELDS, "sharded PIC (tight capacity)")
+    rate = {"default": T / res.wall_seconds, "tight": T / tight.wall_seconds}
+    SHARDED["PIC"] = dict(
+        shards=D, capacity_default=cfg["n_particles"], capacity_tight=cap,
+        steps_per_s=rate, exchanges=fired, launches=counts,
+        k3_launches_per_exchange=counts["scatter_dest"] / max(fired, 1),
+        k4_launches_per_step=counts["histogram"] / T,
+        k5_launches_per_step=counts["pic_push"] / T)
+    print(f"sharded PIC path: {cfg['n_particles']} particles over {D} "
+          f"shards, {T} steps, equal to the single-device run in "
+          f"{PIC_FIELDS}; default capacity {cfg['n_particles']} a shard "
+          f"{rate['default']:.3f} steps/s, tight capacity {cap} "
+          f"{rate['tight']:.3f} steps/s (single-device "
+          f"{T / single.wall_seconds:.3f}); {fired} exchanges, K3 "
+          f"{counts['scatter_dest']} launches "
+          f"({SHARDED['PIC']['k3_launches_per_exchange']:.2f} an exchange),"
+          f" K4 {counts['histogram']}, K5 {counts['pic_push']}; launches "
+          f"{counts}")
+    if DEV == "cuda":
+        from benchmarks_torch.serve_replay_profile import profile_replay
+
+        _, prof = profile_replay(lambda: driver.run(driver.PICConfig(
+            **cfg, replay_capacity=cap, device=DEV)), start="pic_push")
+        top = ", ".join(f"{r['name'][:40]} {r['device_ms']:.3f} ms "
+                        f"x{r['count']}" for r in prof["kernels"][:8])
+        SHARDED["PIC"].update(idle_share=prof["idle_share"],
+                              device_busy_ms=prof["device_busy_ms"],
+                              loop_ms=prof["loop_ms"])
+        print(f"sharded PIC (tight capacity) under the profiler: step loop "
+              f"{prof['loop_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle share "
+              f"{prof['idle_share']:.4f}; top device time: {top}")
+    return counts
+
+
+def sharded_series(single):
+    """The simulator path's replay over ``SHARDED_SIM_SHARDS`` shards
+    (launch counts set to 0 just before and read just after): the fire
+    steps, max/avg at the fired steps and the final assignment's SHA-256
+    equal the single-device replay ``single``'s."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.sim import scenarios, simulator
+
+    problem, evolve = scenarios.get("stencil-wave").instantiate(
+        device=DEV, **SIM_SCENARIO)
+    _sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulator.run_series_sharded(problem, evolve, **SIM,
+                                       num_shards=SHARDED_SIM_SHARDS)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    fired = np.flatnonzero(res.lb_fired).tolist()
+    want = np.flatnonzero(single.lb_fired).tolist()
+    check(fired == want, f"sharded series fired at {fired}, not {want}")
+    check(np.array_equal(res.max_avg[fired], single.max_avg[fired]),
+          "sharded series: max/avg at the fired steps differs")
+    check(_sha(res.final_assignment) == _sha(single.final_assignment),
+          "sharded series: final assignment differs")
+    for name in SHARDED_SIM_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "sharded series path")
+    SHARDED["series"] = dict(shards=SHARDED_SIM_SHARDS, wall_seconds=wall,
+                             loop_seconds=res.wall_seconds,
+                             plan_seconds=res.plan_seconds,
+                             single_plan_seconds=float(
+                                 single.plan_step_seconds.sum()),
+                             launches=counts)
+    print(f"sharded series: {SIM_SCENARIO['num_nodes']} nodes over "
+          f"{SHARDED_SIM_SHARDS} shards, {SIM['steps']} steps in "
+          f"{wall:.3f} s end to end ({res.wall_seconds:.3f} s loop, plans "
+          f"{res.plan_seconds:.3f} s; single-device plans "
+          f"{float(single.plan_step_seconds.sum()):.3f} s); fired {fired}, "
+          f"max/avg there {[float(res.max_avg[t]) for t in fired]}, final "
+          f"assignment sha256 {_sha(res.final_assignment)[:16]} (equal); "
+          f"launches {counts}")
+
+
+def resilience_phase():
+    """A fault schedule (die, slow, recover) on a reduced sharded series
+    and a reduced sharded PIC run, on the card and on the CPU: equal fire
+    steps, plan_rejected, migrations and final assignments; no object on
+    the dead node after the evacuation fire; objects and particles
+    conserved; the checkpointed replay with injected failures equal to the
+    uninterrupted one."""
+    import numpy as np
+    from repro_torch.pic import driver
+    from repro_torch.runtime import resilience as rz
+    from repro_torch.sim import scenarios, simulator
+
+    c = RESIL_SIM
+    fs = rz.FaultSchedule(events=c["events"])
+    kw = dict(steps=c["steps"], lb_every=c["lb_every"],
+              strategy="diff-comm", strategy_kwargs=c["strategy_kwargs"],
+              num_shards=c["shards"], faults=fs)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        p, ev = scenarios.get("stencil-wave").instantiate(device=dev,
+                                                          **c["scenario"])
+        runs[dev] = simulator.run_series_sharded(p, ev, **kw)
+    g, cpu = runs[DEV], runs["cpu"]
+    _equal_fields(g, cpu, ("lb_fired", "plan_rejected", "migrations",
+                           "final_assignment"), "resilient series, card "
+                  "against CPU")
+    N = c["scenario"]["grid"] ** 2
+    P = c["scenario"]["num_nodes"]
+    fa = g.final_assignment
+    check(fa.shape == (N,) and fa.min() >= 0 and fa.max() < P,
+          "resilient series: objects not conserved")
+    die_t, dead = [(t, d) for t, d, k in c["events"] if k == "die"][0]
+    rec_t = [t for t, d, k in c["events"] if k == "recover" and d == dead]
+    rpd = P // c["shards"]
+    check(g.lb_fired[die_t] == 1.0, "no evacuation fire at the death")
+    p, ev = scenarios.get("stencil-wave").instantiate(device=DEV,
+                                                      **c["scenario"])
+    short = simulator.run_series_sharded(p, ev, **dict(kw, steps=rec_t[0]))
+    on_dead = np.isin(short.final_assignment,
+                      np.arange(dead * rpd, (dead + 1) * rpd))
+    check(not on_dead.any(), f"{int(on_dead.sum())} objects left on the "
+          "dead shard's nodes after the evacuation fire")
+    ck = rz.run_series_checkpointed(p, ev, checkpoint_every=c["every"],
+                                    fail_at=c["fail_at"], **kw)
+    _equal_fields(ck, g, SERIES_FIELDS + ("plan_rejected",),
+                  "checkpointed replay against the uninterrupted one")
+    print(f"resilient series (faults {c['events']}, {c['shards']} shards): "
+          f"card == cpu, fired {np.flatnonzero(g.lb_fired).tolist()}, "
+          f"rejected {int(g.plan_rejected.sum())}; no object on shard "
+          f"{dead} after the evacuation; checkpointed (every {c['every']}, "
+          f"failures before chunks {c['fail_at']}) == uninterrupted")
+
+    pc = RESIL_PIC
+    pfs = rz.FaultSchedule(events=pc["events"])
+    base = {k: v for k, v in pc.items() if k not in ("events", "shards")}
+    runs = {dev: driver.run(driver.PICConfig(
+        **base, sharded_replay=True, replay_shards=pc["shards"],
+        faults=pfs, device=dev)) for dev in (DEV, "cpu")}
+    g, cpu = runs[DEV], runs["cpu"]
+    _equal_fields(g, cpu, ("lb_steps", "plan_rejected", "migrations",
+                           "migrated_bytes"), "resilient PIC, card against "
+                  "CPU")
+    err = max(np.abs(g.final_x - cpu.final_x).max(),
+              np.abs(g.final_y - cpu.final_y).max())
+    check(err <= 1e-3, f"resilient PIC: positions differ by {err}")
+    none = driver.run(driver.PICConfig(**dict(
+        base, strategy="none", strategy_kwargs=None), device=DEV))
+    check(np.array_equal(g.final_x, none.final_x)
+          and np.array_equal(g.final_y, none.final_y),
+          "resilient PIC: particles not conserved through the evacuation")
+    die_p = [t for t, d, k in pc["events"] if k == "die"][0]
+    check(g.lb_steps[die_p] == 1.0, "resilient PIC: no evacuation fire")
+    SHARDED["resilience"] = dict(
+        pic_fired=np.flatnonzero(g.lb_steps).tolist(),
+        pic_rejected=int(g.plan_rejected.sum()))
+    print(f"resilient PIC (faults {pc['events']}, {pc['shards']} shards): "
+          f"card == cpu in fire steps, rejections and migrations "
+          f"(positions within {err:.3g}); every particle kept")
+
+
+def exchange_phase():
+    """``migrate_sharded`` alone over ``EXCHANGE["n"]`` items, D shards,
+    C nodes (launch counts set to 0 just before and read just after):
+    strict mode equal to ``apply_manifest``'s layout; spill mode keeps
+    every item, and its layout and deferred count equal the CPU's; K3's
+    time at one hop's input."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed.mesh import ShardMesh
+    from repro_torch.kernels.migrate import ops as mops
+    from repro_torch.runtime import migrate as rt_migrate
+
+    n, D, C = EXCHANGE["n"], EXCHANGE["shards"], EXCHANGE["nodes"]
+    rng = np.random.default_rng(0)
+    owner_np = rng.integers(0, C, n).astype(np.int32)
+    owner = torch.as_tensor(owner_np, device=DEV)
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    x = torch.as_tensor(rng.random(n).astype(np.float32), device=DEV)
+    mesh = ShardMesh(D, DEV)
+    _sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, (ido, xo), cnt = rt_migrate.migrate_sharded(
+        owner, (ids, x), num_nodes=C, mesh=mesh)
+    _sync()
+    strict_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for name in SHARDED_EXCHANGE_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched by the "
+              "sharded exchange")
+    cap = out.shape[0] // D
+    keep = torch.cat([torch.arange(d * cap, d * cap + int(c), device=DEV)
+                      for d, c in enumerate(cnt.tolist())])
+    (ref_ids, ref_x), _ = rt_migrate.migrate(owner, owner, (ids, x),
+                                             num_nodes=C)
+    check(torch.equal(ido[keep], ref_ids) and torch.equal(xo[keep], ref_x)
+          and torch.equal(out[keep], owner[ref_ids.long()]),
+          "strict sharded exchange differs from apply_manifest's layout")
+    spill_cap = n // D
+    got = rt_migrate.migrate_sharded(owner, (ids,), num_nodes=C, mesh=mesh,
+                                     capacity=spill_cap, on_overflow="spill")
+    cpu = rt_migrate.migrate_sharded(
+        owner.cpu(), (ids.cpu(),), num_nodes=C,
+        mesh=ShardMesh(D, "cpu"), capacity=spill_cap, on_overflow="spill")
+    gk = torch.cat([got[1][0][d * spill_cap:d * spill_cap + int(c)]
+                    for d, c in enumerate(got[2].tolist())])
+    check(torch.equal(torch.sort(gk).values, ids),
+          "spill exchange did not keep every item exactly once")
+    check(got[3] == cpu[3] and got[3] > 0, f"spill deferred {got[3]} on the "
+          f"card, {cpu[3]} on the CPU")
+    check(torch.equal(got[1][0].cpu(), cpu[1][0])
+          and torch.equal(got[2].cpu(), cpu[2]),
+          "spill layout differs between card and CPU")
+    # one hop's K3 input: each shard's accepted owners, the rest padding
+    hop = torch.where(torch.div(owner, C // D, rounding_mode="floor")
+                      == torch.arange(n, device=DEV) // (n // D), owner, C)
+    k3_ms = k3_dev = None
+    if DEV == "cuda":
+        k3_ms = time_ms(lambda: mops.bucket_ranks(hop, C=C), reps=10)
+        k3_dev = device_ms(lambda: mops.bucket_ranks(hop, C=C), reps=5)
+    SHARDED["exchange"] = dict(
+        n=n, shards=D, nodes=C, capacity=cap, strict_s=strict_s,
+        launches=counts, k3_hop_ms=k3_ms, k3_hop_device_ms=k3_dev,
+        k3_form=mops.scatter_form(n, C), deferred=int(got[3]))
+    print(f"sharded exchange: {n} items, {D} shards, {C} nodes, planned "
+          f"capacity {cap}: strict == apply_manifest in {strict_s:.3f} s "
+          f"({counts['scatter_dest']} K3 launches, "
+          f"{mops.scatter_form(n, C)} form); spill at {spill_cap} a shard "
+          f"kept every item, deferred {got[3]} (== cpu); K3 a hop "
+          f"{k3_ms} ms ({k3_dev} ms device)")
+
+
+def sharded_fleet(single):
+    """The fleet replay with ``num_shards`` (launch counts set to 0 just
+    before and read just after): fires, moved sessions, moved KV and the
+    final placement equal the single-device fleet ``single``'s."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serve import replay as sr
+
+    w = sr.ServeWorkload(**FLEET)
+    _sync()
+    kernels.reset_launch_counts()
+    res = sr.run_serve_replay(w, **FLEET_RUN, num_shards=FLEET_SHARDS,
+                              device=DEV)
+    counts = kernels.launch_counts()
+    check(res.sharded, "the fleet did not take the sharded branch")
+    for name in SHARDED_FLEET_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "sharded fleet")
+    for f in ("lb_fired", "moved_sessions", "moved_kv_bytes", "max_avg"):
+        check(np.array_equal(getattr(res, f), getattr(single, f)),
+              f"sharded fleet: {f} differs from the single-device fleet")
+    check(np.array_equal(res.final_replica_by_uid,
+                         single.final_replica_by_uid),
+          "sharded fleet: final placement differs")
+    SHARDED["fleet"] = dict(shards=FLEET_SHARDS, wall_seconds=
+                            res.wall_seconds, launches=counts)
+    print(f"sharded fleet: {FLEET['num_sessions']} sessions, "
+          f"{FLEET_SHARDS} shards, {res.wall_seconds:.3f} s: fired "
+          f"{np.flatnonzero(res.lb_fired).tolist()}, moved "
+          f"{int(res.moved_sessions.sum())} sessions and "
+          f"{res.total_moved_kv:.1f} KV bytes, equal to the single-device "
+          f"fleet; launches {counts}")
+
+
+def fig5_sharded():
+    """Fig 5 with the sharded planner as well: its assertions hold and
+    the sharded planner's runs equal the single-device planner's."""
+    from benchmarks_torch import fig5_scaling
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fig5_scaling.run(device=DEV, **PAPER_HOST["fig5_scaling"],
+                           **FIG5_SHARDED)
+    check(out["sharded_planner"], "fig5 did not plan with the sharded "
+          "engine")
+    SHARDED["fig5"] = {p: dict(
+        sharded_lb_s=out[p]["diff-comm-sharded"]["lb_seconds"],
+        single_lb_s=out[p]["diff-comm"]["lb_seconds"])
+        for p in out if isinstance(p, int)}
+    print(f"fig5 with the sharded planner: {time.perf_counter() - t0:.3f} "
+          f"s, plans equal at every scale; launches "
+          f"{kernels.launch_counts()}")
+
+
+def sharded_kernel_checks():
+    """K3, K4 and K5 at the shapes the sharded PIC path gives them (D
+    slabs of the default capacity, padding included: K5 over every slot,
+    K4 over D·C chare buckets, K3 over one hop's accepted owners with C =
+    P) against their plain versions, timed; returns one dict a kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.histogram import ops as hops
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.migrate import ops as mops
+    from repro_torch.kernels.migrate.ref import bucket_ranks_ref
+    from repro_torch.kernels.pic_push import ops as pops
+    from repro_torch.kernels.pic_push.ref import pic_push_ref
+    from repro_torch.pic import chares
+    from repro_torch.pic.grid import alternating_grid
+    from repro_torch.pic.particles import initialize
+
+    cfg = dict(PIC, **SHARDED_PIC)
+    L, N, C = cfg["L"], cfg["n_particles"], cfg["cx"] * cfg["cy"]
+    D, P = cfg["replay_shards"], cfg["num_pes"]
+    cap, per = N, N // D
+    p = initialize(cfg["mode"], L, N, k=2, vy0=1.0, rho=cfg["rho"], seed=0)
+    slabs = []
+    for a in (p.x, p.y, p.vx, p.vy, p.q):
+        s = torch.zeros((D, cap), dtype=torch.float32, device=DEV)
+        s[:, :per] = torch.as_tensor(a, device=DEV).reshape(D, per)
+        slabs.append(s.reshape(-1))
+    grid = torch.as_tensor(alternating_grid(L), device=DEV)
+    out = {}
+    got = pops.pic_push(grid, *slabs, L=L)
+    want, plain = timed_once(lambda: pic_push_ref(grid, *slabs, L=L))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        sp = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) \
+            - b.abs()
+        check(((a - b).abs() <= sp).all(),
+              "pic_push (sharded slabs): more than 1 ulp off")
+    n = D * cap
+    out["pic_push"] = dict(
+        shape=f"{D} slabs x {cap} slots", max_abs_err=err,
+        ms=time_ms(lambda: pops.pic_push(grid, *slabs, L=L), reps=5),
+        plain_ms=plain,
+        bound_ms=bound_ms(9 * 4 * n + 4 * L * L, 95 * n)[0])
+    del want
+    x, y = got[0].reshape(D, cap), got[1].reshape(D, cap)
+    live = (torch.arange(cap, device=DEV)[None, :] < per).expand(D, cap)
+    ch_ = chares.chare_of_device(x, y, L, cfg["cx"], cfg["cy"])
+    me = torch.arange(D, device=DEV)[:, None]
+    ids = (me * C + ch_).reshape(-1)
+    w = live.to(torch.float32).reshape(-1)
+    g4 = hops.histogram(ids, w, C=D * C)
+    w4, plain4 = timed_once(lambda: histogram_ref(ids, w, C=D * C))
+    err4 = float((g4 - w4).abs().max())
+    check(err4 == 0.0, f"histogram (sharded slabs): off by {err4}")
+    out["histogram"] = dict(
+        shape=f"{n} ids, C={D * C}", max_abs_err=err4,
+        form=hops.histogram_plan(n, D * C, torch.cuda.get_device_properties(
+            0).multi_processor_count)[0] if DEV == "cuda" else "plain",
+        ms=time_ms(lambda: hops.histogram(ids, w, C=D * C), reps=5),
+        plain_ms=plain4,
+        bound_ms=bound_ms(8 * n + 4 * D * C, n)[0],
+        library_ms=time_ms(lambda: torch.bincount(ids, weights=w,
+                                                  minlength=D * C), reps=5))
+    amap = torch.as_tensor(np.random.default_rng(0).integers(0, P, C),
+                           dtype=torch.int32, device=DEV)
+    owner = torch.where(live, amap[ch_.long()], P)
+    rpd = P // D
+    hop = torch.where(torch.div(owner, rpd, rounding_mode="floor") == me,
+                      owner, P).reshape(-1)
+    g3 = mops.bucket_ranks(hop, C=P)
+    w3, plain3 = timed_once(lambda: bucket_ranks_ref(hop, C=P))
+    check(torch.equal(g3[0], w3[0]) and torch.equal(g3[1], w3[1]),
+          "bucket_ranks (one hop of the sharded exchange) differs from the "
+          "plain version")
+    out["scatter_dest"] = dict(
+        shape=f"{n} ids, C={P} (one ring hop)", max_abs_err=0.0,
+        form=mops.scatter_form(n, P),
+        ms=time_ms(lambda: mops.bucket_ranks(hop, C=P), reps=5),
+        plain_ms=plain3,
+        bound_ms=bound_ms(8 * n + 4 * (2 * P + 1), 6 * n)[0],
+        library_ms=time_ms(lambda: torch.argsort(hop, stable=True), reps=5))
+    for name, r in out.items():
+        print(f"{name} at the sharded PIC path's shape ({r['shape']}): "
+              f"max_abs_err {r['max_abs_err']}, kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms"
+              + (f", library {r['library_ms']:.4f} ms"
+                 if "library_ms" in r else ""))
+    return out
 
 
 # -------------------------------------------------------------- kernels --
@@ -1861,6 +2355,13 @@ def main() -> int:
     serve_bench_gates()
     fleet_cpu_parity()
     two_level(snap)
+    sharded_counts = sharded_pic(pic_diff)
+    sharded_series(RESULTS["sim"])
+    resilience_phase()
+    exchange_phase()
+    sharded_fleet(RESULTS["fleet"])
+    fig5_sharded()
+    sharded_k = sharded_kernel_checks()
     K3_LAUNCHES.update(PIC=counts["scatter_dest"],
                        serving=serve_counts["scatter_dest"],
                        serving_spill=spill_counts["scatter_dest"],
@@ -1881,6 +2382,13 @@ def main() -> int:
     rows = kernel_rows(counts, sim_graph, spill)
     rows.append(flash_row(counts))
     check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")
+    # K3, K4 and K5 at the sharded PIC path's shapes, with their launches
+    # on that path's run
+    for r in rows:
+        if r["name"] in sharded_k:
+            r["sharded_pic"] = dict(sharded_k[r["name"]],
+                                    launches=sharded_counts[r["name"]])
+    print(json.dumps({"sharded": SHARDED}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@ caps, device)`` and exposes
     diffusion_nsweeps`` (on a card the fused or the streaming CUDA kernel
     by ``sweep_impl``, on the CPU the plain chunk), or, with an explicit
     ``step_fn``, that sweep inside the plain chunk body;
+  * ``plan_health_fn(problem, alive, speed)`` — the plan on a degraded
+    mesh (dead nodes' objects re-homed, no flow toward them; the resilient
+    replays take it); ``alive=None`` is ``plan_fn``;
   * ``plan(problem) -> LBPlan`` — eager convenience with timing and the
     ``info`` dict;
   * ``plan_batch_fn`` / ``plan_batch`` — one plan per problem of a batch
@@ -93,6 +96,32 @@ class LBEngine:
     def plan_fn(self, problem: comm_graph.LBProblem
                 ) -> Tuple[torch.Tensor, PlanStats]:
         """Neighbor selection → virtual balance → object selection."""
+        return self._plan_stages(problem, None)
+
+    def plan_health_fn(self, problem: comm_graph.LBProblem, alive,
+                       speed=None) -> Tuple[torch.Tensor, PlanStats]:
+        """Health-masked :meth:`plan_fn` for a degraded mesh.
+
+        ``alive`` is a (P,) bool node mask, ``speed`` an optional (P,)
+        f32 speed in (0, 1].  Dead nodes' objects are re-homed onto their
+        strongest alive communication partner and slowed nodes' loads
+        scaled by the reciprocal speed (``runtime.resilience.
+        degrade_problem``), and the stage-1 preference rows and columns
+        of dead nodes are zeroed, so no flow or object targets a dead
+        node.  ``alive=None`` is exactly :meth:`plan_fn`."""
+        if alive is None:
+            return self._plan_stages(problem, None)
+        from repro_torch.runtime import resilience  # runtime imports core
+
+        if problem.device != self.device:
+            problem = problem.to(self.device)
+        problem = resilience.degrade_problem(problem, alive, speed)
+        return self._plan_stages(problem, torch.as_tensor(
+            alive, device=self.device).bool())
+
+    def _plan_stages(self, problem: comm_graph.LBProblem, alive
+                     ) -> Tuple[torch.Tensor, PlanStats]:
+        """The three stages; ``alive=None`` adds no operation."""
         if problem.device != self.device:
             problem = problem.to(self.device)
         # stage 1: neighbor selection
@@ -103,6 +132,9 @@ class LBEngine:
                 raise ValueError("coordinate variant needs coords")
             pref = ns.coordinate_preference(osel.centroids(
                 problem.coords, problem.assignment, problem.num_nodes))
+        if alive is not None:
+            # zeroed rows and columns drop dead nodes from the candidates
+            pref = torch.where(alive[:, None] & alive[None, :], pref, 0.0)
         nres = ns.select_neighbors(pref, k=self.k,
                                    max_rounds=self.max_rounds)
         # stage 2: virtual load balancing

@@ -86,21 +86,35 @@ def neighborhood_residual(x, nbr_idx, nbr_mask):
 
 
 def sweep_chunk_body(sweep, nbr_idx, nbr_mask, rev, alpha, single_hop,
-                     tol, max_iters):
+                     tol, max_iters, *, residual_fn=None, sum_fn=None,
+                     mean_abs_fn=None):
     """``carry -> carry`` applying one masked early-exit ``sweep`` (the
     :func:`reference_sweep` signature) to
     ``carry = (x, own, flow, it, res, stall)``.  The activity predicate is
     the outer loop's, checked *before* the sweep; once false, the carry
     passes through unchanged, so S masked sweeps equal S steps of a
-    per-sweep loop."""
+    per-sweep loop.
+
+    The three reductions default to the single-device forms; the sharded
+    planner (``distributed.lb_shard``) passes its own, which reduce over
+    every shard's rows, so the early-exit and stall decisions are made on
+    the same quantities."""
+    if residual_fn is None:
+        residual_fn = lambda x2: neighborhood_residual(  # noqa: E731
+            x2, nbr_idx, nbr_mask)
+    if sum_fn is None:
+        sum_fn = lambda v: v.sum()                       # noqa: E731
+    if mean_abs_fn is None:
+        mean_abs_fn = lambda x2: x2.abs().mean()         # noqa: E731
+
     def body(carry):
         x, own, flow, it, res, stall = carry
         active = (it < max_iters) & (res > tol) & (stall < 3)
         x2, own2, df = sweep(x, own, nbr_idx, nbr_mask, rev, alpha,
                              single_hop)
-        moved = (x2 - x).abs().sum()
-        stalled = moved <= 1e-6 * (x2.abs().mean() + 1e-30)
-        res2 = neighborhood_residual(x2, nbr_idx, nbr_mask)
+        moved = sum_fn((x2 - x).abs())
+        stalled = moved <= 1e-6 * (mean_abs_fn(x2) + 1e-30)
+        res2 = residual_fn(x2)
         return (torch.where(active, x2, x), torch.where(active, own2, own),
                 torch.where(active, flow + df, flow),
                 torch.where(active, it + 1, it),

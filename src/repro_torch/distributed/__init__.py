@@ -1,0 +1,4 @@
+"""Sharded planning and replay (counterpart of ``repro.distributed``'s
+mesh modules): :mod:`.mesh` (the D-shard mesh on one device),
+:mod:`.lb_shard` (the mesh-sharded planner) and :mod:`.replay_shard` (the
+sharded series, PIC and serving replays)."""

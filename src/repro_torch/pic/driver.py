@@ -38,9 +38,13 @@ in ``PICResult.thread_max_avg``.  ``telemetry`` records the StepRecord
 ring of ``obs.telemetry`` into ``PICResult.telemetry``; ``off`` and
 ``None`` add nothing to the loop.
 
-The sharded replay and its fault injection belong to the sharded slice
-of the port (``sharded_replay`` and ``faults`` raise
-``NotImplementedError``).
+``sharded_replay=True`` runs the sharded driver
+(``distributed.replay_shard.run_pic_sharded``): the particles in D
+per-shard slabs of ``replay_capacity`` slots on one device, every fired
+exchange a ring all-to-all, bit for bit this loop's result.  It takes
+``replay_shards``, ``replay_capacity``, ``faults`` (a
+``runtime.resilience.FaultSchedule``) and ``on_overflow`` (``"strict"``
+or ``"spill"``); the last two need it.
 """
 from __future__ import annotations
 
@@ -96,9 +100,19 @@ class PICConfig:
     # StepRecord telemetry (obs/telemetry.py): a TelemetryConfig, a level
     # name or None; "off" / None add nothing
     telemetry: Optional[object] = None
-    # the sharded slice: each raises NotImplementedError when set
+    # the sharded replay (distributed/replay_shard.py): the particles in
+    # replay_shards slabs (None: one shard a real device dividing
+    # n_particles and num_pes) of replay_capacity slots (None: the worst
+    # case n_particles; too few raise ValueError after the run)
     sharded_replay: bool = False
+    replay_shards: Optional[int] = None
+    replay_capacity: Optional[int] = None
+    # resilience (sharded replay only; runtime/resilience.py): a
+    # FaultSchedule of die/slow/recover shard events, and the exchange's
+    # mode when a plan exceeds replay_capacity ("strict" fails loud,
+    # "spill" keeps overflow particles on their shard; PICResult.deferred)
     faults: Optional[object] = None
+    on_overflow: str = "strict"
 
 
 @dataclasses.dataclass
@@ -135,6 +149,13 @@ class PICResult:
     thread_max_avg: Optional[np.ndarray] = None
     # StepRecord ring snapshot when PICConfig.telemetry was enabled
     telemetry: Optional[obs_telemetry.TelemetrySnapshot] = None
+    # sharded replay with faults or spill only (else None): (T,) 0/1
+    # fired plans the guardrail rejected, (T,) particles deferred
+    plan_rejected: Optional[np.ndarray] = None
+    deferred: Optional[np.ndarray] = None
+    # sharded replay only: (T, D) slots each shard's slab held after each
+    # step (its max is the tight replay_capacity of the run)
+    shard_counts: Optional[np.ndarray] = None
 
     def summary(self) -> Dict[str, float]:
         # mean ext/int ratio; all-external steps use the metrics sentinel
@@ -161,25 +182,25 @@ def _lb_amort(cfg: PICConfig, trig) -> int:
     return 1
 
 
-def _check_slice(cfg: PICConfig) -> None:
-    later = [("sharded_replay", cfg.sharded_replay,
-              "sharded planning and replay"),
-             ("faults", cfg.faults is not None,
-              "sharded planning and replay")]
-    for field, on, slice_name in later:
-        if on:
-            raise NotImplementedError(
-                f"PICConfig.{field} belongs to the {slice_name} slice of "
-                "the port, not yet ported")
-
-
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
 def run(cfg: PICConfig, cost: CostModel = CostModel()) -> PICResult:
-    _check_slice(cfg)
+    if cfg.sharded_replay:
+        from repro_torch.distributed import replay_shard
+
+        return replay_shard.run_pic_sharded(cfg, cost)
+    if cfg.faults is not None and not getattr(cfg.faults, "empty", False):
+        raise ValueError(
+            "fault injection (PICConfig.faults) is a sharded-replay "
+            "feature; set sharded_replay=True")
+    if cfg.on_overflow != "strict":
+        raise ValueError(
+            "on_overflow='spill' degrades the sharded replay exchange; "
+            "set sharded_replay=True (the single-device paths have no "
+            "capacity to overflow)")
     tel = obs_telemetry.enabled_or_none(cfg.telemetry)
     T = cfg.threads_per_node
     dev = resolve_device(cfg.device)

@@ -66,6 +66,23 @@ def load_stats(loads, assignment, num_nodes: int):
     return nl.max(), total / num_nodes, total
 
 
+def load_stats_masked(loads, assignment, num_nodes: int, alive,
+                      speed=None):
+    """Health-masked trigger statistics for a degraded mesh (the
+    resilient replays): per-node loads scaled by the reciprocal node
+    ``speed``, the max over alive nodes only, the average over the alive
+    count; ``total`` stays the true load sum (in the JAX package's CPU
+    order, as :func:`load_stats` adds it)."""
+    nl = segment_sum(loads.to(torch.float32), assignment, num_nodes)
+    alive = torch.as_tensor(alive, device=nl.device).bool()
+    eff = nl if speed is None else nl / torch.clamp(
+        torch.as_tensor(speed, dtype=torch.float32, device=nl.device),
+        min=1e-6)
+    eff = torch.where(alive, eff, 0.0)
+    cnt = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
+    return eff.max(), ordered_sum(eff) / cnt, ordered_sum(nl)
+
+
 @dataclasses.dataclass(frozen=True)
 class EveryTrigger:
     """Fixed-period trigger — the ``lb_every`` cadence."""

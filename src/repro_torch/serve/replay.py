@@ -36,9 +36,11 @@ Workloads: :class:`ServeWorkload` (synthetic bursty multi-turn traffic;
 its per-session tables come from ``numpy.random.default_rng``, as in the
 JAX package, so loads are exact) and :class:`TraceWorkload` (a recorded
 ``(T, S)`` load table, e.g. from :func:`record_trace`).  The
-multi-replica-group path (``num_shards`` / ``mesh``: fired exchanges as
-ring all-to-alls) belongs to the sharded slice of the port and raises
-``NotImplementedError``.
+multi-replica-group path (``num_shards`` / ``mesh``) runs each fired
+exchange as a ring all-to-all over a ``distributed.mesh.ShardMesh``
+(``runtime.migrate.migrate_sharded``, strict mode), whose concatenated
+per-shard valid prefixes are the single-device bucketed slabs bit for bit;
+it takes the host loop, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -233,10 +235,11 @@ def _locality(group, loads_c, replica) -> torch.Tensor:
 
 
 def _make_parts(workload, trig, plan, slot_capacity, R: int, lb_on: bool,
-                bytes_per_load: float):
+                bytes_per_load: float, mesh=None):
     """The step pieces both loops run: ``pre`` advances the workload and
     decides, ``plan_owner`` plans a fired tick (the spill clamp included),
-    ``fire`` executes it, ``post`` gives the tick's records."""
+    ``fire`` executes it (over ``mesh`` as a ring all-to-all when one is
+    given), ``post`` gives the tick's records."""
     is_every = isinstance(trig, rt_triggers.EveryTrigger)
 
     def pre(uid, kv, replica, tstate, t):
@@ -272,12 +275,30 @@ def _make_parts(workload, trig, plan, slot_capacity, R: int, lb_on: bool,
 
     def fire(uid, kv, replica, t):
         owner_new, deferred, sweeps = plan_owner(uid, replica, t)
+        if mesh is not None:
+            return fire_sharded(uid, kv, replica, owner_new) + (deferred,
+                                                                sweeps)
         (uid2, kv2), man = rt_migrate.build_and_apply(
             replica, owner_new, (uid, kv), num_nodes=R)
         # the moved volume reads the sizes in the pre-exchange slot order
         return (uid2, kv2, owner_new[man.order.long()],
                 man.moved_count.to(torch.float32), man.moved_sum(kv),
                 deferred, sweeps)
+
+    def fire_sharded(uid, kv, replica, owner_new):
+        moved = owner_new != replica
+        moved_kv = comm_graph.ordered_sum(torch.where(moved, kv, 0.0))
+        owner_out, (uid_p, kv_p), counts = rt_migrate.migrate_sharded(
+            owner_new, (uid, kv), num_nodes=R, mesh=mesh)
+        # strict layout contract: the concatenated valid prefixes are the
+        # single-device bucketed slabs
+        cap = owner_out.shape[0] // mesh.num_shards
+        cnt = counts.cpu().tolist()
+        keep = torch.cat([torch.arange(d * cap, d * cap + c,
+                                       device=uid.device)
+                          for d, c in enumerate(cnt)])
+        return (uid_p[keep], kv_p[keep], owner_out[keep],
+                moved.sum().to(torch.float32), moved_kv)
 
     def post(uid, kv, replica, tstate, do, moved_kv, t):
         if lb_on and not is_every:
@@ -318,12 +339,12 @@ def _sync(dev: torch.device) -> None:
 
 
 def _loop(workload, steps, strat, kw, trig, bpl, lb_on, slot_capacity,
-          dev, tel, device_resident: bool):
+          dev, tel, device_resident: bool, mesh=None):
     """One replay; ``device_resident`` keeps the records on the device
     until the end, else each tick's records are read to the host."""
     R = workload.num_replicas
     pre, fire, post = _make_parts(workload, trig, strat.bind(**kw),
-                                  slot_capacity, R, lb_on, bpl)
+                                  slot_capacity, R, lb_on, bpl, mesh)
     uid, kv, replica = _initial_state(workload, dev)
     tstate = trig.init_state(dev)
     obs_state = obs_telemetry.init_state(tel, R, dev) if tel else None
@@ -387,14 +408,23 @@ def run_serve_replay(
     ``runtime.triggers.resolve_for_strategy``.  ``slot_capacity`` must lie
     above ``S / R``, the initial per-replica count (``spill_owner`` needs
     every current count within the budget).  ``telemetry`` records the
-    StepRecord ring (``off`` / None add nothing).  ``num_shards`` / ``mesh``
-    (the multi-replica-group exchange) raise ``NotImplementedError``: they
-    belong to the sharded slice of the port."""
-    if mesh is not None or num_shards is not None:
-        raise NotImplementedError(
-            "run_serve_replay(num_shards=... / mesh=...) belongs to the "
-            "sharded planning and replay slice of the port, not yet ported")
+    StepRecord ring (``off`` / None add nothing).  ``num_shards`` /
+    ``mesh`` run the fired exchanges as ring all-to-alls over a
+    ``ShardMesh`` (bit for bit the single-device trajectory; S and R must
+    divide the shard count) in the host loop; ``scan=True`` with them
+    raises ``ValueError``."""
     dev = resolve_device(device)
+    sharded = mesh is not None or num_shards is not None
+    if sharded:
+        if scan:
+            raise ValueError(
+                "the sharded serving replay is a host-driven loop; "
+                "pass scan=False/None")
+        from repro_torch.distributed.mesh import resolve_mesh
+
+        mesh = resolve_mesh(mesh, num_shards, (workload.num_sessions,
+                                               workload.num_replicas), dev)
+        scan = False
     if isinstance(workload, TraceWorkload) and workload.table.device != dev:
         workload = workload.to(dev)
     strat, kw, trig, bpl, lb_on = _resolve(
@@ -412,7 +442,7 @@ def run_serve_replay(
     uid, kv, replica, recs, obs_state = _loop(
         workload, int(steps), strat, kw, trig, bpl, lb_on,
         None if slot_capacity is None else int(slot_capacity), dev, tel,
-        bool(scan))
+        bool(scan), mesh)
     final_uid = uid.cpu().numpy().astype(np.int32)
     final_replica = replica.cpu().numpy().astype(np.int32)
     final_kv = kv.cpu().numpy().astype(np.float32)
@@ -422,5 +452,5 @@ def run_serve_replay(
         moved_kv_bytes=recs[:, 3], prefix_local=recs[:, 4],
         deferred=recs[:, 5], occ_max=recs[:, 6],
         final_uid=final_uid, final_replica=final_replica, final_kv=final_kv,
-        scanned=bool(scan), sharded=False, wall_seconds=wall,
+        scanned=bool(scan), sharded=sharded, wall_seconds=wall,
         telemetry=(obs_telemetry.snapshot(obs_state, tel) if tel else None))

@@ -28,8 +28,9 @@ global PEs under the within-node LPT, ``core.hierarchical``) and
 
 ``run_series_batch`` replays B workloads at a common shape (e.g.
 ``scenarios.batch_instances``) under one fixed cadence; it takes neither
-knob, as in the JAX package.  ``run_series_sharded`` belongs to the
-sharded slice of the port and raises ``NotImplementedError``.
+knob, as in the JAX package.  ``run_series_sharded`` is the mesh-sharded
+sibling of the device-resident loop (``distributed.replay_shard``), bit
+for bit its result.
 """
 from __future__ import annotations
 
@@ -114,19 +115,14 @@ class SeriesResult:
     migrated_load: Optional[np.ndarray] = None  # (T,)
     # (N,) final object→node assignment after the last step
     final_assignment: Optional[np.ndarray] = None
-    # resilient sharded replay (a later slice): always None
+    # (T,) 0/1 fired plans the guardrail rejected; only the resilient
+    # sharded replay records it
     plan_rejected: Optional[np.ndarray] = None
     # StepRecord ring snapshot when an enabled telemetry config was passed
     telemetry: Optional[obs_telemetry.TelemetrySnapshot] = None
     # (T,) planning wall seconds of each fired step (0 elsewhere); the JAX
     # package's scanned replay cannot time a plan inside its scan
     plan_step_seconds: Optional[np.ndarray] = None
-
-
-def _later_slice(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} belongs to the {slice_name} slice of the port, not yet "
-        "ported")
 
 
 def run_series(
@@ -244,8 +240,13 @@ def run_series_batch(instances: Sequence, *, steps: int, lb_every: int,
 
 
 def run_series_sharded(initial, evolve, **kwargs):
-    """Mesh-sharded ``run_series``: the sharded replay slice."""
-    _later_slice("run_series_sharded", "sharded planning and replay")
+    """Mesh-sharded ``run_series``: evolve, trigger and metrics on the
+    problem, each fired plan's diffusion over a ``ShardMesh`` of
+    ``num_shards`` row blocks, bit for bit the device-resident loop.
+    Forwards to ``distributed.replay_shard.run_series_sharded``."""
+    from repro_torch.distributed import replay_shard
+
+    return replay_shard.run_series_sharded(initial, evolve, **kwargs)
 
 
 def _sync(device: torch.device) -> None:

@@ -92,16 +92,24 @@ def test_baseline_options_equal_jax(problems, fn, kw):
 
 
 def _jax_core_strategies():
-    """The JAX package's registry without the ``-sharded`` planners that
-    importing ``repro.distributed.lb_shard`` adds (the sharded slice)."""
-    return {n for n in j_engine.available() if not n.endswith("-sharded")}
+    """The JAX package's whole registry: its core strategies and the
+    ``-sharded`` planners that importing ``repro.distributed.lb_shard``
+    adds (the port's ``distributed.lb_shard`` adds them alike)."""
+    import repro.distributed.lb_shard  # noqa: F401  (registers)
+    import repro_torch.distributed.lb_shard  # noqa: F401  (registers)
+
+    return set(j_engine.available())
 
 
 def test_registry_holds_every_jax_strategy():
-    assert set(t_engine.available()) == _jax_core_strategies()
+    jax_names = _jax_core_strategies()
+    assert set(t_engine.available()) == jax_names
     for name in t_engine.available():
         t, j = t_engine.get_strategy(name), j_engine.get_strategy(name)
-        assert t.host == (not j.jittable), name
+        # the JAX package marks its sharded planners not jittable (they
+        # carry their own mesh); the port's plan on the device
+        sharded = name.endswith("-sharded")
+        assert t.host == (not j.jittable and not sharded), name
         assert t.trigger == j.trigger and t.variant == j.variant
         assert dict(t.defaults) == dict(j.defaults)
 

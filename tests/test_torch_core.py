@@ -364,21 +364,27 @@ def test_metrics_and_run_strategy_match():
 
 
 def test_strategy_registry_ported_subset():
-    """Every strategy of the JAX package's core registry is ported (the
-    ``-sharded`` planners belong to the sharded slice); the host
-    baselines are marked as host planners."""
+    """Every strategy of the JAX package's registry is ported, the
+    ``-sharded`` planners with importing ``distributed.lb_shard`` as in
+    the JAX package; the host baselines are marked as host planners (the
+    sharded planners, which the JAX package marks not jittable because
+    they carry their own mesh, plan on the device here)."""
+    import repro.distributed.lb_shard  # noqa: F401  (registers)
+    import repro_torch.distributed.lb_shard  # noqa: F401  (registers)
+
     names = set(t_engine.available())
     assert {"none", "diff-comm", "diff-coord", "diff-comm+threshold",
             "diff-comm+predictive", "diff-coord+threshold",
             "diff-coord+predictive", "greedy", "ep-greedy", "greedy-refine",
-            "metis", "parmetis"} == names
-    assert names == {n for n in j_engine.available()
-                     if not n.endswith("-sharded")}
+            "metis", "parmetis", "diff-comm-sharded",
+            "diff-coord-sharded"} == names
+    assert names == set(j_engine.available())
     for n in names:
         assert t_engine.get_strategy(n).trigger == \
             j_engine.get_strategy(n).trigger
         assert t_engine.get_strategy(n).host == \
-            (not j_engine.get_strategy(n).jittable)
+            (not j_engine.get_strategy(n).jittable
+             and not n.endswith("-sharded"))
     tp = interop.problem_from_numpy(_stencil_hotspot(), device=CPU)
     a, stats = t_engine.get_strategy("none").plan_fn(tp)
     assert torch.equal(a, tp.assignment)

@@ -17,6 +17,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     assert "repro_torch.pic.driver" in mods and len(mods) > 20
+    # the sharded slice's modules are among those checked
+    assert {"repro_torch.distributed.mesh", "repro_torch.distributed.lb_shard",
+            "repro_torch.distributed.replay_shard",
+            "repro_torch.runtime.resilience",
+            "repro_torch.train.fault_tolerance"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -269,3 +274,62 @@ def test_chip_smoke_fleet_phases_rehearse_on_cpu(monkeypatch):
     p, ev = scenarios.get("stencil-wave").instantiate(
         device="cpu", **chip_smoke.SIM_SCENARIO)
     chip_smoke.two_level(ev(p, 10))
+
+
+def test_sharded_entry_points_default_to_cuda():
+    """The sharded slice's entry points run on the card unless asked for
+    the CPU; without one they raise."""
+    import inspect
+
+    from repro_torch.distributed import lb_shard, mesh
+    from repro_torch.train import fault_tolerance as ft
+
+    assert inspect.signature(mesh.ShardMesh).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(lb_shard.ShardedLBEngine).parameters[
+        "device"].default == "cuda"
+    assert lb_shard._DEFAULTS["device"] == "cuda"
+    assert ft.StragglerBalancer(num_hosts=2).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.ShardMesh(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lb_shard.ShardedLBEngine(num_shards=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lb_shard.get_sharded_engine(k=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.resolve_mesh(None, 2, (4,))
+
+
+def test_plan_health_fn_without_health_is_plan_fn_op_for_op():
+    """``plan_health_fn(problem, None)`` dispatches exactly the operations
+    ``plan_fn`` does (the health masks add nothing when off), with equal
+    results."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import engine
+    from repro_torch.sim import scenarios
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    p, ev = scenarios.get("stencil-wave").instantiate(grid=8, num_nodes=4,
+                                                      device="cpu")
+    p = ev(p, 3)
+    eng = engine.get_engine(k=2, device="cpu")
+    eng.plan_fn(p)                                   # warm any caches
+    with Ops() as a:
+        want = eng.plan_fn(p)
+    with Ops() as b:
+        got = eng.plan_health_fn(p, None)
+    assert a.ops == b.ops and len(a.ops) > 0
+    assert torch.equal(got[0], want[0])
+    for x, y in zip(got[1], want[1]):
+        assert torch.equal(x, y)

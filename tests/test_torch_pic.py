@@ -107,8 +107,15 @@ def test_chare_of_device_matches_jax_exactly():
 
 
 def test_later_slice_options_raise():
-    for kw in (dict(sharded_replay=True), dict(faults=object())):
-        with pytest.raises(NotImplementedError):
+    # the sharded replay has been ported: it equals the single-device run;
+    # faults and spill need it, as in the JAX package
+    one = t_driver.run(t_driver.PICConfig(**BASE, device="cpu"))
+    sh = t_driver.run(t_driver.PICConfig(**BASE, sharded_replay=True,
+                                         replay_shards=2, device="cpu"))
+    for f in EXACT + ("final_x", "final_y"):
+        np.testing.assert_array_equal(getattr(sh, f), getattr(one, f))
+    for kw in (dict(faults=object()), dict(on_overflow="spill")):
+        with pytest.raises(ValueError, match="sharded_replay"):
             t_driver.run(t_driver.PICConfig(**BASE, **kw, device="cpu"))
     # two-level placement and telemetry have been ported
     res = t_driver.run(t_driver.PICConfig(

@@ -13,9 +13,13 @@ The contracts, as in ``tests/test_serve_replay.py``:
   * every exchange conserves the sessions and their KV bytes; a slot
     budget bounds occupancy; a recorded trace reproduces its source and
     loops past its length;
-  * the multi-replica-group (sharded) path belongs to a later slice and
-    raises ``NotImplementedError``.
+  * the multi-replica-group (sharded) path — fired exchanges as ring
+    all-to-alls over a ``ShardMesh`` of D shards on one device — equals
+    the device-resident loop bit for bit at D ∈ {1, 2, 4, 8}, and refuses
+    ``scan=True``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -223,14 +227,63 @@ def test_scan_rejects_host_only_strategy():
 
 
 def test_sharded_paths_raise_not_implemented():
-    """The JAX package's three sharded tests (``scan=True`` refused,
-    ``num_shards=1`` equal to the scanned replay, 8 virtual devices) have
-    one counterpart here: the multi-replica-group path is the sharded
-    slice's, and raises with that slice's name."""
-    for kw in (dict(num_shards=1), dict(num_shards=2, scan=True),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharded"):
-            t_sr.run_serve_replay(_wl(t_sr), steps=4, device=CPU, **kw)
+    """What the multi-replica-group path refuses (it was the sharded
+    slice's ``NotImplementedError`` before that slice): ``scan=True`` (a
+    host-driven loop, as in the JAX package), a mesh that is not a
+    ``ShardMesh``, a shard count the sessions or replicas do not divide,
+    and ``mesh`` with ``num_shards``."""
+    from repro_torch.distributed.mesh import ShardMesh
+
+    w = _wl(t_sr)
+    with pytest.raises(ValueError, match="host-driven"):
+        t_sr.run_serve_replay(w, steps=4, scan=True, num_shards=2,
+                              device=CPU)
+    with pytest.raises(TypeError, match="ShardMesh"):
+        t_sr.run_serve_replay(w, steps=4, mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="divide"):
+        t_sr.run_serve_replay(w, steps=4, num_shards=3, device=CPU)
+    with pytest.raises(ValueError, match="not both"):
+        t_sr.run_serve_replay(w, steps=4, num_shards=2,
+                              mesh=ShardMesh(2, CPU), device=CPU)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_sharded_matches_scanned(D):
+    """The JAX package's ``test_sharded_matches_scanned_single_shard`` at
+    D shards: every record and the placement bit for bit the
+    device-resident loop's, and the JAX package's scanned replay in its
+    exact fields."""
+    w = _wl(t_sr)
+    kw = dict(steps=20, lb_every=5, strategy="diff-comm", trigger="every")
+    ref = t_sr.run_serve_replay(w, scan=True, device=CPU, **kw)
+    sh = t_sr.run_serve_replay(w, num_shards=D, device=CPU, **kw)
+    assert sh.sharded and not sh.scanned and not ref.sharded
+    assert ref.lb_fired.sum() > 0
+    _assert_parity(ref, sh)
+    np.testing.assert_array_equal(sh.final_uid, ref.final_uid)
+    np.testing.assert_array_equal(sh.final_kv, ref.final_kv)
+    _assert_matches_jax(sh, _jax_sharded_ref())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_ref():
+    return j_sr.run_serve_replay(
+        _wl(j_sr), scan=True, steps=20, lb_every=5, strategy="diff-comm",
+        trigger="every")
+
+
+@pytest.mark.parametrize("trigger", ["every", "threshold"])
+def test_sharded_fleet_on_8_shards(trigger):
+    """The JAX package's 8-device test, in process: 256 sessions on 16
+    replicas over 8 shards equal the single-device replay."""
+    w = t_sr.ServeWorkload(num_sessions=256, num_replicas=16, group_size=4,
+                           turn_period=6, turn_len=3, burst_period=7, seed=0)
+    kw = dict(steps=20, lb_every=5, strategy="diff-comm", trigger=trigger)
+    ref = t_sr.run_serve_replay(w, scan=True, device=CPU, **kw)
+    sh = t_sr.run_serve_replay(w, num_shards=8, device=CPU, **kw)
+    assert sh.sharded and ref.lb_fired.sum() > 0
+    _assert_parity(ref, sh)
+    np.testing.assert_array_equal(np.sort(sh.final_uid), np.arange(256))
 
 
 # -------------------------------------------------- serving-trace scenario --
@@ -253,6 +306,10 @@ def test_serving_trace_scenario_parity():
     want = j_sim.run_series(jp, jev, scan=True, **kw)
     for f in ("lb_fired", "final_assignment"):
         np.testing.assert_array_equal(getattr(dev, f), getattr(want, f))
+    # the sharded replay of the scenario: the device loop's bits
+    sh = t_sim.run_series_sharded(tp, tev, num_shards=2, **kw)
+    np.testing.assert_array_equal(dev.max_avg, sh.max_avg)
+    np.testing.assert_array_equal(dev.final_assignment, sh.final_assignment)
     for f in ("max_avg", "migrations", "migrated_load"):
         np.testing.assert_allclose(getattr(dev, f), getattr(want, f),
                                    rtol=RTOL, err_msg=f)

@@ -396,8 +396,11 @@ def test_later_slice_knobs_raise():
     with pytest.raises(ValueError, match="jittable"):
         t_sim.run_series(p, ev, **kw, strategy="metis", scan=True)
     assert t_sim.run_series_batch([(p, ev)], **kw).batch == 1
-    with pytest.raises(NotImplementedError):
-        t_sim.run_series_sharded(p, ev, **kw)
+    # the sharded replay has been ported: the device loop's bits
+    sh = t_sim.run_series_sharded(p, ev, **kw, num_shards=2)
+    dev = t_sim.run_series(p, ev, **kw)
+    np.testing.assert_array_equal(sh.final_assignment, dev.final_assignment)
+    np.testing.assert_array_equal(sh.max_avg, dev.max_avg)
     with pytest.raises(KeyError):
         t_sim.run_series(p, ev, **kw, strategy="bogus")
 
