@@ -90,7 +90,9 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      device time; K6 in the form its selection
      rule names for each case (split decode, tensor-core bf16 prefill,
      SIMT f32 prefill), and its decode also cold: 26 caches, one a layer,
-     rotated from call to call as on the serving path.
+     rotated from call to call as on the serving path; and at MLA's
+     full-width latent shapes (G = 128, hd = 576, values [ckv | 0]) in
+     decode and prefill, with device time, bound and SDPA's time.
 
  12. the sharded paths, each on one card with the D shards as the leading
      axis of its tensors (``distributed.mesh.ShardMesh``): the PIC
@@ -109,9 +111,28 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      with the sharded planner as well; and K3, K4 and K5 against their
      plain versions at the sharded PIC path's shapes.
 
+ 13. the other model families on the serving path, at their published
+     widths with random weights (seed 0), each with the launch counts set
+     to 0 just before and read just after: deepseek-v3-671b (MLA with
+     G = 128 query heads on hd = 576 latents, 256 experts top-8, depth cut
+     to 2 layers: the dense MLA layer and one MoE layer, bf16 weights) and
+     llama4-scout-17b-a16e (2 layers, bf16 weights) served by one
+     ``ServeEngine`` each, 4 requests of 256 to 512 prompt tokens and 16
+     new tokens, deepseek's routing counts summing to tokens x 8;
+     hymba-1.5b and xlstm-125m whole, served the same way (hymba's prompts
+     up to 1000 tokens with 32 new ones, so its window rings wrap in
+     decode); qwen1.5-110b (2 layers), gemma3-27b (8 layers: one 5+1 group
+     and its two suffix layers), paligemma-3b (whole, 256 vision-prefix
+     embeddings under the prefix-LM rule) and musicgen-medium (whole, audio
+     frame embeddings) through ``prefill`` and 8 ``decode_step``s; K6 once
+     per attention call in the form ``flash_form`` names; then every other
+     reduced config (f32) served on the card and on the CPU: equal tokens,
+     logits within 1e-3.  K6 is held against its plain version at MLA's
+     full-width decode and prefill shapes in 11.
+
 It prints the card's name and power limit, one JSON line of the sharded
-phases' numbers, one JSON line of per-kernel numbers, and as its last line
-``{"ok": true, "device": {...}}``.  Any
+phases' numbers, one of the model families', one JSON line of per-kernel
+numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where ``torch.cuda.is_available()`` is False.
 """
@@ -233,8 +254,35 @@ EXCHANGE = dict(n=1 << 24, shards=8, nodes=8192)
 # Fig 5 with the sharded planner as well, over 4 shards (dividing every PE
 # count of the figure)
 FIG5_SHARDED = dict(sharded=True, shards=4)
+# phase 13: the other model families at their published widths.  ``cut``:
+# the depth cut (dataclasses.replace fields; None: whole), ``dtype``: the
+# parameters' type (bf16 where f32 with the per-call casts would not fit)
+FAM_FULL = True              # the published configs; a rehearsal: reduced
+FAM_SLOTS = 4
+FAM_SERVE = {
+    "deepseek-v3-671b": dict(cut=dict(num_layers=2, prefix_layers=("attn",)),
+                             dtype="bfloat16", max_new=16,
+                             prompt_lens=(256, 352, 448, 512)),
+    "llama4-scout-17b-a16e": dict(cut=dict(num_layers=2), dtype="bfloat16",
+                                  max_new=16,
+                                  prompt_lens=(256, 352, 448, 512)),
+    "hymba-1.5b": dict(cut=None, dtype="float32", max_new=32,
+                       prompt_lens=(1000, 960, 700, 500)),
+    "xlstm-125m": dict(cut=None, dtype="float32", max_new=16,
+                       prompt_lens=(512, 384, 256, 128)),
+}
+FAM_STEP = {
+    "qwen1.5-110b": dict(cut=dict(num_layers=2), dtype="bfloat16"),
+    "gemma3-27b": dict(cut=dict(num_layers=8), dtype="bfloat16"),
+    "paligemma-3b": dict(cut=None, dtype="float32"),
+    "musicgen-medium": dict(cut=None, dtype="float32"),
+}
+FAM_STEP_SHAPE = dict(batch=2, prompt=512, steps=8)
+FAM_KERNELS = ("flash_attention",)
+SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
+FAMILIES: dict = {}  # phase 13's numbers (one JSON line)
 
 
 def fail(msg: str):
@@ -835,6 +883,36 @@ def paper_scripts_host():
 # --------------------------------------------------------- serving path --
 
 
+def instrument_engine(e, prefill_s, tick_s):
+    """Synchronized timing around the engine's own prefill and tick
+    (seconds appended to the lists), and the finiteness of every logits
+    row they produce."""
+    import torch
+
+    prefill, tick = e._prefill_slot, e.tick
+
+    def timed_prefill(prompt, slot):
+        _sync()
+        t = time.perf_counter()
+        logits = prefill(prompt, slot)
+        _sync()
+        prefill_s.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(logits).all()), "non-finite logits "
+              "from a prefill")
+        return logits
+
+    def timed_tick():
+        _sync()
+        t = time.perf_counter()
+        tick()
+        _sync()
+        tick_s.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(e.last_logits).all()),
+              "non-finite logits from a tick")
+
+    e._prefill_slot, e.tick = timed_prefill, timed_tick
+
+
 def serve_path():
     """Two ServeEngines behind a DiffusionScheduler at gemma3-1b's full
     width, as ``repro_torch.launch.serve`` wires them; returns the launch
@@ -863,35 +941,8 @@ def serve_path():
         num_slots=SERVE["slots"], max_len=SERVE["max_len"],
         dtype=SERVE["dtype"]), device=DEV) for _ in range(R)]
     prefill_s, tick_s = [], []
-
-    def instrument(e):
-        # synchronized timing around the engine's own prefill and tick,
-        # and the finiteness of every logits row they produce
-        prefill, tick = e._prefill_slot, e.tick
-
-        def timed_prefill(prompt, slot):
-            _sync()
-            t = time.perf_counter()
-            logits = prefill(prompt, slot)
-            _sync()
-            prefill_s.append(time.perf_counter() - t)
-            check(bool(torch.isfinite(logits).all()), "non-finite logits "
-                  "from a prefill")
-            return logits
-
-        def timed_tick():
-            _sync()
-            t = time.perf_counter()
-            tick()
-            _sync()
-            tick_s.append(time.perf_counter() - t)
-            check(bool(torch.isfinite(e.last_logits).all()),
-                  "non-finite logits from a tick")
-
-        e._prefill_slot, e.tick = timed_prefill, timed_tick
-
     for e in engines:
-        instrument(e)
+        instrument_engine(e, prefill_s, tick_s)
     rng = np.random.default_rng(0)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -976,9 +1027,10 @@ def serve_path():
     return counts
 
 
-def serve_cpu_parity():
-    """The reduced gemma3-1b in f32 served on the card and on the CPU:
-    equal tokens, and prefill/decode logits within 1e-3."""
+def serve_cpu_parity(arch=SERVE_ARCH):
+    """A reduced config in f32 served on the card and on the CPU: equal
+    tokens, and prefill/decode logits within 1e-3 (a frontend's prefill
+    from its embeddings as well)."""
     import dataclasses
 
     import numpy as np
@@ -988,11 +1040,12 @@ def serve_cpu_parity():
     from repro_torch.models.params import init_params, tree_to
     from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 
-    cfg = dataclasses.replace(get_arch(SERVE_ARCH).reduced,
+    cfg = dataclasses.replace(get_arch(arch).reduced,
                               compute_dtype="float32")
     p_cpu = init_params(transformer.model_specs(cfg), 0, device="cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (9, 14, 11)]
+    emb = frontend_batch(cfg, 1, 12, 0, "cpu")
     outs, logits = {}, {}
     for dev in ("cpu", DEV):
         p = tree_to(p_cpu, dev)
@@ -1012,13 +1065,21 @@ def serve_cpu_parity():
                 p, cfg, torch.tensor([[tok]], device=dev),
                 toks.shape[1] + i, cache)
             seq.append(lg[:, 0])
+        if cfg.frontend != "none":
+            cache = transformer.init_cache(cfg, 1, 40, torch.float32, dev)
+            lg, _ = transformer.prefill(p, cfg, tree_to(emb, dev), cache)
+            seq.append(lg[:, 0])
         logits[dev] = torch.cat(seq).cpu()
-    check(outs["cpu"] == outs[DEV], "reduced gemma3-1b: tokens differ "
+    check(outs["cpu"] == outs[DEV], f"reduced {arch}: tokens differ "
           f"between {DEV} and cpu")
     err = float((logits["cpu"] - logits[DEV]).abs().max())
-    check(err <= 1e-3, f"reduced gemma3-1b: logits differ by {err}")
-    print(f"reduced gemma3-1b served on {DEV} == cpu: 3 requests, equal "
-          f"tokens; prefill and 10 decode steps' logits within {err:.3g}")
+    check(err <= 1e-3, f"reduced {arch}: logits differ by {err}")
+    front = ("" if cfg.frontend == "none"
+             else " (and a prefill from the frontend embeddings)")
+    print(f"reduced {arch} served on {DEV} == cpu: 3 requests, equal "
+          f"tokens; prefill and 10 decode steps' logits{front} within "
+          f"{err:.3g}")
+    return err
 
 
 def spill_scheduler(dev):
@@ -1458,7 +1519,7 @@ def flash_row(counts):
         # yardstick: one SDPA call on the same inputs (GQA expanded, the
         # position mask as a boolean mask; q in the cache's type, which
         # SDPA needs); timed here only
-        B, Sq = qp.shape
+        B, Sq, KV, G, hd = q.shape
         qs = q.to(k.dtype).reshape(B, Sq, KV * G, hd).transpose(1, 2)
         qs = qs.contiguous()
         ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
@@ -1468,6 +1529,7 @@ def flash_row(counts):
                                                       attn_mask=am)
 
     def bound(q, k, qp, kp, win):
+        B, Sq, KV, G, hd = q.shape
         allowed = mask(qp, kp, win, 0)                       # (B, Sq, T)
         nbytes = (2 * q.numel() * q.element_size()
                   + 4 * (qp.numel() + kp.numel())
@@ -1480,19 +1542,31 @@ def flash_row(counts):
 
     bf16, f32 = torch.bfloat16, torch.float32
     tick = [1030, 1026, 543, 607]
-    cases = [  # label, B, Sq, T, window, q_last, q dtype, cache dtype
-        ("prefill, global cache", 1, 1000, 1056, 0, [999], bf16, bf16),
-        ("prefill, window ring", 1, 1000, W, W, [999], bf16, bf16),
-        ("decode, global cache", 4, 1, 1056, 0, tick, bf16, bf16),
-        ("decode, wrapped window ring", 4, 1, W, W, tick, bf16, bf16),
-        ("prefill, global cache, f32", 1, 1000, 1056, 0, [999], f32, f32),
-        ("decode, global cache, f32 cache", 4, 1, 1056, 0, tick, bf16, f32),
+    gemma = (KV, G, hd)
+    # MLA's latent attention at deepseek-v3's width: one "kv head" of 128
+    # query heads at kv_lora 512 + rope 64, values [ckv | 0]; the phase 13
+    # serving shapes (prompts up to 512, a 536-slot cache)
+    mla = (1, 128, 576)
+    mla_tick = [527, 460, 372, 280]
+    cases = [  # label, (KV, G, hd), B, Sq, T, window, q_last, q, cache type
+        ("prefill, global cache", gemma, 1, 1000, 1056, 0, [999], bf16, bf16),
+        ("prefill, window ring", gemma, 1, 1000, W, W, [999], bf16, bf16),
+        ("decode, global cache", gemma, 4, 1, 1056, 0, tick, bf16, bf16),
+        ("decode, wrapped window ring", gemma, 4, 1, W, W, tick, bf16, bf16),
+        ("prefill, global cache, f32", gemma, 1, 1000, 1056, 0, [999], f32,
+         f32),
+        ("decode, global cache, f32 cache", gemma, 4, 1, 1056, 0, tick, bf16,
+         f32),
+        ("MLA decode", mla, 4, 1, 536, 0, mla_tick, bf16, bf16),
+        ("MLA prefill", mla, 1, 512, 536, 0, [511], bf16, bf16),
     ]
     errs, res = [], {}
-    for label, B, Sq, T, win, q_last, dt, kdt in cases:
+    for label, (KV, G, hd), B, Sq, T, win, q_last, dt, kdt in cases:
         q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=dev).to(dt)
         k = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(kdt)
         v = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(kdt)
+        if label.startswith("MLA"):
+            v = torch.cat([k[..., :512], torch.zeros_like(k[..., 512:])], -1)
         qp, kp = positions(B, Sq, T, torch.tensor(q_last, device=dev),
                            ring=bool(win))
         form = fops.flash_form(B, Sq, T, KV, G, hd, dt, kdt)
@@ -1521,9 +1595,16 @@ def flash_row(counts):
               f"ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
               f"{bd[0]:.6f} ms ({bd[1]})")
         res[label] = (ms, plain, bd, lib, (q, qp, kp))
+        if label.startswith("MLA"):
+            # one kernel run a call: the mean of the runs the profiler
+            # records (in this script it has recorded fewer than the calls)
+            runs = device_runs(lambda: fops.flash_attention(
+                q, k, v, qp, kp, window=win))
+            res[label] += (sum(runs) / len(runs), form, len(runs))
 
     # the decode tick's global layers as the path reads them: one cache a
     # layer (26 x 4.9 MB, past the 50 MB L2), rotated from call to call
+    KV, G, hd = gemma
     q, qp, kp = res["decode, global cache"][4]
     n_layers = 26
     caches = [tuple(torch.randn((4, 1056, KV, hd), generator=gen,
@@ -1552,6 +1633,21 @@ def flash_row(counts):
         print(f"flash_attention {what} at the serving path's shape: kernel "
               f"{mine:.4f} ms, SDPA {lib:.4f} ms "
               f"({'no slower' if mine <= lib else 'SLOWER'} than SDPA)")
+    mla_keys = {}
+    for what in ("decode", "prefill"):
+        ms, plain, bd, lib, _, dms, form, n_ev = res[f"MLA {what}"]
+        mla_keys.update({f"mla_{what}_ms": ms, f"mla_{what}_device_ms": dms,
+                         f"mla_{what}_device_runs": n_ev,
+                         f"mla_{what}_plain_ms": plain,
+                         f"mla_{what}_bound_ms": bd[0],
+                         f"mla_{what}_bound_by": bd[1],
+                         f"mla_{what}_library_ms": lib,
+                         f"mla_{what}_form": form})
+        print(f"flash_attention MLA {what} (G=128, hd=576, {form} form): "
+              f"kernel {ms:.4f} ms (device {dms:.4f} ms a run, over the "
+              f"{n_ev} runs the profiler recorded of 20 calls), plain "
+              f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bd[0]:.6f} ms "
+              f"({bd[1]}) [{SMI}]")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:96",
@@ -1560,12 +1656,13 @@ def flash_row(counts):
                 bound_by=p_bound[1], library_ms=p_lib, decode_ms=d_ms,
                 decode_cold_ms=cold, decode_bound_ms=d_bound[0],
                 decode_library_ms=d_lib,
-                decode_f32_cache_ms=res["decode, global cache, f32 cache"][0])
+                decode_f32_cache_ms=res["decode, global cache, f32 cache"][0],
+                **mla_keys)
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of ``fn()`` per call: the sum of its kernels' intervals
-    under ``torch.profiler``, over ``reps`` calls after a warm-up."""
+def device_runs(fn, reps: int = 20) -> list:
+    """Durations (ms) of the kernel runs ``torch.profiler`` records over
+    ``reps`` calls of ``fn()`` after a warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1576,9 +1673,319 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "_kernel" in e.name)
-    return us / 1e3 / reps
+    return [(e.time_range.end - e.time_range.start) / 1e3
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "_kernel" in e.name]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn()`` per call: the sum of its kernels' intervals
+    under ``torch.profiler``, over ``reps`` calls after a warm-up."""
+    return sum(device_runs(fn, reps)) / reps
+
+
+# ------------------------------------------------- other model families --
+
+
+def frontend_batch(cfg, B, S, seed, dev):
+    """A prefill batch of S positions for ``cfg``'s frontend: token ids,
+    audio frame embeddings (every position), or the vision prefix's patch
+    embeddings before S - vision_prefix text tokens; seeded on ``dev``."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    batch = dict(positions=pos.contiguous(), tokens=None)
+    n_tok = S
+    if cfg.frontend != "none":
+        n_emb = S if cfg.frontend == "audio_stub" else cfg.vision_prefix
+        batch["embeds"] = torch.randn((B, n_emb, cfg.d_model), generator=gen,
+                                      device=dev)
+        n_tok = S - n_emb
+    if n_tok:
+        batch["tokens"] = torch.randint(1, cfg.vocab_size, (B, n_tok),
+                                        generator=gen, device=dev)
+    return batch
+
+
+def family_config(arch, spec):
+    """The published config with its depth cut and parameter type (a
+    rehearsal: the reduced config as it is)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    if not FAM_FULL:
+        return get_arch(arch).reduced
+    cfg = get_arch(arch).config
+    return dataclasses.replace(cfg, param_dtype=spec["dtype"],
+                               **(spec["cut"] or {}))
+
+
+def attention_shape(cfg):
+    """(KV, G, hd) of the model's calls of K6: MLA is one latent "kv head"
+    of all heads at kv_lora + rope."""
+    if cfg.attention == "mla":
+        return 1, cfg.num_heads, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+    return cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.hd
+
+
+def expected_forms(cfg, calls, cache_dtype):
+    """K6's launches by form, and their number, for forward calls of
+    ``calls`` = [(batch rows, query rows), ...]: each attention layer once
+    a call, in the form ``flash_form`` names."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer
+
+    want = {f: 0 for f in fops.FORMS}
+    if "flash_attention" not in FAM_KERNELS:
+        return want, 0
+    n_attn = sum(k not in transformer.XLSTM_KINDS for k in cfg.all_layers())
+    KV, G, hd = attention_shape(cfg)
+    q_dt = transformer.as_dtype(cfg.compute_dtype)
+    kv_dt = transformer.as_dtype(cache_dtype)
+    for B, Sq in calls:
+        want[fops.flash_form(B, Sq, 0, KV, G, hd, q_dt, kv_dt)] += n_attn
+    return want, n_attn * len(calls)
+
+
+def param_gib(params) -> float:
+    from repro_torch.models.params import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(params)) / 2 ** 30
+
+
+def _peak_gib():
+    import torch
+
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if DEV == "cuda"
+            else float("nan"))
+
+
+def _reset_peak():
+    import gc
+
+    import torch
+
+    gc.collect()        # an instrumented engine is a reference cycle
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def family_serve(arch):
+    """One ``ServeEngine`` (FAM_SLOTS slots, bf16 cache) serving the
+    arch's requests at its published width; launch counts set to 0 just
+    before and read just after; returns its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    spec = FAM_SERVE[arch]
+    cfg = family_config(arch, spec)
+    lens, new = spec["prompt_lens"], spec["max_new"]
+    specs = transformer.model_specs(cfg)
+    _reset_peak()
+    _sync()
+    t0 = time.perf_counter()
+    params = init_params(specs, 0, device=DEV)
+    _sync()
+    init_s = time.perf_counter() - t0
+    init_peak = _peak_gib()
+    params_gib = param_gib(params)
+    _reset_peak()
+    max_len = max(lens) + new + 8
+    e = ServeEngine(cfg, params, ServeConfig(
+        num_slots=FAM_SLOTS, max_len=max_len, dtype="bfloat16"), device=DEV)
+    prefill_s, tick_s = [], []
+    instrument_engine(e, prefill_s, tick_s)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
+    for i, pr in enumerate(prompts):
+        e.submit(Request(uid=i, prompt=pr, max_new_tokens=new))
+    kernels.reset_launch_counts()
+    forms0 = dict(fops.form_launches)
+    _sync()
+    t0 = time.perf_counter()
+    done = e.run_until_drained()
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    forms = {f: n - forms0[f] for f, n in fops.form_launches.items()}
+    check(sorted(r.uid for r in done) == list(range(len(lens))),
+          f"{arch}: served {sorted(r.uid for r in done)}")
+    check(all(len(r.out) == new for r in done),
+          f"{arch}: a request did not get {new} tokens")
+    toks = np.concatenate([r.out for r in done])
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+          f"{arch}: a token out of the vocabulary")
+    want_forms, want_n = expected_forms(
+        cfg, [(1, n) for n in lens] + [(FAM_SLOTS, 1)] * e.ticks, "bfloat16")
+    check(counts["flash_attention"] == want_n, f"{arch}: flash_attention "
+          f"launched {counts['flash_attention']} times, not {want_n}")
+    check(forms == want_forms, f"{arch}: K6 forms {forms}, not {want_forms}")
+    for name in FAM_KERNELS:
+        check(counts[name] > 0 or want_n == 0, f"kernel {name} was not "
+              f"launched on {arch}'s path")
+    decode_s = sum(tick_s) - sum(prefill_s)
+    out = dict(layers=list(cfg.all_layers()), params=count_params(specs),
+               param_dtype=cfg.param_dtype, params_gib=params_gib,
+               init_peak_gib=init_peak, init_s=init_s, requests=len(lens),
+               prompt_lens=list(lens),
+               new_tokens=new, ticks=e.ticks, wall_s=wall,
+               prefill_ms=[1e3 * t for t in prefill_s],
+               decode_ms_per_tick=1e3 * decode_s / max(e.ticks, 1),
+               tokens_per_s=len(toks) / wall, peak_gib=_peak_gib(),
+               flash_launches=counts["flash_attention"], flash_forms=forms)
+    if cfg.moe is not None:
+        # the router's statistics over one prompt's prefill: every token
+        # picks top_k experts in each MoE layer
+        pr = torch.as_tensor(prompts[-1], device=DEV)[None]
+        pos = torch.arange(pr.shape[1], dtype=torch.int32, device=DEV)[None]
+        _, _, (_, st) = transformer.forward(
+            params, cfg, dict(tokens=pr, positions=pos),
+            collect_router_stats=True, with_aux=True)
+        n_moe = sum(k.startswith("moe") for k in cfg.all_layers())
+        k = cfg.moe.top_k
+        want = pr.shape[1] * k * n_moe
+        got = float(st.counts.sum())
+        check(got == want, f"{arch}: router counts sum to {got}, not "
+              f"{want} = tokens x top_k x MoE layers")
+        check(float(st.coact.sum()) == want * (k - 1)
+              and bool((st.coact == st.coact.T).all())
+              and float(st.coact.diagonal().abs().max()) == 0.0,
+              f"{arch}: co-activations not symmetric pair counts")
+        out["router"] = dict(tokens=int(pr.shape[1]), counts_sum=got,
+                             experts_used=int((st.counts > 0).sum()),
+                             max_count=float(st.counts.max()))
+    if any(k in ("attn_local", "hymba") for k in cfg.all_layers()):
+        i = next(i for i, k in enumerate(cfg.all_layers())
+                 if k in ("attn_local", "hymba"))
+        ring = e.cache[i]["kv"]["pos"]
+        out["ring_max_pos"] = int(ring[ring < 2 ** 29].max())
+        out["ring_slots"] = int(ring.shape[1])
+        if FAM_FULL:
+            check(out["ring_max_pos"] >= out["ring_slots"],
+                  f"{arch}: no window ring wrapped")
+    cut = "whole" if not FAM_FULL or spec["cut"] is None else \
+        f"depth cut to {len(cfg.all_layers())} layers {cfg.all_layers()}"
+    print(f"{arch} ({cut}; d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{out['params']} parameters in {cfg.param_dtype}, "
+          f"{params_gib:.3f} GiB, made in {init_s:.3f} s at a peak of "
+          f"{init_peak:.3f} GiB): {len(lens)} "
+          f"requests (prompts {list(lens)}, {new} new tokens each) in "
+          f"{wall:.3f} s, {e.ticks} ticks; prefill "
+          f"{[round(1e3 * t, 3) for t in prefill_s]} ms, decode "
+          f"{out['decode_ms_per_tick']:.3f} ms a tick of {FAM_SLOTS} slots; "
+          f"peak {out['peak_gib']:.3f} GiB; K6 {counts['flash_attention']} "
+          f"launches {forms}"
+          + (f"; router counts {out['router']}" if "router" in out else "")
+          + (f"; window ring up to position {out['ring_max_pos']} in "
+             f"{out['ring_slots']} slots" if "ring_max_pos" in out else "")
+          + f" [{SMI}]")
+    del e, params
+    return out
+
+
+def family_steps(arch):
+    """``prefill`` of FAM_STEP_SHAPE's batch (the frontend's embeddings
+    where the arch has one) and ``decode_step``s at the published width;
+    launch counts set to 0 just before and read just after."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer
+    from repro_torch.models.params import count_params, init_params
+
+    spec = FAM_STEP[arch]
+    cfg = family_config(arch, spec)
+    B, S, steps = (FAM_STEP_SHAPE[k] for k in ("batch", "prompt", "steps"))
+    specs = transformer.model_specs(cfg)
+    _reset_peak()
+    _sync()
+    t0 = time.perf_counter()
+    params = init_params(specs, 0, device=DEV)
+    _sync()
+    init_s = time.perf_counter() - t0
+    init_peak = _peak_gib()
+    params_gib = param_gib(params)
+    _reset_peak()
+    batch = frontend_batch(cfg, B, S, 0, DEV)
+    cache = transformer.init_cache(cfg, B, S + steps + 8, torch.bfloat16,
+                                   DEV)
+    kernels.reset_launch_counts()
+    forms0 = dict(fops.form_launches)
+    _sync()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, cfg, batch, cache)
+    _sync()
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step_s = []
+    for i in range(steps):
+        _sync()
+        t = time.perf_counter()
+        logits, cache = transformer.decode_step(params, cfg, tok, S + i,
+                                                cache)
+        _sync()
+        step_s.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(logits).all()),
+              f"{arch}: non-finite logits at decode step {i}")
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        check(bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+              f"{arch}: a token out of the vocabulary")
+    counts = kernels.launch_counts()
+    forms = {f: n - forms0[f] for f, n in fops.form_launches.items()}
+    want_forms, want_n = expected_forms(cfg, [(B, S)] + [(B, 1)] * steps,
+                                        "bfloat16")
+    check(counts["flash_attention"] == want_n, f"{arch}: flash_attention "
+          f"launched {counts['flash_attention']} times, not {want_n}")
+    check(forms == want_forms, f"{arch}: K6 forms {forms}, not {want_forms}")
+    out = dict(layers=list(cfg.all_layers()), params=count_params(specs),
+               param_dtype=cfg.param_dtype, params_gib=params_gib,
+               init_peak_gib=init_peak, init_s=init_s, batch=B, prompt=S,
+               frontend=cfg.frontend, prefill_ms=1e3 * prefill_s,
+               decode_ms_per_step=1e3 * sum(step_s) / steps,
+               peak_gib=_peak_gib(), flash_launches=counts["flash_attention"],
+               flash_forms=forms)
+    cut = "whole" if not FAM_FULL or spec["cut"] is None else \
+        f"depth cut to {len(cfg.all_layers())} layers"
+    front = {"none": "tokens", "audio_stub": f"{S} audio frame embeddings",
+             "vision_stub": f"{cfg.vision_prefix} vision-prefix embeddings "
+             f"(prefix-LM) + {S - cfg.vision_prefix} tokens"}[cfg.frontend]
+    print(f"{arch} ({cut}; d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.hd}, {out['params']} parameters "
+          f"in {cfg.param_dtype}, {params_gib:.3f} GiB): prefill of {B} x "
+          f"{S} ({front}) {out['prefill_ms']:.3f} ms (one call), decode "
+          f"{out['decode_ms_per_step']:.3f} ms a step over {steps} steps; "
+          f"peak {out['peak_gib']:.3f} GiB; K6 {counts['flash_attention']} "
+          f"launches {forms} [{SMI}]")
+    del params, cache
+    return out
+
+
+def families_path():
+    """Phase 13: the other model families at their published widths, then
+    every other reduced config on the card against the CPU."""
+    from repro_torch.configs import list_archs
+
+    for arch in FAM_SERVE:
+        FAMILIES[arch] = family_serve(arch)
+    for arch in FAM_STEP:
+        FAMILIES[arch] = family_steps(arch)
+    errs = {a: serve_cpu_parity(a) for a in list_archs() if a != SERVE_ARCH}
+    FAMILIES["reduced_cuda_vs_cpu_max_logit_err"] = errs
+    _reset_peak()
+    return {a: FAMILIES[a]["flash_launches"]
+            for a in (*FAM_SERVE, *FAM_STEP)}
 
 
 # ------------------------------------------------------ sharded paths --
@@ -2314,6 +2721,7 @@ def kernel_rows(counts, sim_graph, spill):
 
 
 def main() -> int:
+    global SMI
     import torch
 
     if not torch.cuda.is_available():
@@ -2327,6 +2735,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    SMI = smi
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     # f32 products in full f32 on the card (the defaults, set explicitly)
@@ -2362,6 +2771,7 @@ def main() -> int:
     sharded_fleet(RESULTS["fleet"])
     fig5_sharded()
     sharded_k = sharded_kernel_checks()
+    fam_counts = families_path()
     K3_LAUNCHES.update(PIC=counts["scatter_dest"],
                        serving=serve_counts["scatter_dest"],
                        serving_spill=spill_counts["scatter_dest"],
@@ -2374,13 +2784,18 @@ def main() -> int:
         counts[name] += fleet_counts[name]
     counts["diffusion_nsweeps"] += sim_counts["diffusion_nsweeps"]
     counts["diffusion_sweep"] = step_counts["diffusion_sweep"]
-    counts["flash_attention"] = serve_counts["flash_attention"]
+    # K6 on the serving path and on each model family's path of phase 13
+    counts["flash_attention"] = (serve_counts["flash_attention"]
+                                 + sum(fam_counts.values()))
     print(f"K1 calls by form on each path: {K1_PATH_FORMS}; K2 launches "
           f"in the step_fn plan: {counts['diffusion_sweep']}; K3 calls by "
           f"form on each path: {K3_PATH_FORMS}, launches {K3_LAUNCHES}; "
           f"K4 calls by form on each path: {K4_PATH_FORMS}")
     rows = kernel_rows(counts, sim_graph, spill)
     rows.append(flash_row(counts))
+    rows[-1]["launches_by_path"] = {
+        f"serving ({SERVE_ARCH})": serve_counts["flash_attention"],
+        **fam_counts}
     check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")
     # K3, K4 and K5 at the sharded PIC path's shapes, with their launches
     # on that path's run
@@ -2389,6 +2804,7 @@ def main() -> int:
             r["sharded_pic"] = dict(sharded_k[r["name"]],
                                     launches=sharded_counts[r["name"]])
     print(json.dumps({"sharded": SHARDED}))
+    print(json.dumps({"families": FAMILIES}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,16 +66,22 @@
 //   the S fragments in registers, P rounded to bf16 as the A operand, O
 //   (16 x hd f32, 144 registers a thread at hd = 288) in registers.  More
 //   than one split writes the partials, merged by combine_kernel.
-// * simt (every other case: f32 or mixed prefill, hd % 16 != 0).  One
-//   block per (b * KV + kv head, tile of `rows` query rows), one warp per
-//   (query row, group) pair; 32-key K/V tiles staged as f32 in dynamic
-//   shared memory (rows padded to hd + 1 floats), lane j scores key j,
-//   the tile's max and sum by warp shuffles (the sum broadcast from lane
-//   0), lane c owns output columns c, c + 32, ... for the PV product.
+// * simt (every other case: f32 or mixed prefill, hd % 16 != 0, and the
+//   shapes past the other forms' limits: G > 32 or hd > 288, as MLA's
+//   latent attention with G = 128, hd = 576).  One block per (b * KV + kv
+//   head, tile of `rows` query rows, slice of the groups), one warp per
+//   (query row, group) pair: all G groups in one block where rows * G
+//   warps fit (32 at hd <= 288, 16 above), else slices of 16 groups, each
+//   block reading the K/V tiles for its own slice; 32-key K/V tiles
+//   staged as f32 in dynamic shared memory (rows padded to hd + 1
+//   floats), lane j scores key j, the tile's max and sum by warp shuffles
+//   (the sum broadcast from lane 0), lane c owns output columns c, c + 32,
+//   ... for the PV product (9 a lane up to hd = 288, 18 up to 576).
 //
 // ptxas (sm_90a, CUDA 12.8), registers a thread, no spills in any form:
 // mma_kernel 242 (4 warps) / 243 (2 warps); split_kernel 138 (bf16 q and
-// k/v), 166 (other pairs); combine_kernel 32; flash_kernel (simt) 59-60.
+// k/v), 166 (other pairs); combine_kernel 32; flash_kernel (simt, 9
+// columns a lane) 59-60.
 // Shared memory above 48 KB is dynamic: each launch raises the kernel's
 // limit first and reports a refused launch through cudaGetLastError.
 #include <cuda_bf16.h>
@@ -87,8 +93,9 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int KB = 32;               // keys a tile
-constexpr int MAX_HD = 288;          // 9 output columns a lane (simt)
-constexpr int NC = MAX_HD / 32;
+constexpr int MAX_HD = 288;          // split and mma forms; simt: 9 columns a lane
+constexpr int SIMT_MAX_HD = 576;     // simt: 18 columns a lane
+constexpr int SIMT_MAX_G = 128;
 constexpr int POS_VALID = 1 << 29;   // positions at or above: unwritten
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;        // a masked score
@@ -153,14 +160,16 @@ __device__ __forceinline__ int visit_end(const int* __restrict__ qpos_b,
 
 // ------------------------------------------------------------ simt form --
 
-template <typename TQ, typename TKV>
+// NC output columns a lane (hd <= 32 NC); GB groups a block (blockIdx.z
+// takes groups [GB z, GB z + GB))
+template <typename TQ, typename TKV, int NC>
 __global__ void flash_kernel(const TQ* __restrict__ q,
                              const TKV* __restrict__ k,
                              const TKV* __restrict__ v,
                              const int* __restrict__ qpos,
                              const int* __restrict__ kvpos,
                              TQ* __restrict__ out, int Sq, int T, int KV,
-                             int G, int hd, int rows, int window,
+                             int G, int GB, int hd, int rows, int window,
                              int prefix_len, float scale) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x >> 5;
@@ -174,8 +183,8 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
   const int r0 = blockIdx.y * rows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = r0 + warp / G, g = warp % G;
-  const bool active = r < Sq;
+  const int r = r0 + warp / GB, g = blockIdx.z * GB + warp % GB;
+  const bool active = r < Sq && g < G;
 
   if (threadIdx.x == 0)
     n_tiles_s = visit_tiles(qpos + b * Sq, r0, min(r0 + rows, Sq), T,
@@ -247,27 +256,47 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
   }
 }
 
-template <typename TQ, typename TKV>
-int launch_simt(void* q, void* k, void* v, void* qpos, void* kvpos,
-                void* out, int B, int Sq, int T, int KV, int G, int hd,
-                int window, int prefix_len, cudaStream_t stream) {
-  // rows * G warps a block: about 16 warps, at least one query row
+template <typename TQ, typename TKV, int NC>
+int launch_simt_nc(void* q, void* k, void* v, void* qpos, void* kvpos,
+                   void* out, int B, int Sq, int T, int KV, int G, int hd,
+                   int window, int prefix_len, cudaStream_t stream) {
+  // rows * G warps a block: about 16 warps, at least one query row; where
+  // that passes the warps a block holds (32, or 16 at 18 columns a lane:
+  // the register file), slices of 16 groups
   const int rows = max(1, min(Sq, 16 / G));
-  const int nwarps = rows * G;
+  const int max_warps = NC > MAX_HD / 32 ? 16 : 32;
+  const int GB = rows * G <= max_warps ? G : 16;
+  const int nwarps = rows * GB;
   const size_t smem =
       sizeof(float) * (KB * (hd + 1) + KB * hd + nwarps * hd) +
       sizeof(int) * KB;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<TQ, TKV, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * KV, (Sq + rows - 1) / rows);
-  flash_kernel<TQ, TKV><<<grid, nwarps * 32, smem, stream>>>(
+  const dim3 grid(B * KV, (Sq + rows - 1) / rows, (G + GB - 1) / GB);
+  flash_kernel<TQ, TKV, NC><<<grid, nwarps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kvpos), static_cast<TQ*>(out), Sq, T, KV, G,
-      hd, rows, window, prefix_len, 1.0f / sqrtf(static_cast<float>(hd)));
+      GB, hd, rows, window, prefix_len,
+      1.0f / sqrtf(static_cast<float>(hd)));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ, typename TKV>
+int launch_simt(void* q, void* k, void* v, void* qpos, void* kvpos,
+                void* out, int B, int Sq, int T, int KV, int G, int hd,
+                int window, int prefix_len, cudaStream_t stream) {
+  if (hd > SIMT_MAX_HD || G > SIMT_MAX_G)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= MAX_HD)
+    return launch_simt_nc<TQ, TKV, MAX_HD / 32>(
+        q, k, v, qpos, kvpos, out, B, Sq, T, KV, G, hd, window, prefix_len,
+        stream);
+  return launch_simt_nc<TQ, TKV, SIMT_MAX_HD / 32>(
+      q, k, v, qpos, kvpos, out, B, Sq, T, KV, G, hd, window, prefix_len,
+      stream);
 }
 
 // ------------------------------------------------ asynchronous copies --
@@ -996,9 +1025,10 @@ int launch_mma(void* q, void* k, void* v, void* qpos, void* kvpos, void* out,
 
 }  // namespace
 
-// The wrapper (kernels/flash_attention/ops.py) checks 1 <= G <= 32,
-// hd <= 288, Sq >= 1, T >= 1, contiguous 16-byte aligned tensors and each
-// form's own conditions; q_bf16 / kv_bf16 select bf16 (1) or f32 (0).
+// The wrapper (kernels/flash_attention/ops.py) checks 1 <= G <= 128,
+// hd <= 576 (G <= 32 and hd <= 288 for the split and mma forms), Sq >= 1,
+// T >= 1, contiguous 16-byte aligned tensors and each form's own
+// conditions; q_bf16 / kv_bf16 select bf16 (1) or f32 (0).
 
 // simt form
 extern "C" int flash_attention_launch(void* q, void* k, void* v, void* qpos,

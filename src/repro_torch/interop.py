@@ -53,8 +53,9 @@ def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
 
     The JAX ``unit`` leaves carry a leading group dimension (its scanned
     stack): layer ``len(prefix) + g * len(layer_unit) + i`` takes
-    ``unit[i][...][g]``.  Returns ``{embed, final_norm, layers[, lm_head]}``
-    with ``layers`` in ``cfg.all_layers()`` order, on ``device``."""
+    ``unit[i][...][g]`` (stacked experts: (G, E, ...) → (E, ...)).
+    Returns ``{embed, final_norm, layers[, lm_head][, mtp]}`` with
+    ``layers`` in ``cfg.all_layers()`` order, on ``device``."""
     dev = resolve_device(device)
     layers = list(tree["prefix"])
     for g in range(cfg.num_groups):
@@ -63,8 +64,9 @@ def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
     layers += list(tree["suffix"])
     out = dict(embed=tree["embed"], final_norm=tree["final_norm"],
                layers=layers)
-    if "lm_head" in tree:
-        out["lm_head"] = tree["lm_head"]
+    for k in ("lm_head", "mtp"):
+        if k in tree:
+            out[k] = tree[k]
     # copies: the arrays may be read-only views of another package's buffers
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), out)
 
@@ -72,17 +74,18 @@ def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
 def cache_to_numpy(cache, cfg) -> Dict:
     """The port's per-layer cache as the JAX package's stacked cache tree
     ``{unit, prefix, suffix}`` of NumPy arrays (``unit[i]`` leaves gain the
-    leading group dimension)."""
+    leading group dimension); every field: ``kv``, ``ssm``, ``state``."""
     host = tree_map(lambda t: t.cpu().numpy(), list(cache))
     n_pre, n_unit = len(cfg.prefix_layers), len(cfg.layer_unit)
     groups = [host[n_pre + g * n_unit: n_pre + (g + 1) * n_unit]
               for g in range(cfg.num_groups)]
 
-    def stack(i):
-        layer = groups[0][i]
-        return {k: {f: np.stack([grp[i][k][f] for grp in groups])
-                    for f in layer[k]} for k in layer}
+    def stack(parts):
+        if isinstance(parts[0], dict):
+            return {k: stack([p[k] for p in parts]) for k in parts[0]}
+        return np.stack(parts)
 
-    return dict(unit=[stack(i) for i in range(n_unit)] if groups else [],
+    return dict(unit=[stack([grp[i] for grp in groups])
+                      for i in range(n_unit)] if groups else [],
                 prefix=host[:n_pre],
                 suffix=host[len(host) - len(cfg.suffix_layers):])

@@ -61,7 +61,7 @@ def resolve_device(device) -> torch.device:
                 "is False; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):   # meta: shapes only
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
 

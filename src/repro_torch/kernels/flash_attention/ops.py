@@ -16,8 +16,10 @@ one from the shapes and types alone:
 * ``"mma"`` — bf16 q and k/v with ``hd % 16 == 0`` (the served model's
   prefill): (query row, group) pairs packed into the M dimension of bf16
   ``mma.sync`` tensor-core products;
-* ``"simt"`` — everything else (f32 or mixed types, ``hd % 16 != 0``):
-  one warp per (query row, group) pair, f32 FMAs.
+* ``"simt"`` — everything else (f32 or mixed types, ``hd % 16 != 0``,
+  and the shapes past the other forms' ``G <= 32``, ``hd <= 288``: MLA's
+  latent attention, G = 128 query heads on one latent "kv head" of
+  hd = 576): one warp per (query row, group) pair, f32 FMAs.
 
 Each wrapper call counts one launch of the kernel however many CUDA
 kernels its form issues; :data:`form_launches` counts the calls by form.
@@ -38,8 +40,10 @@ KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_mma_launch": [PTR] * 9 + [INT] * 11,
 })
 
-MAX_HD = 288        # output columns a lane holds: 9 × 32 (csrc)
-MAX_G = 32          # one warp a query group, at most 32 warps a block
+MAX_HD = 576        # the simt form: 18 output columns a lane (csrc)
+MAX_G = 128         # the simt form: slices of 16 groups a block past 32
+FAST_MAX_HD = 288   # the split and mma forms: 9 columns a lane, registers
+FAST_MAX_G = 32     # the split and mma forms
 SPLIT_MAX_PAIRS = 32    # Sq · G a split block holds (csrc)
 SPLIT_BLOCKS = 132      # blocks a split launch aims at: the H100's SMs
 MMA_WARPS = 4           # 16 pairs a warp: 64-pair M tiles
@@ -61,7 +65,10 @@ def flash_form(B: int, Sq: int, T: int, KV: int, G: int, hd: int,
                q_dtype, kv_dtype) -> str:
     """The kernel form a call of these shapes and types takes: "split"
     for at most 32 (query row, group) pairs, else "mma" where the tensor
-    cores take the operands, else "simt"."""
+    cores take the operands, else "simt"; past ``G <= 32`` or
+    ``hd <= 288`` (MLA's latent attention) always "simt"."""
+    if G > FAST_MAX_G or hd > FAST_MAX_HD:
+        return "simt"
     if Sq * G <= SPLIT_MAX_PAIRS:
         return "split"
     if takes_tensor_cores(hd, q_dtype, kv_dtype):
@@ -131,6 +138,9 @@ def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
         raise ValueError(f"flash attention kernel takes 1 <= G <= {MAX_G}, "
                          f"1 <= hd <= {MAX_HD} and T >= 1; got G={G}, "
                          f"hd={hd}, T={T}")
+    if form != "simt" and not (G <= FAST_MAX_G and hd <= FAST_MAX_HD):
+        raise ValueError(f"the {form} form takes G <= {FAST_MAX_G} and "
+                         f"hd <= {FAST_MAX_HD}, got G={G}, hd={hd}")
     if form == "split" and Sq * G > SPLIT_MAX_PAIRS:
         raise ValueError(f"the split form holds Sq * G <= {SPLIT_MAX_PAIRS} "
                          f"pairs, got {Sq * G}")

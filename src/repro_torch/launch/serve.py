@@ -6,9 +6,10 @@ requests against a model on the port, or the serving fleet replay.
     python -m repro_torch.launch.serve --fleet-replay 131072 --replicas 64 \
         --ticks 30 [--telemetry full --trace-out trace.json]
 
-It builds ``--replicas`` ServeEngines on the arch's reduced config with
-random weights (seed 0) sharing one set of parameters, places the requests
-through the ``DiffusionScheduler`` (prefix group ``i % max(requests // 4,
+It builds ``--replicas`` ServeEngines on the reduced config of ``--arch``
+(any of the ten in ``configs.list_archs()``) with random weights (seed 0)
+sharing one set of parameters, places the requests through the
+``DiffusionScheduler`` (prefix group ``i % max(requests // 4,
 1)``, one token/s each), rebalances once, drains every engine and reports
 throughput and the scheduler's metrics through ``repro_torch.obs.metrics``.
 The card is the default device.
@@ -95,8 +96,11 @@ def fleet_replay(args):
 
 
 def main(argv=None):
+    from repro_torch.configs import list_archs
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=list_archs(),
+                    help="served on its reduced config")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

@@ -1,2 +1,3 @@
-"""The LM stack of the serving slice: config, parameters, layers, GQA
-attention (through the flash-attention kernel) and the decoder."""
+"""The LM stack of the serving path: config, parameters, layers, GQA and
+MLA attention (through the flash-attention kernel), MoE, the recurrent
+blocks (mamba, mLSTM, sLSTM) and the decoder."""

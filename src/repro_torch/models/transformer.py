@@ -1,6 +1,12 @@
-"""The decoder stack (counterpart of ``repro.models.transformer``) for the
-block kinds the serving slice runs: ``attn`` (GQA + dense MLP) and
-``attn_local`` (sliding-window GQA + dense MLP).
+"""The decoder stack (counterpart of ``repro.models.transformer``) with
+every block kind of the JAX package:
+
+  attn        — softmax attention (GQA or MLA per cfg) + dense MLP
+  attn_local  — sliding-window attention + dense MLP
+  moe         — attention + mixture-of-experts FFN (``moe_local``: windowed)
+  hymba       — parallel windowed GQA + mamba heads, ``0.5 (β0 a + β1 m)``,
+                + MLP (``hymba_g``: global attention)
+  mlstm/slstm — xLSTM cells (an MLP after them only when d_ff != 0)
 
 The JAX package scans stacked groups of a repeating ``layer_unit``; here
 the parameters and caches are plain per-layer lists in
@@ -8,67 +14,94 @@ the parameters and caches are plain per-layer lists in
 ``num_groups`` times, then suffix layers), run by a Python loop.
 ``repro_torch.interop`` maps the JAX package's stacked trees onto them.
 
-Entry points: ``forward`` (hidden states, optionally writing a cache),
-``logits_head``, ``prefill`` (last-position logits) and ``decode_step``.
-MoE, MLA, hymba and xLSTM blocks, the multi-token-prediction head and
-``loss_fn`` belong to later slices and raise ``NotImplementedError``.
+The modality frontends are stubs, as in the JAX package: ``audio_stub``
+takes precomputed frame embeddings (``batch["embeds"]``), ``vision_stub``
+precomputed patch embeddings put before the text tokens, read
+bidirectionally (prefix-LM, ``prefix_len = vision_prefix``).
+
+Entry points: ``forward`` (hidden states, optionally writing a cache and
+returning the aux channel), ``logits_head``, ``prefill`` (last-position
+logits) and ``decode_step``.  The multi-token-prediction parameters are
+declared (``model_specs``) so that counts and carried weights agree; their
+loss and ``loss_fn`` belong to the training slice and raise.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_specs, mlp, mlp_specs, rms_norm,
                                        rms_norm_spec)
 from repro_torch.models.params import ParamSpec, tree_map
 
-PORTED_KINDS = ("attn", "attn_local")
+ATTN_KINDS = ("attn", "attn_local", "moe", "moe_local")
+HYMBA_KINDS = ("hymba", "hymba_g")
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
-def _later_slice(what: str):
+def _training_slice(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: the PyTorch port runs the attn / "
-        "attn_local (GQA) blocks; MoE, MLA, hymba, xLSTM, the MTP head and "
-        "training belong to later slices")
+        f"{what} is not ported yet: the PyTorch port serves every block "
+        "kind (forward, prefill, decode_step); training, the MTP loss and "
+        "the expert-parallel a2a over a mesh come with the training slice")
 
 
 def as_dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
-def _check(cfg: ModelConfig, kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise _later_slice(f"block kind {kind!r}")
-    if cfg.attention != "gqa":
-        raise _later_slice(f"attention {cfg.attention!r}")
-
-
 # ------------------------------------------------------------------ specs --
 
 
 def _block_specs(cfg: ModelConfig, kind: str) -> Dict:
-    _check(cfg, kind)
     D = cfg.d_model
-    return dict(norm1=rms_norm_spec(D), attn=attn.gqa_specs(cfg),
-                norm2=rms_norm_spec(D),
-                mlp=mlp_specs(D, cfg.d_ff_dense or cfg.d_ff))
+    p: Dict = dict(norm1=rms_norm_spec(D))
+    if kind in ATTN_KINDS:
+        p["attn"] = (attn.mla_specs(cfg) if cfg.attention == "mla"
+                     else attn.gqa_specs(cfg))
+        p["norm2"] = rms_norm_spec(D)
+        if kind.startswith("moe"):
+            p["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            p["mlp"] = mlp_specs(D, cfg.d_ff_dense or cfg.d_ff)
+    elif kind in HYMBA_KINDS:
+        p["attn"] = attn.gqa_specs(cfg)
+        p["mamba"] = ssm.mamba_specs(cfg)
+        p["beta"] = ParamSpec((2,), init="ones")
+        p["norm2"] = rms_norm_spec(D)
+        p["mlp"] = mlp_specs(D, cfg.d_ff)
+    elif kind == "mlstm":
+        p["cell"] = ssm.mlstm_specs(cfg)
+    elif kind == "slstm":
+        p["cell"] = ssm.slstm_specs(cfg)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.d_ff and kind in XLSTM_KINDS:
+        p["norm2"] = rms_norm_spec(D)
+        p["mlp"] = mlp_specs(D, cfg.d_ff)
+    return p
 
 
 def model_specs(cfg: ModelConfig) -> Dict:
-    """``{embed, final_norm, layers: [block specs per layer][, lm_head]}``."""
+    """``{embed, final_norm, layers: [block specs per layer][, lm_head]
+    [, mtp]}``."""
     cfg.validate()
-    if cfg.mtp:
-        raise _later_slice("the multi-token-prediction head")
     p: Dict = dict(embed=embed_specs(cfg.vocab_size, cfg.d_model),
                    final_norm=rms_norm_spec(cfg.d_model),
                    layers=[_block_specs(cfg, k) for k in cfg.all_layers()])
     if not cfg.tie_embeddings:
         p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+    if cfg.mtp:
+        p["mtp"] = dict(block=_block_specs(cfg, "attn"),
+                        proj=ParamSpec((2 * cfg.d_model, cfg.d_model)),
+                        norm=rms_norm_spec(cfg.d_model))
     if cfg.param_dtype != "float32":
         p = tree_map(lambda s: ParamSpec(s.shape, s.init, s.scale,
                                          cfg.param_dtype), p)
@@ -80,11 +113,25 @@ def model_specs(cfg: ModelConfig) -> Dict:
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device="cuda") -> Dict:
-    _check(cfg, kind)
-    window = cfg.sliding_window if kind == "attn_local" else 0
-    return dict(kv=attn.init_gqa_cache(cfg, batch, max_len, window,
-                                       as_dtype(dtype),
-                                       resolve_device(device)))
+    """The layer's cache: ``kv`` (attention), ``ssm`` (hymba's mamba
+    state) or ``state`` (xLSTM); recurrent states are f32."""
+    dev = resolve_device(device)
+    dt = as_dtype(dtype)
+    window = cfg.sliding_window if kind in ("attn_local", "hymba") else 0
+    if kind in ATTN_KINDS:
+        if cfg.attention == "mla":
+            return dict(kv=attn.init_mla_cache(cfg, batch, max_len, dt, dev))
+        return dict(kv=attn.init_gqa_cache(cfg, batch, max_len, window, dt,
+                                           dev))
+    if kind in HYMBA_KINDS:
+        return dict(kv=attn.init_gqa_cache(cfg, batch, max_len, window, dt,
+                                           dev),
+                    ssm=ssm.mamba_init_state(cfg, batch, device=dev))
+    if kind == "mlstm":
+        return dict(state=ssm.mlstm_init_state(cfg, batch, device=dev))
+    if kind == "slstm":
+        return dict(state=ssm.slstm_init_state(cfg, batch, device=dev))
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -94,32 +141,121 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for k in cfg.all_layers()]
 
 
+def _store(dst, new) -> None:
+    """Write a new recurrent state into the cache's tensors in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            dst[k].copy_(new[k])
+    else:
+        dst.copy_(new)
+
+
 # ------------------------------------------------------------------ block --
+
+
+def zero_aux(cfg: ModelConfig, collect_router_stats: bool = False,
+             device="cuda"):
+    """The aux channel's zero: a scalar, or (scalar, RouterStats) when
+    routing statistics are collected."""
+    if collect_router_stats and cfg.moe is None:
+        raise ValueError("collect_router_stats needs a MoE config")
+    device = resolve_device(device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    if collect_router_stats:
+        return (zero, moe_mod.zero_router_stats(cfg.moe.num_experts, device))
+    return zero
+
+
+def _aux_add(a, b):
+    if b is None:                    # a block without a router
+        return a
+    if isinstance(a, tuple):
+        return (a[0] + b[0],
+                moe_mod.RouterStats(*(x + y for x, y in zip(a[1], b[1]))))
+    return a + b
 
 
 def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict], *,
-                prefix_len: int = 0) -> torch.Tensor:
-    """Pre-norm attention + MLP block; the cache, if any, is updated in
-    place."""
-    _check(cfg, kind)
-    window = cfg.sliding_window if kind == "attn_local" else 0
-    h = rms_norm(x, params["norm1"], cfg.norm_eps)
-    a, _ = attn.gqa_attention(
-        params["attn"], cfg, h, positions, window=window,
-        prefix_len=prefix_len, cache=None if cache is None else cache["kv"])
-    x = x + a
-    h = rms_norm(x, params["norm2"], cfg.norm_eps)
-    return x + mlp(params["mlp"], h, x.dtype)
+                prefix_len: int = 0, decode: bool = False,
+                collect_router_stats: bool = False):
+    """One block; returns ``(x_out, aux)`` and updates the cache, if any,
+    in place.  A MoE block's aux is its router loss, or ``(loss,
+    RouterStats)`` with ``collect_router_stats``; other blocks add none
+    (``None``: no device work where nothing is routed)."""
+    dt = x.dtype
+    aux = None
+    window = cfg.sliding_window if kind in ("attn_local", "moe_local",
+                                            "hymba") else 0
+
+    if kind in ATTN_KINDS:
+        h = rms_norm(x, params["norm1"], cfg.norm_eps)
+        fn = (attn.mla_attention if cfg.attention == "mla"
+              else attn.gqa_attention)
+        a, _ = fn(params["attn"], cfg, h, positions, window=window,
+                  prefix_len=prefix_len,
+                  cache=None if cache is None else cache["kv"])
+        x = x + a
+        h = rms_norm(x, params["norm2"], cfg.norm_eps)
+        if kind.startswith("moe"):
+            out = moe_mod.moe_ffn(params["moe"], cfg, h,
+                                  collect_stats=collect_router_stats)
+            f, aux = out[0], (out[1:] if collect_router_stats else out[1])
+        else:
+            f = mlp(params["mlp"], h, dt)
+        return x + f, aux
+
+    if kind in HYMBA_KINDS:
+        h = rms_norm(x, params["norm1"], cfg.norm_eps)
+        a, _ = attn.gqa_attention(
+            params["attn"], cfg, h, positions, window=window,
+            prefix_len=prefix_len,
+            cache=None if cache is None else cache["kv"])
+        state = None if cache is None else cache["ssm"]
+        if decode:
+            m, s_new = ssm.mamba_step(params["mamba"], cfg, h, state)
+        else:
+            m, s_new = ssm.mamba_forward(params["mamba"], cfg, h, state)
+        if cache is not None:
+            _store(cache["ssm"], s_new)
+        beta = params["beta"].to(dt)
+        x = x + 0.5 * (beta[0] * a + beta[1] * m)
+        h = rms_norm(x, params["norm2"], cfg.norm_eps)
+        return x + mlp(params["mlp"], h, dt), aux
+
+    if kind in XLSTM_KINDS:
+        h = rms_norm(x, params["norm1"], cfg.norm_eps)
+        state = None if cache is None else cache["state"]
+        if kind == "mlstm":
+            fn = ssm.mlstm_step if decode else ssm.mlstm_forward
+        else:
+            fn = ssm.slstm_step if decode else ssm.slstm_forward
+        y, s_new = fn(params["cell"], cfg, h, state)
+        if cache is not None:
+            _store(cache["state"], s_new)
+        x = x + y
+        if cfg.d_ff:
+            h = rms_norm(x, params["norm2"], cfg.norm_eps)
+            x = x + mlp(params["mlp"], h, dt)
+        return x, aux
+
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------- forward --
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """Precomputed frontend ``embeds`` (if any), then the tokens'
+    embeddings, along the sequence; the gemma scale on both."""
     dt = as_dtype(cfg.compute_dtype)
-    # gather, then cast: the same values as casting the whole table
-    x = params["embed"][batch["tokens"].long()].to(dt)
+    parts = []
+    if batch.get("embeds") is not None:
+        parts.append(batch["embeds"].to(dt))
+    if batch.get("tokens") is not None:
+        # gather, then cast: the same values as casting the whole table
+        parts.append(params["embed"][batch["tokens"].long()].to(dt))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=torch.float32).to(dt)
@@ -127,20 +263,30 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
-            cache: Optional[List[Dict]] = None
-            ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
-    """Run the stack on ``batch = {tokens (B, S), positions (B, S)}``;
-    returns ``(hidden (B, S, D), cache)`` (the cache updated in place).
-    The modality frontends' precomputed ``embeds`` belong to a later
-    slice."""
+            cache: Optional[List[Dict]] = None, decode: bool = False,
+            collect_router_stats: bool = False, with_aux: bool = False):
+    """Run the stack on ``batch = {tokens (B, S) and/or embeds (B, S', D),
+    positions (B, S)}``; returns ``(hidden (B, S, D), cache)``, the cache
+    updated in place, or ``(hidden, cache, aux)`` with ``with_aux`` (aux
+    summed over the layers; ``(aux, RouterStats)`` with
+    ``collect_router_stats``).  ``decode`` takes the recurrent blocks'
+    single-step forms (one token a row)."""
     x = _embed_inputs(params, cfg, batch)
     positions = batch["positions"]
     prefix_len = cfg.vision_prefix if cfg.prefix_lm else 0
+    aux_total = (zero_aux(cfg, collect_router_stats, x.device)
+                 if with_aux or collect_router_stats else None)
     for i, kind in enumerate(cfg.all_layers()):
-        x = apply_block(params["layers"][i], cfg, kind, x, positions,
-                        None if cache is None else cache[i],
-                        prefix_len=prefix_len)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+        x, aux = apply_block(params["layers"][i], cfg, kind, x, positions,
+                             None if cache is None else cache[i],
+                             prefix_len=prefix_len, decode=decode,
+                             collect_router_stats=collect_router_stats)
+        if aux_total is not None:
+            aux_total = _aux_add(aux_total, aux)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if with_aux:
+        return h, cache, aux_total
+    return h, cache
 
 
 def logits_head(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -151,7 +297,7 @@ def logits_head(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(*args, **kwargs):
-    raise _later_slice("loss_fn (training)")
+    raise _training_slice("loss_fn (training, with the MTP loss)")
 
 
 # ------------------------------------------------------------ decode step --
@@ -164,12 +310,15 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache: List[Dict]):
     return logits_head(params, cfg, h[:, -1:]), cache
 
 
-def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, index: int,
-                cache: List[Dict]):
-    """One decode step: tokens (B, 1) at position ``index``."""
-    B = tokens.shape[0]
-    positions = torch.full((B, 1), int(index), dtype=torch.int32,
-                           device=tokens.device)
-    h, cache = forward(params, cfg, dict(tokens=tokens, positions=positions),
-                       cache=cache)
+def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                index: int, cache: List[Dict],
+                embeds: Optional[torch.Tensor] = None):
+    """One decode step: tokens (B, 1) (or frontend ``embeds`` (B, 1, D))
+    at position ``index``."""
+    src = tokens if tokens is not None else embeds
+    positions = torch.full((src.shape[0], 1), int(index), dtype=torch.int32,
+                           device=src.device)
+    h, cache = forward(params, cfg, dict(tokens=tokens, embeds=embeds,
+                                         positions=positions),
+                       cache=cache, decode=True)
     return logits_head(params, cfg, h), cache

@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import tree_leaves
 
 
 @dataclasses.dataclass
@@ -43,7 +44,9 @@ class ServeConfig:
 
 class ServeEngine:
     """One replica: ``params`` must lie on ``device`` (default the card).
-    ``last_logits`` holds the logits of the latest prefill or tick."""
+    ``last_logits`` holds the logits of the latest prefill or tick.  Every
+    block kind serves: attention caches, hymba's mamba state and the
+    xLSTM states are all per slot."""
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  device="cuda"):
@@ -73,9 +76,9 @@ class ServeEngine:
         pos = torch.arange(plen, dtype=torch.int32, device=self.device)[None]
         logits, one = transformer.prefill(
             self.params, self.cfg, dict(tokens=tokens, positions=pos), one)
-        for layer, new in zip(self.cache, one):
-            for f, t in layer["kv"].items():
-                t[slot] = new["kv"][f][0]
+        # every field of every layer: kv, and hymba's / xLSTM's states
+        for t, new in zip(tree_leaves(self.cache), tree_leaves(one)):
+            t[slot] = new[0]
         return logits[:, -1]
 
     # ------------------------------------------------------------- admin --
@@ -117,7 +120,7 @@ class ServeEngine:
                                     device=self.device)[:, None]
         h, self.cache = transformer.forward(
             self.params, self.cfg, dict(tokens=tokens, positions=positions),
-            cache=self.cache)
+            cache=self.cache, decode=True)
         logits = transformer.logits_head(self.params, self.cfg, h)[:, 0]
         self.last_logits = logits
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()

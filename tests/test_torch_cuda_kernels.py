@@ -690,10 +690,16 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
                          torch.float16, 0)
     with pytest.raises(ValueError):
         fops.flash_attention(*args)
-    args = _flash_inputs(dev, 1, 4, 8, 1, 2, 320, torch.float32,
+    # past the simt form's hd <= 576 and G <= 128
+    args = _flash_inputs(dev, 1, 4, 8, 1, 2, 600, torch.float32,
                          torch.float32, 0)
     with pytest.raises(ValueError):
         fops.flash_attention(*args)
+    args = _flash_inputs(dev, 1, 1, 8, 1, 129, 64, torch.float32,
+                         torch.float32, 0)
+    with pytest.raises(ValueError):
+        fops.flash_attention(*args)
+
 
 
 # the kernel's forms: split (decode), mma (bf16 prefill), each case taking
@@ -941,3 +947,59 @@ def test_fleet_replay_on_cuda_equals_cpu(dev):
     for f in ("lb_fired", "final_replica_by_uid", "moved_sessions",
               "deferred", "moved_kv_bytes", "occ_max", "max_avg"):
         assert np.array_equal(getattr(g, f), getattr(c, f)), f
+
+
+# MLA's latent attention: one "kv head" of G = 128 query heads, hd = 576
+# (kv_lora_rank 512 + rope 64), values [ckv | 0]; the simt form
+
+
+def _mla_inputs(dev, B, Sq, T, qdt, kvdt, last, seed):
+    """q (B, Sq, 1, 128, 576), keys [ckv | krope], values [ckv | 0];
+    query rows ending at ``last[b]``, the cache holding positions
+    0..last in slot order and the sentinel past them."""
+    G, hd, r = 128, 576, 512
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, 1, G, hd)),
+                        dtype=torch.float32, device=dev).to(qdt)
+    k = torch.as_tensor(rng.normal(size=(B, T, 1, hd)),
+                        dtype=torch.float32, device=dev).to(kvdt)
+    v = torch.cat([k[..., :r], torch.zeros_like(k[..., r:])], -1)
+    lastt = torch.tensor(last, dtype=torch.int32, device=dev)[:, None]
+    qp = (lastt - torch.arange(Sq - 1, -1, -1, dtype=torch.int32,
+                               device=dev)).to(torch.int32)
+    s = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+    kp = torch.where(s <= lastt, s, POS_SENTINEL).to(torch.int32)
+    return q, k, v, qp.contiguous(), kp.contiguous()
+
+
+@pytest.mark.parametrize("B,Sq,T,qdt,kvdt,last,window,prefix", [
+    (4, 1, 528, BF16, BF16, [527, 300, 256, 17], 0, 0),     # decode
+    (4, 1, 528, BF16, F32, [527, 300, 256, 17], 0, 0),      # f32 cache
+    (1, 300, 528, BF16, BF16, [299], 0, 0),                 # prefill
+    (1, 96, 160, F32, F32, [95], 0, 0),
+    (2, 40, 100, BF16, BF16, [60, 39], 32, 0),              # window
+    (2, 40, 100, F32, F32, [60, 39], 0, 24),                # prefix
+])
+def test_flash_mla_shape_matches_plain(dev, B, Sq, T, qdt, kvdt, last,
+                                       window, prefix):
+    """K6 at MLA's full-width latent shape against the plain version, in
+    the form the rule names (simt), twice bit for bit."""
+    args = _mla_inputs(dev, B, Sq, T, qdt, kvdt, last, B + Sq + T)
+    assert fops.flash_form(B, Sq, T, 1, 128, 576, qdt, kvdt) == "simt"
+    got = _take_form("simt", *args, window=window, prefix_len=prefix)
+    assert float(got[..., 512:].abs().max()) == 0.0     # the zero values
+    _flash_close(got, chunked_attention(*args, window=window,
+                                        prefix_len=prefix),
+                 BF16 if BF16 in (qdt, kvdt) else F32)
+
+
+@pytest.mark.parametrize("G,hd", [(33, 64), (64, 128), (128, 24),
+                                  (20, 320), (4, 576)])
+def test_flash_simt_past_the_fast_forms(dev, G, hd):
+    """The simt form at G > 32 (slices of 16 groups a block) and hd > 288
+    (18 columns a lane), decode and prefill."""
+    for Sq in (1, 37):
+        args = _flash_inputs(dev, 2, Sq, 70, 1, G, hd, F32, F32, G + hd)
+        assert fops.flash_form(2, Sq, 70, 1, G, hd, F32, F32) == "simt"
+        _flash_close(_take_form("simt", *args), chunked_attention(*args),
+                     F32)

@@ -156,6 +156,16 @@ def test_split_reference_short_prefill(Sq, G, prefix, window):
     ((2, 33, 90, 1, 4, 288), "f32", "bf16", "simt"),
     ((1, 64, 64, 1, 4, 8), "bf16", "bf16", "simt"),       # hd % 16 != 0
     ((1, 64, 64, 1, 4, 40), "bf16", "bf16", "simt"),
+    # past the split and mma forms' G <= 32, hd <= 288: MLA's latent
+    # attention (G = 128, hd = 576) takes the simt form in decode and
+    # prefill, whatever the types
+    ((4, 1, 528, 1, 128, 576), "bf16", "bf16", "simt"),
+    ((1, 512, 528, 1, 128, 576), "bf16", "bf16", "simt"),
+    ((4, 1, 528, 1, 128, 576), "bf16", "f32", "simt"),
+    ((1, 1, 64, 1, 4, 320), "bf16", "bf16", "simt"),      # hd > 288
+    ((1, 1, 64, 1, 33, 64), "bf16", "bf16", "simt"),      # G > 32
+    ((1, 64, 64, 1, 40, 64), "bf16", "bf16", "simt"),
+    ((1, 1, 64, 1, 128, 24), "f32", "f32", "simt"),       # reduced MLA
 ])
 def test_flash_form_rule(shape, q_dtype, kv_dtype, form):
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -229,3 +239,22 @@ def test_launch_rejects_what_no_kernel_takes(form, keys_per_split, dtype,
     kp = torch.zeros(2, 100, dtype=torch.int32)
     with pytest.raises(ValueError, match="split|tensor-core|form"):
         fops._launch(q, k, k, qp, kp, 0, 0, form, keys_per_split, **kw)
+
+
+@pytest.mark.parametrize("form,G,hd", [
+    ("split", 128, 576), ("mma", 128, 576), ("split", 4, 320),
+    ("mma", 4, 320), ("split", 33, 64), ("mma", 40, 64),
+    ("simt", 129, 64), ("simt", 4, 577),
+])
+def test_launch_holds_each_forms_limits(form, G, hd):
+    """The simt form takes G <= 128 and hd <= 576 (MLA's latent shape);
+    the split and mma forms keep G <= 32 and hd <= 288.  Checked before
+    any device is touched."""
+    assert (fops.MAX_G, fops.MAX_HD) == (128, 576)
+    assert (fops.FAST_MAX_G, fops.FAST_MAX_HD) == (32, 288)
+    q = torch.zeros(1, 1, 1, G, hd, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 1, hd, dtype=torch.bfloat16)
+    qp = torch.zeros(1, 1, dtype=torch.int32)
+    kp = torch.zeros(1, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="form takes|kernel takes"):
+        fops._launch(q, k, k, qp, kp, 0, 0, form, 64)

@@ -197,6 +197,91 @@ def test_chip_smoke_host_planner_phases_rehearse_on_cpu(monkeypatch):
         torch.set_num_threads(threads)
 
 
+def test_chip_smoke_families_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 13 (the other model families: two served by a
+    ServeEngine with MoE and MLA, hymba and xLSTM served, four through
+    prefill and decode_step with the audio and vision frontends, then
+    every other reduced config on the card against the CPU) runs end to
+    end on the CPU's plain versions with the reduced configs."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "FAM_FULL", False)
+    monkeypatch.setattr(chip_smoke, "FAM_KERNELS", ())   # none on the CPU
+    monkeypatch.setattr(chip_smoke, "FAMILIES", {})
+    monkeypatch.setattr(chip_smoke, "FAM_SERVE", {
+        arch: dict(spec, prompt_lens=(16, 12, 9, 5), max_new=6)
+        for arch, spec in chip_smoke.FAM_SERVE.items()})
+    monkeypatch.setattr(chip_smoke, "FAM_STEP_SHAPE",
+                        dict(batch=2, prompt=12, steps=3))
+    # many small CPU ops: one intra-op thread beside other test workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        counts = chip_smoke.families_path()
+    finally:
+        torch.set_num_threads(threads)
+    assert set(counts) == set(chip_smoke.FAM_SERVE) | set(
+        chip_smoke.FAM_STEP)
+    assert not any(counts.values())          # plain versions on the CPU
+    fam = chip_smoke.FAMILIES
+    assert fam["deepseek-v3-671b"]["router"]["counts_sum"] == 5 * 2 * 2
+    assert fam["xlstm-125m"]["ticks"] > 0
+    assert fam["hymba-1.5b"]["ring_max_pos"] >= 16    # decode past window
+    assert len(fam["reduced_cuda_vs_cpu_max_logit_err"]) == 9
+
+
+def test_model_entry_points_default_to_cuda():
+    """The model families' entry points (the shape registry's batches,
+    the recurrent states, the latent cache, the router statistics and the
+    aux channel) run on the card unless asked for the CPU; without one
+    they raise."""
+    import inspect
+
+    from repro_torch.configs import SHAPES, base, get_arch
+    from repro_torch.models import attention, moe, ssm, transformer
+
+    fns = (base.materialize_batch, ssm.mamba_init_state,
+           ssm.mlstm_init_state, ssm.slstm_init_state,
+           attention.init_mla_cache, moe.zero_router_stats,
+           transformer.zero_aux)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    cfg = get_arch("deepseek-v3-671b").reduced
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        attention.init_mla_cache(cfg, 1, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        base.materialize_batch(cfg, SHAPES["train_4k"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.zero_aux(cfg, True)
+    hymba = get_arch("hymba-1.5b").reduced
+    for fn in (ssm.mamba_init_state, ssm.mlstm_init_state,
+               ssm.slstm_init_state):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn(hymba, 1)
+    # the launcher takes all ten architectures, on the CPU when asked
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "xlstm-125m"])
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "gpt-2", "--device", "cpu"])
+    done = serve.main(["--arch", "deepseek-v3-671b", "--requests", "3",
+                       "--max-new", "3", "--device", "cpu"])
+    assert len(done) == 3 and all(len(r.out) == 3 for r in done)
+    # K6's MLA timing script needs a card and says so
+    out = subprocess.run([sys.executable, str(
+        ROOT / "benchmarks_torch" / "flash_mla.py")], capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0 and "needs a CUDA device" in out.stderr
+
+
 def test_fleet_entry_points_default_to_cuda():
     """The fleet replay's entry points (``run_serve_replay``,
     ``record_trace``, ``launch.serve --fleet-replay``, the serve bench)

@@ -1,12 +1,15 @@
 """The port's LM stack (``repro_torch.models``, ``repro_torch.configs``)
-against the JAX package on the CPU, on the reduced gemma3-1b and
-smollm-135m configs with the JAX weights carried across
-(``repro_torch.interop.params_from_numpy``).
+against the JAX package on the CPU, on every architecture's reduced
+config with the JAX weights carried across
+(``repro_torch.interop.params_from_numpy``): GQA and MLA attention, dense,
+MoE, hymba and xLSTM blocks, and the audio and vision frontends.
 
 The parity tests compute in f32 (``compute_dtype="float32"``), so they
 compare the algorithm and not bf16 rounding: logits within 1e-4, caches
-exact in positions and within 1e-5 in k/v.  One bf16 forward is held to
-the JAX model test's 2e-2."""
+exact in positions and within 1e-5 in every other field (k/v, latents,
+recurrent states).  One bf16 forward is held to the JAX model test's
+2e-2.  The JAX calls are jitted (the configs are static), so each
+compiles once a test."""
 import dataclasses
 
 import jax
@@ -15,21 +18,31 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import SHAPES as J_SHAPES
 from repro.configs import get_arch as j_get_arch
+from repro.configs import input_specs as j_input_specs
+from repro.configs import materialize_batch as j_materialize
 from repro.models import attention as j_attn
 from repro.models import layers as j_layers
 from repro.models import transformer as jt
 from repro.models.params import count_params as j_count
 from repro.models.params import init_params as j_init
 from repro_torch import interop
-from repro_torch.configs import get_arch, list_archs
+from repro_torch.configs import (SHAPES, get_arch, input_specs, list_archs,
+                                 materialize_batch)
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
+from repro_torch.models import moe as t_moe
 from repro_torch.models import transformer as tt
 from repro_torch.models.params import (count_params, init_params,
                                       tree_leaves)
 
-ARCHS = ["gemma3-1b", "smollm-135m"]
+ARCHS = ["deepseek-v3-671b", "gemma3-1b", "gemma3-27b", "hymba-1.5b",
+         "llama4-scout-17b-a16e", "musicgen-medium", "paligemma-3b",
+         "qwen1.5-110b", "smollm-135m", "xlstm-125m"]
+
+j_prefill = jax.jit(jt.prefill, static_argnums=1)
+j_decode = jax.jit(jt.decode_step, static_argnums=1)
 
 
 def _cfgs(arch, dtype="float32"):
@@ -40,15 +53,19 @@ def _cfgs(arch, dtype="float32"):
 
 @pytest.fixture(scope="module")
 def carried():
-    """JAX weights (seed 0) of each reduced config, and the same weights
-    as the port's parameters on the CPU."""
-    out = {}
-    for arch in ARCHS:
-        jcfg, tcfg = _cfgs(arch)
-        jp = j_init(jt.model_specs(jcfg), 0)
-        out[arch] = (jp, interop.params_from_numpy(
-            jax.tree.map(np.asarray, jp), tcfg, "cpu"))
-    return out
+    """``carried(arch)``: JAX weights (seed 0) of the reduced config, and
+    the same weights as the port's parameters on the CPU (made once)."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jcfg, tcfg = _cfgs(arch)
+            jp = j_init(jt.model_specs(jcfg), 0)
+            made[arch] = (jp, interop.params_from_numpy(
+                jax.tree.map(np.asarray, jp), tcfg, "cpu"))
+        return made[arch]
+
+    return get
 
 
 def _tokens(cfg, B, S, seed):
@@ -62,7 +79,7 @@ def _tokens(cfg, B, S, seed):
 def test_configs_and_param_counts_match_jax(arch):
     """The same published and reduced configs; the full config's
     parameter count equals the JAX spec tree's (no allocation)."""
-    assert set(ARCHS) <= set(list_archs())
+    assert set(ARCHS) == set(list_archs())
     for field in ("config", "reduced"):
         assert dataclasses.asdict(getattr(get_arch(arch), field)) == \
             dataclasses.asdict(getattr(j_get_arch(arch), field))
@@ -107,7 +124,7 @@ def test_gqa_attention_with_cache_matches_jax(carried, window):
     (with window 16 the ring wraps): outputs within 1e-5, caches exact in
     positions and within 1e-5 in k/v."""
     jcfg, tcfg = _cfgs("gemma3-1b")
-    jp, tp = carried["gemma3-1b"]
+    jp, tp = carried("gemma3-1b")
     jl, tl = jp["unit"][0]["attn"], tp["layers"][0]["attn"]
     jl = jax.tree.map(lambda a: a[0], jl)
     B, D = 2, jcfg.d_model
@@ -131,37 +148,67 @@ def test_gqa_attention_with_cache_matches_jax(carried, window):
                                    atol=1e-5, rtol=1e-5)
 
 
+def _frontend_batches(cfg, tok, pos, plen, seed):
+    """The full-sequence batch and the prefill batch of the first
+    ``plen`` positions, as NumPy dicts: tokens alone, or the frontend's
+    embeddings (audio: every position; vision: the ``vision_prefix``
+    patch embeddings before the text tokens)."""
+    B, S = tok.shape
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_stub":
+        emb = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+        return (dict(embeds=emb, tokens=None, positions=pos),
+                dict(embeds=emb[:, :plen], tokens=None,
+                     positions=pos[:, :plen]))
+    if cfg.frontend == "vision_stub":
+        pv = cfg.vision_prefix
+        emb = rng.normal(size=(B, pv, cfg.d_model)).astype(np.float32)
+        return (dict(embeds=emb, tokens=tok[:, :S - pv], positions=pos),
+                dict(embeds=emb, tokens=tok[:, :plen - pv],
+                     positions=pos[:, :plen]))
+    return (dict(tokens=tok, positions=pos),
+            dict(tokens=tok[:, :plen], positions=pos[:, :plen]))
+
+
+def _as(batch, fn):
+    return {k: None if v is None else fn(v) for k, v in batch.items()}
+
+
+def _decode_token(cfg, tok, i):
+    """The token fed at position i: text positions follow the vision
+    prefix."""
+    off = cfg.vision_prefix if cfg.frontend == "vision_stub" else 0
+    return tok[:, i - off:i - off + 1]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_jax(carried, arch):
-    """forward, prefill and decode_step logits within 1e-4 of JAX; after
-    decoding past gemma's 16-token window, the caches exact in positions
-    and within 1e-5 in k/v (``interop.cache_to_numpy``)."""
+    """forward (with the frontend's embeddings, where the arch has one),
+    prefill and decode_step logits within 1e-4 of JAX, and the aux
+    channel within 1e-5; after decoding past the 16-token windows, every
+    cache field exact in positions and within 1e-5 elsewhere
+    (``interop.cache_to_numpy``)."""
     jcfg, tcfg = _cfgs(arch)
-    jp, tp = carried[arch]
+    jp, tp = carried(arch)
     B, S, plen = 2, 22, 14
     tok, pos = _tokens(jcfg, B, S, 0)
-    hj, _, _ = jt.forward(jp, jcfg, dict(tokens=jnp.asarray(tok),
-                                         positions=jnp.asarray(pos)))
-    ht, _ = tt.forward(tp, tcfg, dict(tokens=torch.tensor(tok),
-                                      positions=torch.tensor(pos)))
+    full, pre = _frontend_batches(jcfg, tok, pos, plen, 1)
+    hj, _, aj = jt.forward(jp, jcfg, _as(full, jnp.asarray))
+    ht, _, at = tt.forward(tp, tcfg, _as(full, torch.tensor), with_aux=True)
     np.testing.assert_allclose(tt.logits_head(tp, tcfg, ht).numpy(),
                                np.asarray(jt.logits_head(jp, jcfg, hj)),
                                atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(float(at), float(aj), atol=1e-5, rtol=1e-5)
     jc = jt.init_cache(jcfg, B, S + 4, jnp.float32)
     tc = tt.init_cache(tcfg, B, S + 4, torch.float32, "cpu")
-    lj, jc = jt.prefill(jp, jcfg, dict(tokens=jnp.asarray(tok[:, :plen]),
-                                       positions=jnp.asarray(pos[:, :plen])),
-                        jc)
-    lt, tc = tt.prefill(tp, tcfg, dict(tokens=torch.tensor(tok[:, :plen]),
-                                       positions=torch.tensor(pos[:, :plen])),
-                        tc)
+    lj, jc = j_prefill(jp, jcfg, _as(pre, jnp.asarray), jc)
+    lt, tc = tt.prefill(tp, tcfg, _as(pre, torch.tensor), tc)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4,
                                rtol=1e-4)
     for i in range(plen, S):
-        lj, jc = jt.decode_step(jp, jcfg, jnp.asarray(tok[:, i:i + 1]),
-                                jnp.int32(i), jc)
-        lt, tc = tt.decode_step(tp, tcfg, torch.tensor(tok[:, i:i + 1]), i,
-                                tc)
+        t = _decode_token(jcfg, tok, i)
+        lj, jc = j_decode(jp, jcfg, jnp.asarray(t), jnp.int32(i), jc)
+        lt, tc = tt.decode_step(tp, tcfg, torch.tensor(t), i, tc)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4,
                                    rtol=1e-4)
     got = interop.cache_to_numpy(tc, tcfg)
@@ -181,12 +228,11 @@ def test_forward_prefill_decode_match_jax(carried, arch):
 def test_bf16_forward_matches_jax(carried, arch):
     """The configs' own bf16 compute type, at the JAX model test's 2e-2."""
     jcfg, tcfg = _cfgs(arch, "bfloat16")
-    jp, tp = carried[arch]
+    jp, tp = carried(arch)
     tok, pos = _tokens(jcfg, 2, 12, 2)
-    hj, _, _ = jt.forward(jp, jcfg, dict(tokens=jnp.asarray(tok),
-                                         positions=jnp.asarray(pos)))
-    ht, _ = tt.forward(tp, tcfg, dict(tokens=torch.tensor(tok),
-                                      positions=torch.tensor(pos)))
+    full, _ = _frontend_batches(jcfg, tok, pos, 10, 2)
+    hj, _, _ = jt.forward(jp, jcfg, _as(full, jnp.asarray))
+    ht, _ = tt.forward(tp, tcfg, _as(full, torch.tensor))
     assert ht.dtype == torch.bfloat16
     np.testing.assert_allclose(ht.float().numpy(),
                                np.asarray(hj, np.float32), atol=2e-2,
@@ -195,24 +241,129 @@ def test_bf16_forward_matches_jax(carried, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
-    """The JAX model test, on the port alone: greedy-decode logits equal
-    the full-forward logits at the same positions (bf16 compute, f32
-    cache, 2e-2)."""
+    """The JAX model test, on the port alone: the prefill's and each
+    greedy decode step's logits equal the full-forward logits at the same
+    positions (bf16 compute, f32 cache, 2e-2).  The frontends prefill from
+    their embeddings; audio decodes from frame embeddings (the JAX test
+    stops after its prefill there), vision from the text tokens."""
     cfg = get_arch(arch).reduced
     params = init_params(tt.model_specs(cfg), 0, device="cpu")
     B, S, plen = 2, 12, 8
-    tok, pos = (torch.tensor(a) for a in _tokens(cfg, B, S, 3))
-    h, _ = tt.forward(params, cfg, dict(tokens=tok, positions=pos))
-    full = tt.logits_head(params, cfg, h).float()
+    if cfg.frontend == "vision_stub":
+        S, plen = cfg.vision_prefix + 4, cfg.vision_prefix + 1
+    tok, pos = _tokens(cfg, B, S, 3)
+    full, pre = (_as(b, torch.tensor)
+                 for b in _frontend_batches(cfg, tok, pos, plen, 3))
+    h, _ = tt.forward(params, cfg, full)
+    logits = tt.logits_head(params, cfg, h).float()
     cache = tt.init_cache(cfg, B, S + 4, torch.float32, "cpu")
-    lp, cache = tt.prefill(params, cfg, dict(tokens=tok[:, :plen],
-                                             positions=pos[:, :plen]), cache)
-    torch.testing.assert_close(lp[:, -1].float(), full[:, plen - 1],
+    lp, cache = tt.prefill(params, cfg, pre, cache)
+    torch.testing.assert_close(lp[:, -1].float(), logits[:, plen - 1],
                                atol=2e-2, rtol=2e-2)
     for i in range(plen, S):
-        ld, cache = tt.decode_step(params, cfg, tok[:, i:i + 1], i, cache)
-        torch.testing.assert_close(ld[:, 0].float(), full[:, i], atol=2e-2,
-                                   rtol=2e-2)
+        if cfg.frontend == "audio_stub":
+            ld, cache = tt.decode_step(params, cfg, None, i, cache,
+                                       embeds=full["embeds"][:, i:i + 1])
+        else:
+            ld, cache = tt.decode_step(
+                params, cfg, torch.tensor(_decode_token(cfg, tok, i)), i,
+                cache)
+        torch.testing.assert_close(ld[:, 0].float(), logits[:, i],
+                                   atol=2e-2, rtol=2e-2)
+
+
+def _port_cache_as_jax_shapes(cache, cfg):
+    """The port's per-layer cache shapes as the JAX package's stacked
+    ``{unit, prefix, suffix}`` tree of (shape, dtype name) leaves."""
+    def leaf(t):
+        return tuple(t.shape), str(t.dtype).replace("torch.", "")
+
+    n_pre, n_unit = len(cfg.prefix_layers), len(cfg.layer_unit)
+    G = cfg.num_groups
+    layers = [jax.tree.map(leaf, c, is_leaf=torch.is_tensor)
+              for c in cache]
+    unit = [jax.tree.map(lambda x: ((G,) + x[0], x[1]), layers[n_pre + i],
+                         is_leaf=lambda x: isinstance(x, tuple))
+            for i in range(n_unit)] if G else []
+    return dict(unit=unit, prefix=layers[:n_pre],
+                suffix=layers[len(layers) - len(cfg.suffix_layers):])
+
+
+def _jax_shapes(tree):
+    return jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), tree)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_match_jax(arch):
+    """``input_specs`` of the published config: the same batch entries
+    and decode caches (shapes and types, on the meta device, nothing
+    allocated) as the JAX package's ``ShapeDtypeStruct`` stand-ins, for
+    every shape; ``shape_applicable`` agrees."""
+    from repro.configs import shape_applicable as j_applicable
+    from repro_torch.configs import shape_applicable
+
+    cfg, jcfg = get_arch(arch).config, j_get_arch(arch).config
+    assert set(SHAPES) == set(J_SHAPES)
+    for name, shape in SHAPES.items():
+        assert dataclasses.asdict(shape) == dataclasses.asdict(
+            J_SHAPES[name])
+        ok, why = shape_applicable(arch, name)
+        assert ok == j_applicable(arch, name)[0] and bool(why) != ok
+        got = input_specs(cfg, shape)
+        want = j_input_specs(jcfg, J_SHAPES[name])
+        if shape.kind == "decode":
+            assert all(t.device.type == "meta"
+                       for t in tree_leaves(got["cache"]))
+            assert _port_cache_as_jax_shapes(got["cache"], cfg) == \
+                _jax_shapes(want["cache"])
+            got = dict(got, cache=None)
+            want = dict(want, cache=None)
+        leaves = jax.tree.map(
+            lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+            got, is_leaf=torch.is_tensor)
+        assert leaves == _jax_shapes(want)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_materialize_batch_matches_jax_shapes(kind):
+    """``materialize_batch`` at a small shape: the JAX package's
+    structure, shapes and types, ids within the vocabulary, positions
+    0..S-1 and the decode index S-1; seeded."""
+    shape = dataclasses.replace(
+        next(s for s in SHAPES.values() if s.kind == kind),
+        seq_len=12, global_batch=2)
+    # the frontends' batches; a decode cache with kv and ssm fields
+    archs = (("hymba-1.5b",) if kind == "decode"
+             else ("paligemma-3b", "musicgen-medium"))
+    for arch in archs:
+        cfg = get_arch(arch).reduced
+        if cfg.frontend == "vision_stub":
+            shape = dataclasses.replace(shape,
+                                        seq_len=cfg.vision_prefix + 4)
+        got = materialize_batch(cfg, shape, seed=1, device="cpu")
+        want = j_materialize(j_get_arch(arch).reduced, shape, seed=1)
+        if kind == "decode":
+            assert _port_cache_as_jax_shapes(got["cache"], cfg) == \
+                _jax_shapes(want["cache"])
+            assert int(got["index"]) == int(want["index"]) == 11
+            got, want = got["tokens"], want["tokens"]
+        else:
+            np.testing.assert_array_equal(got["batch"]["positions"],
+                                          np.asarray(want["batch"]
+                                                     ["positions"]))
+            got, want = got["batch"], want["batch"]
+        shapes = jax.tree.map(
+            lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+            got, is_leaf=torch.is_tensor)
+        assert shapes == _jax_shapes(want)
+        for t in tree_leaves(got):
+            if t.dtype == torch.int32 and t.dim() == 2:
+                assert 0 <= int(t.min()) and int(t.max()) < cfg.vocab_size
+        again = materialize_batch(cfg, shape, seed=1, device="cpu")
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(again), tree_leaves(
+                       materialize_batch(cfg, shape, seed=1,
+                                         device="cpu"))))
 
 
 def test_init_params_is_seeded_and_shaped():
@@ -230,15 +381,24 @@ def test_init_params_is_seeded_and_shaped():
 
 
 def test_later_slice_blocks_raise():
-    """MoE, MLA, SSM and hybrid blocks and training are later slices."""
-    jcfg = j_get_arch("llama4-scout-17b-a16e").reduced
-    with pytest.raises(NotImplementedError):
-        tt.model_specs(jcfg)
-    cfg = get_arch("gemma3-1b").reduced
-    for kind in ("moe", "hymba", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError):
-            tt.init_block_cache(cfg, kind, 1, 8, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
+    """What the serving slice leaves to the training slice raises and
+    says so: ``loss_fn`` (with the MTP loss) and the expert-parallel a2a
+    body over a mesh; every other block kind builds specs and caches."""
+    with pytest.raises(NotImplementedError, match="training slice"):
         tt.loss_fn()
+    cfg = get_arch("llama4-scout-17b-a16e").reduced
+    p = init_params(tt.model_specs(cfg), 0, device="cpu")["layers"][0]
+    x = torch.zeros(1, 3, cfg.d_model)
+    for impl in ("auto", "a2a"):
+        with pytest.raises(NotImplementedError, match="training slice"):
+            t_moe.moe_ffn(p["moe"], cfg, x, impl=impl, mesh=object())
+    y, aux = t_moe.moe_ffn(p["moe"], cfg, x, impl="dense", mesh=object())
+    assert y.shape == x.shape and float(aux) > 0
+    with pytest.raises(ValueError, match="impl"):
+        t_moe.moe_ffn(p["moe"], cfg, x, impl="grouped")
+    for kind in ("moe", "moe_local", "hymba", "hymba_g", "mlstm", "slstm"):
+        assert tt.init_block_cache(cfg, kind, 1, 8, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="block kind"):
+        tt.init_block_cache(cfg, "retnet", 1, 8, torch.float32, "cpu")
     with pytest.raises(KeyError):
-        get_arch("deepseek-v3-671b")
+        get_arch("gpt-2")

@@ -151,6 +151,40 @@ def test_engine_matches_jax(models, scenario, arch, slots):
     _same(eng)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "hymba-1.5b",
+                                  "xlstm-125m"])
+def test_engine_serves_every_block_kind_as_jax(arch):
+    """MLA + MoE, hymba (windowed GQA + mamba state) and xLSTM (mLSTM and
+    sLSTM states) under continuous batching: three requests on two slots,
+    the third joining mid-flight into a slot another request left, so its
+    prefill must overwrite every cache field of the slot (``kv``, ``ssm``,
+    ``state``); hymba's prompts fill its 16-token window and decode past
+    it.  Identical tokens, tick counts and ``done`` order to the JAX
+    engine on carried weights (f32)."""
+    jcfg = dataclasses.replace(j_get_arch(arch).reduced,
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(get_arch(arch).reduced,
+                               compute_dtype="float32")
+    jp = j_init(jt.model_specs(jcfg), 0)
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    eng = (j_eng.ServeEngine(jcfg, jp, j_eng.ServeConfig(num_slots=2,
+                                                         max_len=40)),
+           t_eng.ServeEngine(tcfg, tp, t_eng.ServeConfig(num_slots=2,
+                                                         max_len=40),
+                             device="cpu"))
+    rng = np.random.default_rng(6)
+    _submit(eng, 0, rng.integers(1, 512, 16), max_new_tokens=14)
+    _submit(eng, 1, rng.integers(1, 512, 9), max_new_tokens=3)
+    for e in eng:
+        for _ in range(4):
+            e.tick()
+    _submit(eng, 2, rng.integers(1, 512, 12), max_new_tokens=8)
+    for e in eng:
+        e.run_until_drained()
+    assert [r.uid for r in eng[1].done] == [1, 2, 0]
+    _same(eng)
+
+
 def test_engine_decode_matches_dedicated_decode(models):
     """Engine output for one request == plain prefill + decode_step."""
     _, _, cfg, params = models["smollm-135m"]
