@@ -29,3 +29,30 @@ def table(headers: List[str], rows: List[List]) -> str:
     for r in rows:
         out.append("  ".join(str(c).rjust(w[i]) for i, c in enumerate(r)))
     return "\n".join(out)
+
+
+def environment(device) -> Dict:
+    """Where a bench ran: the device (with the card's name and power limit
+    from ``nvidia-smi`` on a card), the torch and CUDA versions and the
+    git commit (None outside a git checkout)."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(device)
+    out = dict(device=str(dev), torch=torch.__version__,
+               cuda=torch.version.cuda, git_sha=None, gpu=None)
+    if dev.type == "cuda":
+        out["gpu"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    try:
+        sha = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            timeout=30, cwd=Path(__file__).resolve().parents[1])
+        if sha.returncode == 0:
+            out["git_sha"] = sha.stdout.strip()
+    except OSError:
+        pass
+    return out

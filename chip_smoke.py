@@ -130,9 +130,29 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      logits within 1e-3.  K6 is held against its plain version at MLA's
      full-width decode and prefill shapes in 11.
 
+ 14. expert balancing (``repro_torch.train.ep_runtime``): (a) the EP
+     replay at deepseek-v3's routing shape — 256 experts top-8 on 32 EP
+     ranks, 4096 tokens a step, 48 steps, LB every 8, diff-comm under the
+     fixed cadence — with the launch counts set to 0 just before and read
+     just after (K1 at each plan, K3 at each exchange, K4 every step):
+     the device-resident loop equal to the host loop on the card and to
+     the CPU's run, every fire capacity-exact; steps/s and its idle share
+     under the profiler; (b) inside 13., while deepseek-v3's weights are
+     resident, an ``EPRebalancer`` fed the router's statistics of one
+     prompt relocates the 256 experts over 32 EP ranks in place
+     (``wi``/``wg``/``wo``, 22.5 GB in bf16, and the router's columns):
+     slot_expert a permutation, 8 experts a rank, moved bytes = moved
+     experts × bytes a slot, the prompt's logits within 1e-3 of before
+     with the same greedy token, the router's physical counts the old
+     ones permuted; the exchange's time against 2 × moved bytes / 3.35
+     TB/s; (c) the replay of (a) over 8 shards equal to one device; (d)
+     the gates of ``benchmarks_torch/moe_bench.py`` and
+     ``ep_balance_bench.py``.
+
 It prints the card's name and power limit, one JSON line of the sharded
-phases' numbers, one of the model families', one JSON line of per-kernel
-numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
+phases' numbers, one of the model families', one of expert balancing,
+one JSON line of per-kernel numbers, and as its last line
+``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where ``torch.cuda.is_available()`` is False.
 """
@@ -279,6 +299,23 @@ FAM_STEP = {
 }
 FAM_STEP_SHAPE = dict(batch=2, prompt=512, steps=8)
 FAM_KERNELS = ("flash_attention",)
+# phase 14: expert balancing.  (a) the EP replay at deepseek-v3's routing
+# shape: the JAX moe bench's scale entry (256 experts on 32 EP ranks, 4096
+# tokens a step, Zipf 0.5, hot block x3, seed 1) with deepseek-v3's top-8,
+# the EP32 deployment of arXiv:2412.19437 §3.4; 48 steps, LB every 8,
+# diff-comm under the fixed cadence; (c) the same over 8 shards
+EP = dict(num_experts=256, num_ranks=32, top_k=8, tokens_per_step=4096,
+          alpha=0.5, hot_amp=2.0, trace_len=48, seed=1)
+EP_RUN = dict(steps=48, lb_every=8, strategy="diff-comm", trigger="every")
+EP_SHARDS = 8
+EP_KERNELS = ("diffusion_nsweeps", "histogram", "scatter_dest")
+# (b) deepseek-v3's experts (phase 13's weights) relocated over 32 EP ranks
+EP_ARCH = "deepseek-v3-671b"
+EP_RELOCATE_RANKS = 32
+# (d) the two benches' gates at their own sizes (a rehearsal shrinks them)
+EP_BENCH = dict(moe_steps=96, scale={}, ep_balance={})
+EPB: dict = {}          # phase 14's numbers (one JSON line)
+EP_LAUNCHES: dict = {}  # K1/K3/K4 launches on phase 14's paths
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -1847,7 +1884,7 @@ def family_serve(arch):
         # picks top_k experts in each MoE layer
         pr = torch.as_tensor(prompts[-1], device=DEV)[None]
         pos = torch.arange(pr.shape[1], dtype=torch.int32, device=DEV)[None]
-        _, _, (_, st) = transformer.forward(
+        h0, _, (_, st) = transformer.forward(
             params, cfg, dict(tokens=pr, positions=pos),
             collect_router_stats=True, with_aux=True)
         n_moe = sum(k.startswith("moe") for k in cfg.all_layers())
@@ -1888,7 +1925,12 @@ def family_serve(arch):
           + (f"; window ring up to position {out['ring_max_pos']} in "
              f"{out['ring_slots']} slots" if "ring_max_pos" in out else "")
           + f" [{SMI}]")
-    del e, params
+    del e
+    if FAM_FULL and arch == EP_ARCH and EP_RELOCATE_RANKS:
+        # phase 14 (b): relocate the resident experts by a plan of this
+        # prompt's router statistics
+        EPB["relocation"] = ep_relocation(cfg, params, pr, pos, h0, st)
+    del params
     return out
 
 
@@ -1986,6 +2028,333 @@ def families_path():
     _reset_peak()
     return {a: FAMILIES[a]["flash_launches"]
             for a in (*FAM_SERVE, *FAM_STEP)}
+
+
+# ---------------------------------------------------- expert balancing --
+
+
+EP_FIELDS = ("lb_fired", "max_avg", "moved_experts", "moved_bytes",
+             "final_placement", "final_slot_expert", "final_wsig")
+
+
+def _f32_logits(params, cfg, h):
+    """Last-position logits in f32 from the hidden states (the head's
+    weights cast to f32: a comparison that bf16 rounding of the logits
+    would hide)."""
+    w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    return h[:, -1].float() @ w.float()
+
+
+def _relocate(epr, mops, kernels, E, R, cap, st0, moe_layers, tried):
+    """One ``EPRebalancer.step`` at t = 1 (the fixed cadence never fires
+    at t = 0) under diff-comm, then ep-greedy where diff-comm moved no
+    expert; launch counts set to 0 just before each and read just
+    after."""
+    import numpy as np
+
+    for strategy in ("diff-comm", "ep-greedy"):
+        reb = epr.EPRebalancer(E, R, strategy=strategy, trigger="every",
+                               lb_every=1, device=DEV)
+        check(np.array_equal(reb.placement, np.arange(E) // cap),
+              "relocation: the rebalancer does not start from the block "
+              "placement")
+        kernels.reset_launch_counts()
+        k3_0 = dict(mops.form_launches)
+        _reset_peak()
+        info0 = _peak_gib()            # what is resident before the step
+        _sync()
+        t0 = time.perf_counter()
+        layers, info = reb.step(1, st0.counts, st0.coact, moe_layers,
+                                in_place=True)
+        _sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        tried[strategy] = int(info.get("moved_experts", 0))
+        check(info["fired"], f"relocation ({strategy}): the every trigger "
+              "did not fire at t = 1")
+        if info["moved_experts"] > 0:
+            break
+    info["resident_gib"] = info0
+    info["slot_expert"] = reb.slot_expert
+    info["placement"] = reb.placement
+    return layers, info, strategy, wall, counts, k3_0
+
+
+def ep_relocation(cfg, params, pr, pos, h0, st0):
+    """Phase 14 (b): deepseek-v3's resident MoE layer relocated by an
+    ``EPRebalancer`` over EP_RELOCATE_RANKS ranks, fed the router's
+    statistics of one prompt (physical slots = logical experts at the
+    start); the same prompt's forward after the relocation against
+    before.  diff-comm plans; where it moves no expert on this snapshot,
+    ep-greedy does (recorded)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.migrate import ops as mops
+    from repro_torch.models import transformer
+    from repro_torch.train import ep_runtime as epr
+
+    E, R = cfg.moe.num_experts, EP_RELOCATE_RANKS
+    cap = E // R
+    logits0 = _f32_logits(params, cfg, h0)
+    moe_layers = [params["layers"][i]["moe"]
+                  for i, k in enumerate(cfg.all_layers())
+                  if k.startswith("moe")]
+    bpe = epr.expert_param_bytes(moe_layers)
+    expert_bytes = bpe * E - sum(
+        layer["router"].numel() * layer["router"].element_size()
+        for layer in moe_layers)
+    tried, timing = {}, {}
+    execute = epr.execute_placement
+
+    def timed_execute(*a, **kw):
+        _sync()
+        t = time.perf_counter()
+        out = execute(*a, **kw)
+        _sync()
+        timing["s"] = time.perf_counter() - t
+        return out
+
+    epr.execute_placement = timed_execute    # the step's exchange, timed
+    try:
+        layers, info, strategy, wall, counts, k3_0 = _relocate(
+            epr, mops, kernels, E, R, cap, st0, moe_layers, tried)
+    finally:
+        epr.execute_placement = execute
+    check(info["moved_experts"] >= 1, f"relocation: no expert moved "
+          f"({tried})")
+    check(all(a is b for a, b in zip(layers, moe_layers)),
+          "relocation: the layers were not relocated in place")
+    se = info["slot_expert"]
+    check(np.array_equal(np.sort(se), np.arange(E)),
+          "relocation: slot_expert is not a permutation")
+    check((np.bincount(info["placement"], minlength=R) == cap).all(),
+          f"relocation: a rank does not hold {cap} experts")
+    check(info["moved_bytes"] == info["moved_experts"] * bpe,
+          f"relocation: moved bytes {info['moved_bytes']} != "
+          f"{info['moved_experts']} x {bpe}")
+    peak = _peak_gib()
+    h1, _, (_, st1) = transformer.forward(
+        params, cfg, dict(tokens=pr, positions=pos),
+        collect_router_stats=True, with_aux=True)
+    logits1 = _f32_logits(params, cfg, h1)
+    err = float((logits1 - logits0).abs().max())
+    check(err <= 1e-3, f"relocation: logits moved by {err} (> 1e-3)")
+    tok0, tok1 = int(logits0.argmax()), int(logits1.argmax())
+    check(tok0 == tok1, f"relocation: greedy token {tok1}, not {tok0}")
+    sel = torch.as_tensor(se, device=st0.counts.device).long()
+    check(torch.equal(st1.counts, st0.counts[sel])
+          and torch.equal(st1.coact, st0.coact[sel][:, sel]),
+          "relocation: the physical router counts are not the old ones "
+          "permuted by slot_expert")
+    moved_b = info["moved_bytes"]
+    bound_s = 2 * moved_b / PEAK_BYTES_PER_S
+    ex_s = timing["s"]
+    out = dict(strategy=strategy, moved_by_strategy=tried, ranks=R,
+               moved_experts=info["moved_experts"], moved_bytes=moved_b,
+               bytes_per_expert_slot=bpe, expert_stack_bytes=expert_bytes,
+               max_avg_before=info["max_avg"], step_s=wall,
+               plan_s=info["plan"].get("plan_seconds"), exchange_s=ex_s,
+               bytes_per_s=moved_b / ex_s, hbm_bound_s=bound_s,
+               bound_share=bound_s / ex_s, peak_gib=peak,
+               resident_gib=info["resident_gib"],
+               logits_max_abs_err=err, greedy_token=tok0,
+               launches={k: v for k, v in counts.items() if v},
+               k3_forms={f: n - k3_0[f]
+                         for f, n in mops.form_launches.items()})
+    EP_LAUNCHES.setdefault("relocation", {}).update(
+        {k: counts[k] for k in EP_KERNELS})
+    print(f"relocation of {cfg.name}'s {E} experts over {R} EP ranks "
+          f"({strategy}; moved by strategy {tried}): "
+          f"{info['moved_experts']} experts, {moved_b:.6g} bytes "
+          f"({bpe:.6g} a slot; the expert stack {expert_bytes:.6g} bytes): "
+          f"the exchange {1e3 * ex_s:.4f} ms, {moved_b / ex_s / 1e9:.3f} "
+          f"GB/s, HBM bound (2 x moved bytes / 3.35 TB/s) "
+          f"{1e3 * bound_s:.4f} ms = {bound_s / ex_s:.4f} of it; the whole "
+          f"step {1e3 * wall:.3f} ms (plan {out['plan_s']} s); peak "
+          f"{peak:.3f} GiB ({info['resident_gib']:.3f} resident before "
+          f"it); logits "
+          f"within {err:.3g} of before, greedy token {tok0} kept; router "
+          f"counts permuted exactly; launches {out['launches']} [{SMI}]")
+    return out
+
+
+def ep_replay_phase():
+    """Phase 14 (a): the EP replay at EP on the card — the device-resident
+    loop with the launch counts set to 0 just before and read just after,
+    the host loop (each fire's repair checked capacity-exact) and the CPU
+    equal to it; steps/s and the idle share under the profiler.  Returns
+    the device-resident run's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import ep_balance as eb
+    from repro_torch.kernels.diffusion import ops as dops
+    from repro_torch.kernels.histogram import ops as hops
+    from repro_torch.kernels.migrate import ops as mops
+    from repro_torch.train import ep_runtime as epr
+
+    w = epr.RoutingWorkload(**EP)
+    E, R, T = EP["num_experts"], EP["num_ranks"], EP_RUN["steps"]
+    cap = E // R
+    epr.run_ep_replay(w, **dict(EP_RUN, steps=EP_RUN["lb_every"] + 1),
+                      device=DEV)                              # warm-up
+    _sync()
+    kernels.reset_launch_counts()
+    k1_0, k3_0 = dict(dops.form_launches), dict(mops.form_launches)
+    k4_0 = dict(hops.form_launches)
+    res = epr.run_ep_replay(w, **EP_RUN, device=DEV)
+    counts = kernels.launch_counts()
+    K4_PATH_FORMS["EP replay"] = {f: n - k4_0[f]
+                                  for f, n in hops.form_launches.items()}
+    k3_forms_since(k3_0, "EP replay", counts["scatter_dest"])
+    k1_forms_since(k1_0, "EP replay", R, min(4, R - 1),
+                   counts["diffusion_nsweeps"])
+    for name in EP_KERNELS:
+        check(counts[name] > 0 or DEV != "cuda", f"kernel {name} was not "
+              "launched on the EP replay")
+    EP_LAUNCHES["replay"] = {k: counts[k] for k in EP_KERNELS}
+    check(res.scanned, "the EP replay did not take the device-resident "
+          "loop")
+    fired = np.flatnonzero(res.lb_fired).tolist()
+    want = [t for t in range(1, T) if t % EP_RUN["lb_every"] == 0]
+    check(fired == want, f"EP replay fired at {fired}, not {want}")
+    check(res.moved_experts.sum() > 0, "EP replay: no expert moved")
+    check(np.isfinite(res.max_avg).all(), "EP replay: non-finite max/avg")
+    # the host loop on the card, every fire's repair capacity-exact
+    repairs = []
+    orig = eb.repair_capacity
+
+    def checked(*a, **kw):
+        out = orig(*a, **kw)
+        repairs.append(torch.bincount(out.long(), minlength=R).cpu())
+        return out
+
+    eb.repair_capacity = checked
+    try:
+        host = epr.run_ep_replay(w, **EP_RUN, scan=False, device=DEV)
+    finally:
+        eb.repair_capacity = orig
+    check(len(repairs) == len(fired) and all(
+        bool((c == cap).all()) for c in repairs),
+        f"EP replay: a fire was not capacity-exact ({len(repairs)} "
+        f"repairs for {len(fired)} fires)")
+    _equal_fields(host, res, EP_FIELDS, "EP replay host loop vs "
+                  "device-resident")
+    check(np.array_equal(np.sort(res.final_slot_expert), np.arange(E))
+          and (np.bincount(res.final_placement, minlength=R) == cap).all()
+          and np.array_equal(res.final_placement[res.final_slot_expert],
+                             np.arange(E) // cap),
+          "EP replay: experts not conserved or placement not "
+          "capacity-exact")
+    check(np.array_equal(np.sort(res.final_wsig, 0), np.sort(
+        epr._sig0(E, device="cpu").numpy(), 0)),
+        "EP replay: payload rows not conserved")
+    t0 = time.perf_counter()
+    cpu = epr.run_ep_replay(w, **EP_RUN, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    exact = tuple(f for f in EP_FIELDS if f != "max_avg")
+    _equal_fields(res, cpu, exact, f"EP replay {DEV} vs cpu")
+    # max/avg: every sum in the JAX package's CPU order on both devices;
+    # held within 2 f32 spacings, the difference printed
+    ulps = float((np.abs(res.max_avg - cpu.max_avg) / np.spacing(
+        cpu.max_avg.astype(np.float32)).astype(np.float64)).max())
+    check(ulps <= 2, f"EP replay {DEV} vs cpu: max/avg {ulps} ulp apart")
+    out = dict(workload=EP, run=EP_RUN, fires=fired,
+               moved_experts=float(res.moved_experts.sum()),
+               moved_bytes=res.total_moved_bytes,
+               mean_max_avg=float(res.max_avg.mean()),
+               final_max_avg=float(res.max_avg[-1]),
+               loop_s=res.wall_seconds, steps_per_s=T / res.wall_seconds,
+               host_loop_s=host.wall_seconds,
+               host_steps_per_s=T / host.wall_seconds,
+               cpu_s=cpu_s, cpu_max_avg_ulps=ulps,
+               launches=EP_LAUNCHES["replay"],
+               k1_forms=K1_PATH_FORMS["EP replay"],
+               k3_forms=K3_PATH_FORMS["EP replay"],
+               k4_forms=K4_PATH_FORMS["EP replay"])
+    if DEV == "cuda":
+        from benchmarks_torch.serve_replay_profile import profile_replay
+
+        _, prof = profile_replay(
+            lambda: epr.run_ep_replay(w, **EP_RUN, device=DEV))
+        out.update(profiled_loop_ms=prof["loop_ms"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   idle_share=prof["idle_share"],
+                   device_events=sum(r["count"] for r in prof["kernels"]),
+                   top_kernels=prof["kernels"][:8])
+    EPB["replay"] = out
+    RESULTS["ep"] = host
+    print(f"EP replay: {E} experts top-{EP['top_k']} on {R} ranks, "
+          f"{EP['tokens_per_step']} tokens a step, {T} steps in "
+          f"{res.wall_seconds:.3f} s ({out['steps_per_s']:.3f} steps/s; "
+          f"host loop {out['host_steps_per_s']:.3f} steps/s; the CPU "
+          f"{cpu_s:.3f} s); fired at {fired}, moved "
+          f"{int(out['moved_experts'])} experts ({res.total_moved_bytes:.6g}"
+          f" bytes), mean max/avg {out['mean_max_avg']:.6f}; host loop and "
+          f"CPU equal, every fire capacity-exact; launches "
+          f"{EP_LAUNCHES['replay']}, K1 forms {out['k1_forms']}, K3 forms "
+          f"{out['k3_forms']}, K4 forms {out['k4_forms']}"
+          + (f"; under the profiler: loop {out['profiled_loop_ms']:.1f} ms, "
+             f"device busy {out['device_busy_ms']:.1f} ms, idle share "
+             f"{out['idle_share']:.4f} ({out['device_events']} device "
+             f"events)" if "idle_share" in out else "") + f" [{SMI}]")
+    return counts
+
+
+def ep_sharded_phase():
+    """Phase 14 (c): the EP replay over EP_SHARDS shards of one card
+    equals the single-device host loop."""
+    from repro_torch.train import ep_runtime as epr
+
+    w = epr.RoutingWorkload(**EP)
+    t0 = time.perf_counter()
+    r = epr.run_ep_replay(w, **EP_RUN, num_shards=EP_SHARDS, device=DEV)
+    wall = time.perf_counter() - t0
+    check(r.sharded, "EP replay: the sharded run did not shard")
+    _equal_fields(r, RESULTS["ep"], EP_FIELDS,
+                  f"EP replay over {EP_SHARDS} shards vs one device")
+    EPB["sharded"] = dict(shards=EP_SHARDS, loop_s=r.wall_seconds,
+                          steps_per_s=EP_RUN["steps"] / r.wall_seconds)
+    print(f"EP replay over {EP_SHARDS} shards on one {DEV}: equal to the "
+          f"single-device run in {', '.join(EP_FIELDS)}; {wall:.3f} s "
+          f"({EPB['sharded']['steps_per_s']:.3f} steps/s)")
+
+
+def ep_bench_gates():
+    """Phase 14 (d): the moe bench's three gates (diffusion + predictive
+    beats greedy + every on tokens/s and weight bytes on both workloads,
+    the two loops bit for bit, the scale entry fires and moves bytes) and
+    the ep_balance bench's two (diff-comm's max/avg below static's, moved
+    experts at most greedy's), on the card."""
+    from benchmarks_torch import ep_balance_bench, moe_bench
+
+    out = {}
+    t0 = time.perf_counter()
+    moe_bench.bench_policies(out, steps=EP_BENCH["moe_steps"], device=DEV,
+                             repeats=1)
+    moe_bench.bench_scale(out, device=DEV, repeats=1, **EP_BENCH["scale"])
+    for wname, e in out["workloads"].items():
+        check(all(e["gates"].values()), f"moe bench {wname}: gates "
+              f"{e['gates']}")
+    eb = ep_balance_bench.policies(device=DEV, **EP_BENCH["ep_balance"])
+    check(all(eb["gates"].values()), f"ep_balance bench: gates "
+          f"{eb['gates']}")
+    EPB["benches"] = dict(
+        moe={w: dict(gates=e["gates"], **{
+            p: {k: r[k] for k in ("tokens_per_second", "moved_weight_bytes",
+                                  "rebalances", "wall_seconds")}
+            for p, r in e["policies"].items()})
+            for w, e in out["workloads"].items()},
+        moe_parity_fires=out["parity_fires"], moe_scale=out["scale"],
+        ep_balance=dict(gates=eb["gates"], policies=eb["policies"]),
+        seconds=time.perf_counter() - t0)
+    print(f"moe bench gates hold on {sorted(out['workloads'])}, the loops "
+          f"equal ({out['parity_fires']:.0f} fires), the scale entry fired "
+          f"{out['scale']['rebalances']:.0f} times "
+          f"({out['scale']['steps_per_second']:.3f} steps/s); ep_balance "
+          f"bench gates hold {eb['gates']}; "
+          f"{EPB['benches']['seconds']:.3f} s")
 
 
 # ------------------------------------------------------ sharded paths --
@@ -2772,6 +3141,9 @@ def main() -> int:
     fig5_sharded()
     sharded_k = sharded_kernel_checks()
     fam_counts = families_path()
+    ep_counts = ep_replay_phase()
+    ep_sharded_phase()
+    ep_bench_gates()
     K3_LAUNCHES.update(PIC=counts["scatter_dest"],
                        serving=serve_counts["scatter_dest"],
                        serving_spill=spill_counts["scatter_dest"],
@@ -2782,6 +3154,9 @@ def main() -> int:
     # K4 on the PIC path's and the fleet's; K2 in the step_fn plan)
     for name in FLEET_KERNELS:
         counts[name] += fleet_counts[name]
+    # and on the EP replay's run (phase 14)
+    for name in EP_KERNELS:
+        counts[name] += ep_counts[name]
     counts["diffusion_nsweeps"] += sim_counts["diffusion_nsweeps"]
     counts["diffusion_sweep"] = step_counts["diffusion_sweep"]
     # K6 on the serving path and on each model family's path of phase 13
@@ -2797,6 +3172,11 @@ def main() -> int:
         f"serving ({SERVE_ARCH})": serve_counts["flash_attention"],
         **fam_counts}
     check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")
+    # K1, K3 and K4 on phase 14's paths: the EP replay, the relocation
+    for r in rows:
+        if r["name"] in EP_KERNELS:
+            r.setdefault("launches_by_path", {}).update({
+                f"EP {p}": n[r["name"]] for p, n in EP_LAUNCHES.items()})
     # K3, K4 and K5 at the sharded PIC path's shapes, with their launches
     # on that path's run
     for r in rows:
@@ -2805,6 +3185,7 @@ def main() -> int:
                                     launches=sharded_counts[r["name"]])
     print(json.dumps({"sharded": SHARDED}))
     print(json.dumps({"families": FAMILIES}))
+    print(json.dumps({"expert_balancing": EPB}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

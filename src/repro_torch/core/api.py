@@ -1,11 +1,14 @@
 """Public API: the three-stage communication-aware diffusion balancer
-(counterpart of ``repro.core.api``).  Planning lives in
-:mod:`repro_torch.core.engine`; ``STRATEGIES`` is a mapping view over its
-registry."""
+(counterpart of ``repro.core.api``).
+
+``diffusion_lb(problem)`` composes the stages of §III (plus the §IV
+coordinate variant) and returns a new assignment with planning stats.
+Planning lives in :mod:`repro_torch.core.engine`; ``STRATEGIES`` is a
+mapping view over its registry."""
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -16,6 +19,27 @@ from repro_torch.core import comm_graph, engine, metrics
 class LBPlan(NamedTuple):
     assignment: np.ndarray
     info: Dict
+
+
+def diffusion_lb(
+    problem: comm_graph.LBProblem,
+    *,
+    k: int = 4,
+    variant: str = "comm",          # "comm" (§III) | "coord" (§IV)
+    tol: float = 0.02,
+    max_iters: int = 512,
+    max_rounds: int = 64,
+    single_hop: bool = True,
+    step_fn: Optional[Callable] = None,
+    device="cuda",
+) -> LBPlan:
+    """Eager single-snapshot planning through the cached engine of
+    ``device`` (the problem moves there first if it lives elsewhere)."""
+    eng = engine.get_engine(
+        variant=variant, k=k, tol=tol, max_iters=max_iters,
+        max_rounds=max_rounds, single_hop=single_hop, step_fn=step_fn,
+        device=device)
+    return eng.plan(problem)
 
 
 class _StrategyView(Mapping):

@@ -296,6 +296,41 @@ def node_comm_matrix(problem: LBProblem) -> torch.Tensor:
     return m + m.T  # symmetrize; diagonal counts both directions of intra
 
 
+def object_node_bytes(problem: LBProblem, nbr_idx: torch.Tensor,
+                      assignment: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """(N, K) bytes each object exchanges with each of its node's
+    neighbors (the paper's §III.C selection metric).
+
+    ``nbr_idx`` is the (P, K) neighbor table (padded with -1).  Entry
+    ``[o, k]`` is the total bytes object ``o`` exchanges with objects that
+    currently live on node ``nbr_idx[assignment[o], k]``; callers re-invoke
+    it with the updated assignment between selection phases (peers update
+    their patterns when an object moves).  The per-entry sums add each
+    direction's edges in index order (:func:`segment_sum`)."""
+    if assignment is None:
+        assignment = problem.assignment
+    N = problem.num_objects
+    K = int(nbr_idx.shape[1])
+    valid = problem.edges_src >= 0
+    src = torch.where(valid, problem.edges_src, 0).long()
+    dst = torch.where(valid, problem.edges_dst, 0).long()
+    w = torch.where(valid, problem.edges_bytes, 0.0)
+    assignment = assignment.long()
+    slots = torch.arange(K, device=src.device)
+
+    def one_direction(a, b):
+        # edge a->b: its bytes go to a's slot of the neighbor owning b
+        a_nbrs = nbr_idx[assignment[a]]                        # (E, K)
+        match = (a_nbrs == assignment[b][:, None]) & (a_nbrs >= 0)
+        contrib = torch.where(match, w[:, None], 0.0)
+        return segment_sum(contrib.reshape(-1),
+                           (a[:, None] * K + slots).reshape(-1),
+                           N * K).reshape(N, K)
+
+    return one_direction(src, dst) + one_direction(dst, src)
+
+
 def make_problem(loads, assignment, edges, edge_bytes, num_nodes: int,
                  coords=None, *, device="cuda") -> LBProblem:
     """Convenience constructor from host arrays (``edges`` is (E, 2))."""

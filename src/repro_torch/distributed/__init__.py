@@ -1,4 +1,5 @@
 """Sharded planning and replay (counterpart of ``repro.distributed``'s
 mesh modules): :mod:`.mesh` (the D-shard mesh on one device),
 :mod:`.lb_shard` (the mesh-sharded planner) and :mod:`.replay_shard` (the
-sharded series, PIC and serving replays)."""
+sharded series, PIC and serving replays) — and :mod:`.ep_balance`, the
+paper's balancer on the MoE expert placement."""

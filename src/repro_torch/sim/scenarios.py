@@ -24,11 +24,13 @@ Registered workloads:
 
   serving-trace       — a recorded trace of the serving fleet replay's
                         bursty multi-turn sessions over replicas, with
-                        prefix-sharing comm edges (``serve/replay.py``).
+                        prefix-sharing comm edges (``serve/replay.py``);
+  routing-skew        — a recorded MoE expert-routing trace: EMA tokens per
+                        expert as loads, co-activation comm edges over EP
+                        ranks (``train/ep_runtime.py``).
 
 ``batch_instances`` instantiates every registered scenario at one common
-shape for the batched replay.  ``routing-skew`` comes with the MoE slice
-of the port.
+shape for the batched replay.
 """
 from __future__ import annotations
 
@@ -134,6 +136,9 @@ BATCH_VARIANTS: Dict[str, Callable[[int, int, int], Dict]] = {
     "serving-trace": lambda v, grid, num_nodes: dict(
         num_sessions=grid * grid, num_replicas=num_nodes,
         burst_period=20 + 5 * v, seed=v),
+    "routing-skew": lambda v, grid, num_nodes: dict(
+        num_experts=grid * grid, num_ranks=num_nodes,
+        drift_period=12 + 4 * v, seed=v),
 }
 
 
@@ -383,4 +388,89 @@ register(Scenario(
     defaults=dict(num_sessions=256, num_replicas=16, group_size=4,
                   trace_len=64, turn_period=12, turn_len=6, burst_waves=4,
                   burst_period=25, burst_amp=3.0, seed=0),
+))
+
+
+# ---------------------------------------------------------- routing skew --
+
+
+def _routing_skew(*, device, num_experts: int = 64, num_ranks: int = 8,
+                  top_k: int = 4, tokens_per_step: int = 1024,
+                  trace_len: int = 48, alpha: float = 1.0,
+                  hot_frac: float = 0.25, hot_amp: float = 4.0,
+                  drift_period: int = 16, edges_per_expert: int = 4,
+                  ema: float = 0.9, seed: int = 0):
+    """A recorded MoE expert-routing trace as a registry workload.
+
+    ``trace_len`` steps of ``train.ep_runtime.RoutingWorkload``'s skewed
+    drifting top-k traffic, replayed as EMA routing statistics: experts
+    are the objects, EP ranks the nodes, loads the EMA tokens per expert;
+    the comm graph is the static set of strongest co-activation pairs (the
+    top ``edges_per_expert·E`` by total EMA co-activation over the trace,
+    plus a ring for connectivity), re-weighted from the recorded EMA
+    co-activation every step.  The statistics are computed in NumPy as the
+    JAX package computes them (``np.argpartition`` included), so the edge
+    set and every table entry are equal.  The table loops past its
+    length."""
+    from repro_torch.distributed import ep_balance  # uses core
+    from repro_torch.train import ep_runtime
+
+    E = num_experts
+    w = ep_runtime.RoutingWorkload(
+        num_experts=E, num_ranks=num_ranks, top_k=top_k,
+        tokens_per_step=tokens_per_step, alpha=alpha, hot_frac=hot_frac,
+        hot_amp=hot_amp, drift_period=drift_period, trace_len=trace_len,
+        seed=seed)
+    ids = w.ids_table()                              # (L, T, k)
+    L = trace_len
+    counts = np.zeros((L, E), np.float32)
+    coact = np.zeros((L, E, E), np.float32)
+    run_c = np.zeros(E)
+    run_x = np.zeros((E, E))
+    for t in range(L):
+        c, x = ep_balance.pair_stats_np(ids[t], E)
+        run_c = ema * run_c + (1.0 - ema) * c
+        run_x = ema * run_x + (1.0 - ema) * x
+        counts[t] = run_c
+        coact[t] = run_x
+    # static edge set: strongest persistent co-activation pairs + ring
+    iu, ju = np.triu_indices(E, k=1)
+    tot = coact.sum(axis=0)[iu, ju]
+    M = min(len(iu), edges_per_expert * E)
+    top = np.sort(np.argpartition(-tot, M - 1)[:M])
+    ring = {(i, (i + 1) % E) for i in range(E)}
+    ring |= {(j, i) for i, j in ring if i > j}
+    pairs = sorted({(int(iu[m]), int(ju[m])) for m in top}
+                   | {(min(a, b), max(a, b)) for a, b in ring})
+    es = np.asarray([a for a, _ in pairs], np.int32)
+    ed = np.asarray([b for _, b in pairs], np.int32)
+    ew_table = torch.as_tensor(coact[:, es, ed] + 1e-3, device=device)
+    counts_t = torch.as_tensor(counts, device=device)
+    cap = E // num_ranks
+    assignment = torch.div(torch.arange(E, dtype=torch.int32, device=device),
+                           cap, rounding_mode="floor").to(torch.int32)
+    problem = comm_graph.LBProblem(
+        loads=finite_loads(counts_t[0]), assignment=assignment,
+        edges_src=torch.as_tensor(es, device=device),
+        edges_dst=torch.as_tensor(ed, device=device),
+        edges_bytes=ew_table[0], num_nodes=num_ranks)
+
+    def evolve(p: comm_graph.LBProblem, t) -> comm_graph.LBProblem:
+        row = torch.remainder(_step(t, device), L).reshape(1).long()
+        return dataclasses.replace(
+            p, loads=finite_loads(counts_t.index_select(0, row)[0]),
+            edges_bytes=ew_table.index_select(0, row)[0])
+
+    return problem, evolve
+
+
+register(Scenario(
+    "routing-skew",
+    "recorded MoE expert-routing trace: EMA tokens-per-expert loads and "
+    "co-activation comm edges over EP ranks (train/ep_runtime.py)",
+    _routing_skew,
+    defaults=dict(num_experts=64, num_ranks=8, top_k=4,
+                  tokens_per_step=1024, trace_len=48, alpha=1.0,
+                  hot_frac=0.25, hot_amp=4.0, drift_period=16,
+                  edges_per_expert=4, ema=0.9, seed=0),
 ))

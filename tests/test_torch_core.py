@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import api as j_api
 from repro.core import comm_graph as j_cg
 from repro.core import engine as j_engine
 from repro.core import metrics as j_metrics
@@ -389,3 +390,60 @@ def test_strategy_registry_ported_subset():
     a, stats = t_engine.get_strategy("none").plan_fn(tp)
     assert torch.equal(a, tp.assignment)
     assert int(stats.diffusion_iters) == 0
+
+
+# ------------------------------------------- public entries of core.api --
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@pytest.mark.parametrize("variant", ["comm", "coord"])
+def test_diffusion_lb_is_the_engine_plan_and_matches_jax(name, variant):
+    """``api.diffusion_lb`` (the eager single-snapshot entry) returns the
+    cached engine's ``plan``: the same assignment and integer info, and
+    both equal the JAX package's ``diffusion_lb``."""
+    d = PROBLEMS[name]()
+    kw = dict(k=3, variant=variant, tol=0.05)
+    got = t_api.diffusion_lb(interop.problem_from_numpy(d, device=CPU),
+                             device=CPU, **kw)
+    via = t_engine.get_engine(device=CPU, **kw).plan(
+        interop.problem_from_numpy(d, device=CPU))
+    want = j_api.diffusion_lb(_jax_problem(d), **kw)
+    np.testing.assert_array_equal(got.assignment, via.assignment)
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+    for key in ("strategy", "k", "protocol_rounds", "diffusion_iters"):
+        assert got.info[key] == via.info[key] == want.info[key], key
+    from repro_torch import core
+
+    assert core.diffusion_lb is t_api.diffusion_lb
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@pytest.mark.parametrize("moved", [False, True])
+def test_object_node_bytes_matches_jax(name, moved):
+    """The §III.C metric: (N, K) bytes each object exchanges with each
+    neighbor node of its node, against the JAX package's — exact (each
+    entry adds its edges in index order on both sides), with the
+    problem's assignment and with one where a quarter of the objects
+    moved to another node (the "peers update their patterns" re-call)."""
+    d = PROBLEMS[name]()
+    pref = np.asarray(j_ns.comm_preference(
+        j_cg.node_comm_matrix(_jax_problem(d))))
+    nbr = np.array(j_ns.select_neighbors(jnp.asarray(pref), k=4).nbr_idx)
+    a = d["assignment"].copy()
+    if moved:
+        rng = np.random.default_rng(1)
+        pick = rng.random(a.shape[0]) < 0.25
+        a[pick] = (a[pick] + 1) % d["num_nodes"]
+    want = np.asarray(j_cg.object_node_bytes(
+        _jax_problem(d), jnp.asarray(nbr), jnp.asarray(a)))
+    got = t_cg.object_node_bytes(interop.problem_from_numpy(d, device=CPU),
+                                 torch.as_tensor(nbr),
+                                 torch.as_tensor(a)).numpy()
+    assert got.shape == (a.shape[0], nbr.shape[1])
+    np.testing.assert_array_equal(got, want)
+    if not moved:       # the default is the problem's own assignment
+        from repro_torch import core
+
+        again = core.object_node_bytes(
+            interop.problem_from_numpy(d, device=CPU), torch.as_tensor(nbr))
+        np.testing.assert_array_equal(again.numpy(), want)

@@ -1003,3 +1003,51 @@ def test_flash_simt_past_the_fast_forms(dev, G, hd):
         assert fops.flash_form(2, Sq, 70, 1, G, hd, F32, F32) == "simt"
         _flash_close(_take_form("simt", *args), chunked_attention(*args),
                      F32)
+
+
+@pytest.mark.parametrize("E,R,seed", [(24, 4, 0), (256, 32, 1), (256, 32, 2),
+                                      (64, 8, 3)])
+def test_repair_capacity_on_cuda_equals_cpu(dev, E, R, seed):
+    """The expert repair on the card equals the CPU's: stable sorts of f32
+    loads (ties included), integer one-hot sums; capacity-exact."""
+    from repro_torch.distributed import ep_balance
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, R // 2, size=E).astype(np.int32)
+    loads = rng.integers(0, 4, size=E).astype(np.float32)
+    loads[: E // 3] = rng.random(E // 3).astype(np.float32)
+    kw = dict(num_ranks=R, cap=E // R)
+    got = ep_balance.repair_capacity(torch.as_tensor(a, device=dev),
+                                     torch.as_tensor(loads, device=dev), **kw)
+    want = ep_balance.repair_capacity(torch.as_tensor(a),
+                                      torch.as_tensor(loads), **kw)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert (torch.bincount(got.long(), minlength=R) == E // R).all()
+
+
+@pytest.mark.parametrize("strategy,trigger", [("diff-comm", "every"),
+                                              ("diff-comm", "threshold"),
+                                              ("diff-comm+predictive", None)])
+def test_ep_replay_loops_on_cuda_equal_cpu(dev, strategy, trigger):
+    """The EP replay's device-resident and host loops on the card are
+    equal, and equal the CPU's run: fire steps, placements, slot layout,
+    payload signature and moved bytes exactly, max/avg within 2 ulp."""
+    from repro_torch.train import ep_runtime as epr
+
+    w = epr.RoutingWorkload(num_experts=64, num_ranks=8, top_k=8,
+                            tokens_per_step=512, trace_len=16, seed=1)
+    kw = dict(steps=16, strategy=strategy, trigger=trigger, lb_every=4)
+    a = epr.run_ep_replay(w, device=dev, **kw)
+    b = epr.run_ep_replay(w, device=dev, scan=False, **kw)
+    c = epr.run_ep_replay(w, device="cpu", **kw)
+    assert a.scanned and not b.scanned and a.lb_fired.sum() > 0
+    for f in ("lb_fired", "moved_experts", "moved_bytes", "final_placement",
+              "final_slot_expert", "final_wsig", "max_avg"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    for f in ("lb_fired", "moved_experts", "moved_bytes", "final_placement",
+              "final_slot_expert", "final_wsig"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(c, f),
+                                      err_msg=f)
+    sp = np.spacing(c.max_avg.astype(np.float32)).astype(np.float64)
+    assert (np.abs(a.max_avg - c.max_avg) <= 2 * sp).all()

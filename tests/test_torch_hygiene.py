@@ -21,7 +21,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert {"repro_torch.distributed.mesh", "repro_torch.distributed.lb_shard",
             "repro_torch.distributed.replay_shard",
             "repro_torch.runtime.resilience",
-            "repro_torch.train.fault_tolerance"} <= set(mods)
+            "repro_torch.train.fault_tolerance",
+            "repro_torch.distributed.ep_balance",
+            "repro_torch.train.ep_runtime"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -387,6 +389,57 @@ def test_sharded_entry_points_default_to_cuda():
         mesh.resolve_mesh(None, 2, (4,))
 
 
+def test_expert_balancing_entry_points_default_to_cuda():
+    """The expert-balancing slice's entry points (``run_ep_replay``,
+    ``execute_placement``, ``EPRebalancer``, ``core.diffusion_lb``, the
+    routing trace and the expert planner) run on the card unless asked for
+    the CPU; without one they raise."""
+    import inspect
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks_torch import ep_balance_bench, moe_bench
+    from repro_torch.core import api
+    from repro_torch.distributed import ep_balance
+    from repro_torch.train import ep_runtime
+
+    for fn in (ep_runtime.run_ep_replay, ep_runtime.execute_placement,
+               ep_runtime.EPRebalancer, ep_runtime.record_routing,
+               ep_runtime.RoutingWorkload.ids_at, api.diffusion_lb,
+               ep_balance.plan_placement, ep_balance.build_problem,
+               ep_balance_bench.run, moe_bench.run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    w = ep_runtime.RoutingWorkload(num_experts=8, num_ranks=2,
+                                   tokens_per_step=16, trace_len=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ep_runtime.run_ep_replay(w, steps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ep_runtime.EPRebalancer(8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ep_runtime.execute_placement([], np.arange(8), np.arange(8) // 4,
+                                     num_ranks=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ep_runtime.record_routing(w, steps=2)
+    stats = ep_balance.ExpertStats(8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ep_balance.plan_placement(stats, np.arange(8) // 4, 2)
+    from repro_torch.core import comm_graph
+
+    p = comm_graph.make_problem([1.0, 2.0], [0, 1], [[0, 1]], [1.0], 2,
+                                device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.diffusion_lb(p, k=1)
+    # the moe bench needs a card unless asked for the CPU, and says so
+    out = subprocess.run([sys.executable, str(
+        ROOT / "benchmarks_torch" / "moe_bench.py")], capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0 and "cuda" in out.stderr
+
+
 def test_plan_health_fn_without_health_is_plan_fn_op_for_op():
     """``plan_health_fn(problem, None)`` dispatches exactly the operations
     ``plan_fn`` does (the health masks add nothing when off), with equal
@@ -418,3 +471,59 @@ def test_plan_health_fn_without_health_is_plan_fn_op_for_op():
     assert torch.equal(got[0], want[0])
     for x, y in zip(got[1], want[1]):
         assert torch.equal(x, y)
+
+
+def test_chip_smoke_expert_balancing_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 14 (the EP replay against its host loop and the
+    CPU, every fire capacity-exact; the replay over 8 shards; the moe and
+    ep_balance benches' gates; a MoE layer's experts relocated in place
+    by an ``EPRebalancer`` fed its router statistics) runs end to end on
+    the CPU's plain versions at small sizes (the reduced deepseek-v3 over
+    2 ranks for the relocation)."""
+    import dataclasses
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "EP", dict(
+        num_experts=32, num_ranks=8, top_k=4, tokens_per_step=256,
+        alpha=0.5, hot_amp=2.0, trace_len=16, seed=1))
+    monkeypatch.setattr(chip_smoke, "EP_RUN", dict(
+        steps=16, lb_every=4, strategy="diff-comm", trigger="every"))
+    monkeypatch.setattr(chip_smoke, "EP_BENCH", dict(
+        moe_steps=48, scale=dict(num_experts=64, num_ranks=8, steps=16),
+        ep_balance=dict(E=32, R=4, periods=6, T=1024)))
+    monkeypatch.setattr(chip_smoke, "EP_RELOCATE_RANKS", 2)
+    monkeypatch.setattr(chip_smoke, "EPB", {})
+    monkeypatch.setattr(chip_smoke, "EP_LAUNCHES", {})
+    monkeypatch.setattr(chip_smoke, "RESULTS", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        counts = chip_smoke.ep_replay_phase()
+        chip_smoke.ep_sharded_phase()
+        chip_smoke.ep_bench_gates()
+        cfg = dataclasses.replace(get_arch("deepseek-v3-671b").reduced,
+                                  compute_dtype="float32")
+        params = init_params(transformer.model_specs(cfg), 0, device="cpu")
+        pr = torch.arange(1, 33, dtype=torch.int64)[None] * 7 % 500
+        pos = torch.arange(32, dtype=torch.int32)[None]
+        h0, _, (_, st) = transformer.forward(
+            params, cfg, dict(tokens=pr, positions=pos),
+            collect_router_stats=True, with_aux=True)
+        reloc = chip_smoke.ep_relocation(cfg, params, pr, pos, h0, st)
+    finally:
+        torch.set_num_threads(threads)
+    assert counts["scatter_dest"] == 0          # plain versions on the CPU
+    ep = chip_smoke.EPB
+    assert ep["replay"]["fires"] == [4, 8, 12]
+    assert ep["replay"]["cpu_max_avg_ulps"] == 0
+    assert ep["sharded"]["shards"] == 8
+    assert all(ep["benches"]["ep_balance"]["gates"].values())
+    assert reloc["moved_experts"] >= 1 and reloc["ranks"] == 2
+    assert reloc["logits_max_abs_err"] <= 1e-3

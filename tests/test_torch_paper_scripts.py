@@ -121,8 +121,8 @@ def test_fig5_reduced_matches_jax(monkeypatch):
     """The port's Fig 5 at 4 and 8 PEs, 50k particles, 50 steps, with a
     4-lane, 12-step batched sweep: its assertions hold; per scale and
     strategy, external bytes equal the JAX script's and max/avg is within
-    1e-6; the sweep's scenarios that both registries hold agree within
-    ``tests/test_engine.py``'s 1e-4.  The modeled times include the
+    1e-6; the sweep's four lanes (the same scenarios in both registries)
+    agree within ``tests/test_engine.py``'s 1e-4.  The modeled times include the
     measured plan wall time: at this size the assertion holds with 2.9 s
     or more of diff-comm planning (about 0.1 s on an idle CPU), where at
     20k particles × 30 steps a loaded CPU's 0.36 s broke it."""
@@ -149,7 +149,7 @@ def test_fig5_reduced_matches_jax(monkeypatch):
     cells = out["batched_scenarios"]["per_scenario"]
     ref_cells = want["batched_scenarios"]["per_scenario"]
     common = sorted(set(cells) & set(ref_cells))
-    assert len(common) == 3
+    assert len(common) == 4 and set(cells) == set(ref_cells)
     for name in common:
         np.testing.assert_allclose(cells[name]["mean_max_avg"],
                                    ref_cells[name]["mean_max_avg"],

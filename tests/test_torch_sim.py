@@ -126,18 +126,21 @@ SMALL = {"stencil-wave": dict(grid=16, num_nodes=8),
          "adversarial-hotspot": dict(grid=16, num_nodes=8, dwell=3),
          "bimodal-churn": dict(grid=16, num_nodes=8, churn_every=2),
          "serving-trace": dict(num_sessions=64, num_replicas=4,
-                               trace_len=8)}
+                               trace_len=8),
+         "routing-skew": dict(num_experts=32, num_ranks=4,
+                              tokens_per_step=256, trace_len=12)}
 
 # f32 spacings of the largest value that evolved loads and edge bytes may
 # be apart: exp/cos/sin differ by about 1 ulp between XLA and PyTorch on
 # the CPU (2.5 ulp measured after the Gaussian); pic-geometric normalizes
 # by a 144-term sum that XLA adds in another order (5 ulp measured in the
 # loads, 9 in the edge bytes that scale them, over 40 steps);
-# bimodal-churn is integer arithmetic and serving-trace a table of exact
-# products (rates from NumPy), both exact
+# bimodal-churn is integer arithmetic, serving-trace a table of exact
+# products (rates from NumPy) and routing-skew tables computed in NumPy,
+# all exact
 EVOLVE_ULPS = {"stencil-wave": 4, "pic-geometric": 12,
                "adversarial-hotspot": 4, "bimodal-churn": 0,
-               "serving-trace": 0}
+               "serving-trace": 0, "routing-skew": 0}
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
@@ -161,9 +164,9 @@ def test_scenario_evolve_matches(name):
 
 def test_scenario_registry_and_memo():
     assert set(t_scen.available()) == set(SMALL)
-    assert set(t_scen.available()) <= set(j_scen.available())
+    assert set(t_scen.available()) == set(j_scen.available())
     with pytest.raises(KeyError):
-        t_scen.get("routing-skew")
+        t_scen.get("no-such-scenario")
     s = t_scen.get("stencil-wave")
     p1, e1 = s.instantiate(device=CPU, grid=8, num_nodes=4)
     p2, e2 = s.instantiate(device="cpu", grid=8, num_nodes=4)
