@@ -5,7 +5,7 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
+It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
 
   1. drives the PIC path — the PIC PRK driver with the diff-comm balancer
      (``repro_torch.pic.driver.run``) at the paper's setup (L = 1000, 12×12
@@ -92,7 +92,15 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      SIMT f32 prefill), and its decode also cold: 26 caches, one a layer,
      rotated from call to call as on the serving path; and at MLA's
      full-width latent shapes (G = 128, hd = 576, values [ckv | 0]) in
-     decode and prefill, with device time, bound and SDPA's time.
+     decode and prefill, with device time, bound and SDPA's time; K6's
+     backward against the autograd of its plain version at phase 15
+     (a)'s attention call (B 8, S 2048, bf16, causal; its forward output
+     against the plain attention too, and the forward's times), at B 2,
+     a window, a prefix-LM and the reduced MLA latents, twice bit for
+     bit, with its time, bound, the plain version's and SDPA's backward.
+     Device times are CUDA events around calls queued behind a sleep
+     kernel, not the profiler's (which records only part of the runs
+     this late in the process).
 
  12. the sharded paths, each on one card with the D shards as the leading
      axis of its tensors (``distributed.mesh.ShardMesh``): the PIC
@@ -149,9 +157,27 @@ It builds the six CUDA kernels from ``src/repro_torch/csrc``, then:
      the gates of ``benchmarks_torch/moe_bench.py`` and
      ``ep_balance_bench.py``.
 
+
+ 15. training (``repro_torch.launch.train``): (a) smollm-135m whole at its
+     published config, 20 steps of 8 x 2048 tokens with checkpoints every
+     10, the launch counts set to 0 just before and read just after: every
+     loss and grad norm finite, every parameter changed, K6 forward and
+     backward once per attention call (30 a step); step ms, tokens/s,
+     peak memory, and two more steps under the profiler (idle share, top
+     kernels); (b) under deterministic algorithms, ``run_resilient`` with
+     one injected failure restores its checkpoint and ends on the
+     uninterrupted run's parameters bit for bit (full width, 2 x 256
+     tokens); (c) one f32 train step of every reduced config on the card
+     against the CPU; (d) the reduced deepseek-v3 (MLA, MoE, MTP) with the
+     a2a over ShardMesh(4): its loss against the dense loss, then 8 steps
+     with an ``EPRebalancer`` every 2 (fires at the cadence, experts
+     relocated in place, the multiset kept, decisions equal to the CPU's);
+     (e) the data pipeline's rebalance over 8 ranks equal to the CPU's.
+
 It prints the card's name and power limit, one JSON line of the sharded
 phases' numbers, one of the model families', one of expert balancing,
-one JSON line of per-kernel numbers, and as its last line
+one of training, one JSON line of per-kernel numbers (K6's backward
+beside K6, and inside its row), and as its last line
 ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where ``torch.cuda.is_available()`` is False.
@@ -159,6 +185,8 @@ It exits non-zero at once where ``torch.cuda.is_available()`` is False.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -166,6 +194,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+# phase 15 (b) runs under torch.use_deterministic_algorithms, whose cuBLAS
+# calls need a fixed workspace configuration before cuBLAS starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -316,6 +347,27 @@ EP_RELOCATE_RANKS = 32
 EP_BENCH = dict(moe_steps=96, scale={}, ep_balance={})
 EPB: dict = {}          # phase 14's numbers (one JSON line)
 EP_LAUNCHES: dict = {}  # K1/K3/K4 launches on phase 14's paths
+# phase 15: training.  (a) smollm-135m whole at its published config
+# through the port's train launcher, 20 steps of 8 x 2048 tokens,
+# checkpoints every 10; (b) crash and resume at full width, short rows;
+# (c) one step of every reduced config (f32) card vs CPU; (d) the reduced
+# deepseek-v3 (MLA, MoE, MTP) with the a2a over 4 EP shards and expert
+# rebalancing every 2 steps over 8, f32 so the CPU's routing is the
+# card's; (e) the data pipeline's rebalance over 8 ranks
+TRAIN_FULL = True            # the published config; a rehearsal: reduced
+TRAIN = dict(arch="smollm-135m", steps=20, seq_len=2048, global_batch=8,
+             save_every=10)
+TRAIN_RESUME = dict(steps=6, seq_len=256, batch=2, fail_at=3, save_every=2)
+TRAIN_EP = dict(arch="deepseek-v3-671b", steps=8, ep_balance_every=2,
+                ep_shards=4, seq_len=64, global_batch=4)
+TRAIN_EP_ZIPF = 1.1          # the EP run's token ids: Zipf(1.1)
+TRAIN_EP_RANKS = 2           # EP ranks of the rebalancer (4 experts each)
+TRAIN_EP_KERNELS = ("flash_attention", "flash_attention_bwd",
+                    "diffusion_nsweeps", "histogram", "scatter_dest")
+TRAIN_DATA = dict(num_ranks=8, num_shards=128, seq_len=2048, seed=0,
+                  threshold=1.05)
+TRAINING: dict = {}     # phase 15's numbers (one JSON line)
+TRAIN_LAUNCHES: dict = {}   # launches on phase 15's paths, by path
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -1633,11 +1685,8 @@ def flash_row(counts):
               f"{bd[0]:.6f} ms ({bd[1]})")
         res[label] = (ms, plain, bd, lib, (q, qp, kp))
         if label.startswith("MLA"):
-            # one kernel run a call: the mean of the runs the profiler
-            # records (in this script it has recorded fewer than the calls)
-            runs = device_runs(lambda: fops.flash_attention(
-                q, k, v, qp, kp, window=win))
-            res[label] += (sum(runs) / len(runs), form, len(runs))
+            res[label] += (device_ms(lambda: fops.flash_attention(
+                q, k, v, qp, kp, window=win)), form)
 
     # the decode tick's global layers as the path reads them: one cache a
     # layer (26 x 4.9 MB, past the 50 MB L2), rotated from call to call
@@ -1672,17 +1721,15 @@ def flash_row(counts):
               f"({'no slower' if mine <= lib else 'SLOWER'} than SDPA)")
     mla_keys = {}
     for what in ("decode", "prefill"):
-        ms, plain, bd, lib, _, dms, form, n_ev = res[f"MLA {what}"]
+        ms, plain, bd, lib, _, dms, form = res[f"MLA {what}"]
         mla_keys.update({f"mla_{what}_ms": ms, f"mla_{what}_device_ms": dms,
-                         f"mla_{what}_device_runs": n_ev,
                          f"mla_{what}_plain_ms": plain,
                          f"mla_{what}_bound_ms": bd[0],
                          f"mla_{what}_bound_by": bd[1],
                          f"mla_{what}_library_ms": lib,
                          f"mla_{what}_form": form})
         print(f"flash_attention MLA {what} (G=128, hd=576, {form} form): "
-              f"kernel {ms:.4f} ms (device {dms:.4f} ms a run, over the "
-              f"{n_ev} runs the profiler recorded of 20 calls), plain "
+              f"kernel {ms:.4f} ms (device {dms:.4f} ms a call), plain "
               f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bd[0]:.6f} ms "
               f"({bd[1]}) [{SMI}]")
     return dict(name="flash_attention", route="cuda",
@@ -1697,28 +1744,189 @@ def flash_row(counts):
                 **mla_keys)
 
 
-def device_runs(fn, reps: int = 20) -> list:
-    """Durations (ms) of the kernel runs ``torch.profiler`` records over
-    ``reps`` calls of ``fn()`` after a warm-up."""
+def flash_bwd_row(counts):
+    """K6's backward against its plain version (the autograd of the
+    model's chunked attention, on the inputs upcast to f32) at the training
+    path's shape — phase 15 (a)'s smollm-135m attention call (B 8, S 2048,
+    KV 3, G 3, hd 64, bf16, causal) — and at B 2, a window, a prefix-LM
+    and the reduced MLA shape: the error (bf16 within 2e-2 of each
+    gradient's largest magnitude, f32 within 1e-4), two calls equal bit
+    for bit, and the main case's time beside its bound, the plain
+    version's and SDPA's backward.  Each case's forward output, which the
+    backward reads, is held to the plain chunked attention as in
+    :func:`flash_row` (2e-2 abs + rel for bf16, 2e-3 for f32); at the main
+    case the forward's time, bound, plain and SDPA times go under
+    ``"training_forward"``, for K6's row."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         chunked_attention,
+                                                         mask)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    dev = "cuda"
+    gen = torch.Generator(dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    main_label = "smollm-135m training step, causal"
+    cases = [  # label, B, S, KV, G, hd, window, prefix, type
+        (main_label, TRAIN["global_batch"], TRAIN["seq_len"], 3, 3, 64, 0, 0,
+         bf16),
+        ("B 2, causal", 2, 2048, 3, 3, 64, 0, 0, bf16),
+        ("window 512", 2, 2048, 3, 3, 64, 512, 0, bf16),
+        ("prefix-LM 256", 1, 1024, 3, 3, 64, 0, 256, bf16),
+        ("reduced MLA latents", 4, 64, 1, 4, 24, 0, 0, f32),
+    ]
+
+    def sdpa_parts(q, k, v, do):
+        # yardstick: SDPA at the same shape (GQA expanded, causal), timed
+        # here only
+        B, S, KV, G, hd = q.shape
+        qs = q.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
+        ks = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+        vs = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+        gy = do.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
+        return qs, ks, vs, gy
+
+    errs, res, fwd = [], {}, {}
+    for label, B, S, KV, G, hd, win, pre, dt in cases:
+        q = torch.randn((B, S, KV, G, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dt)
+        do = torch.randn((B, S, KV, G, hd), generator=gen,
+                         device=dev).to(dt)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+            B, S).contiguous()
+        kw = dict(window=win, prefix_len=pre)
+        form = fops.flash_form(B, S, S, KV, G, hd, dt, dt)
+        before = fops.form_launches[form]
+        o = fops.flash_attention(q, k, v, pos, pos, **kw)
+        check(fops.form_launches[form] == before + 1,
+              f"flash_attention ({label}) did not take the {form} form")
+        o_want = chunked_attention(q, k, v, pos, pos, **kw)
+        ftol = 2e-2 if dt == bf16 else 2e-3
+        o_diff = (o.float() - o_want.float()).abs()
+        o_err = float(o_diff.max())
+        check(bool((o_diff <= ftol + ftol * o_want.float().abs()).all()),
+              f"flash_attention ({label}): forward max_abs_err {o_err} "
+              f"beyond {ftol} abs + {ftol} rel")
+        got = fops.flash_attention_bwd(q, k, v, pos, pos, o, do, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, fops.
+              flash_attention_bwd(q, k, v, pos, pos, o, do, **kw))),
+              f"flash_attention_bwd ({label}): two calls differ")
+        want = attention_bwd_ref(q.float(), k.float(), v.float(), pos, pos,
+                                 do.float(), **kw)
         torch.cuda.synchronize()
-    return [(e.time_range.end - e.time_range.start) / 1e3
-            for e in prof.events()
-            if e.device_type == DeviceType.CUDA and "_kernel" in e.name]
+        tol = 2e-2 if dt == bf16 else 1e-4
+        err = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            e = float((a.float() - b).abs().max())
+            check(e <= tol * float(b.abs().max()),
+                  f"flash_attention_bwd ({label}): {name} {e} beyond "
+                  f"{tol} of its largest magnitude {float(b.abs().max())}")
+            err = max(err, e)
+        errs.append(err)
+        del want, o_want, o_diff
+        allowed = int(mask(pos[0], pos[0], win, pre).sum()) * B
+        # read q, k, v, o, do and the positions once; write dq, dk, dv
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (q, k, v, o, do, q, k, v))
+                  + 2 * 4 * pos.numel())
+        # 5 products of 2 hd flops per allowed (pair, key): 2.5 x the
+        # forward's 2 (scores, PV)
+        flops = 2.5 * 4 * hd * G * KV * allowed
+        peak = PEAK_BF16_PER_S if dt == bf16 else PEAK_F32_PER_S
+        bd = bound_ms(nbytes, flops, peak)
+        ms = time_ms(lambda: fops.flash_attention_bwd(q, k, v, pos, pos, o,
+                                                      do, **kw), reps=10)
+        res[label] = dict(err=err, ms=ms, bound=bd, forward_err=o_err)
+        line = (f"flash_attention_bwd ({label}: B={B}, S={S}, KV={KV}, "
+                f"G={G}, hd={hd}, window={win}, prefix={pre}, "
+                f"{str(dt)[6:]}): forward ({form} form) max_abs_err "
+                f"{o_err:.6g} (tolerance {ftol} abs + rel); backward "
+                f"max_abs_err {err:.6g} (tolerance {tol} "
+                f"of each gradient's largest magnitude), two calls equal "
+                f"bit for bit, kernel {ms:.4f} ms, bound {bd[0]:.6f} ms "
+                f"({bd[1]})")
+        if label == main_label:
+            plain = time_ms(lambda: attention_bwd_ref(
+                q, k, v, pos, pos, do, **kw), reps=3)
+            qs, ks, vs, gy = sdpa_parts(q, k, v, do)
+            leaves = [t.requires_grad_() for t in (qs, ks, vs)]
+            y = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            lib = time_ms(lambda: torch.autograd.grad(
+                y, leaves, gy, retain_graph=True), reps=10)
+            res[label].update(plain=plain, lib=lib)
+            line += f", plain {plain:.4f} ms, SDPA backward {lib:.4f} ms"
+            # the forward at this shape: read q, k, v and the positions,
+            # write o; 2 products of 2 hd flops per allowed (pair, key)
+            f_bd = bound_ms(
+                sum(t.numel() * t.element_size() for t in (q, k, v, o))
+                + 2 * 4 * pos.numel(), 4 * hd * G * KV * allowed, peak)
+            f_ms = time_ms(lambda: fops.flash_attention(q, k, v, pos, pos,
+                                                        **kw))
+            f_plain = time_ms(lambda: chunked_attention(q, k, v, pos, pos,
+                                                        **kw), reps=3)
+            with torch.no_grad():
+                f_lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True))
+            fwd = dict(shape=[B, S, KV, G, hd], form=form,
+                       max_abs_err=o_err, ms=f_ms, plain_ms=f_plain,
+                       bound_ms=f_bd[0], bound_by=f_bd[1],
+                       library_ms=f_lib)
+            print(f"flash_attention ({label}: B={B}, S={S}, KV={KV}, "
+                  f"G={G}, hd={hd}, bf16; {form} form): forward kernel "
+                  f"{f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA "
+                  f"{f_lib:.4f} ms, bound {f_bd[0]:.6f} ms ({f_bd[1]}) "
+                  f"[{SMI}]")
+            del leaves, y, qs, ks, vs, gy
+        print(line + f" [{SMI}]")
+        del q, k, v, do, o, got
+    main = res[main_label]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:96",
+                launches=counts["flash_attention_bwd"],
+                max_abs_err=max(errs), ms=main["ms"],
+                plain_ms=main["plain"], bound_ms=main["bound"][0],
+                bound_by=main["bound"][1], library_ms=main["lib"],
+                cases={lbl: dict(ms=r["ms"], max_abs_err=r["err"],
+                                 forward_max_abs_err=r["forward_err"],
+                                 bound_ms=r["bound"][0])
+                       for lbl, r in res.items()},
+                launches_by_path={f"training {p}": n["flash_attention_bwd"]
+                                  for p, n in TRAIN_LAUNCHES.items()
+                                  if n["flash_attention_bwd"]},
+                training_forward=fwd)
 
 
 def device_ms(fn, reps: int = 20) -> float:
-    """Device time of ``fn()`` per call: the sum of its kernels' intervals
-    under ``torch.profiler``, over ``reps`` calls after a warm-up."""
-    return sum(device_runs(fn, reps)) / reps
+    """Device time of ``fn()`` per call, the launch gaps between its
+    kernels included: CUDA events around ``reps`` calls issued behind a
+    queued sleep kernel, so that the card never waits on the host between
+    them; fails if the host had not issued them all before the sleep
+    ended.  (``torch.profiler`` records only part of the runs late in this
+    process, and at times none.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    issue_ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # 2e6 cycles are at least 1 ms at the card's clock (at most 1.98 GHz)
+    torch.cuda._sleep(int(2e6 * (20 + 3 * reps * issue_ms)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    behind = not start.query()
+    torch.cuda.synchronize()
+    check(behind, f"device_ms: the sleep ended before the host had issued "
+          f"{reps} calls ({issue_ms:.3f} ms each to issue)")
+    return start.elapsed_time(end) / reps
 
 
 # ------------------------------------------------- other model families --
@@ -2355,6 +2563,606 @@ def ep_bench_gates():
           f"({out['scale']['steps_per_second']:.3f} steps/s); ep_balance "
           f"bench gates hold {eb['gates']}; "
           f"{EPB['benches']['seconds']:.3f} s")
+
+
+# --------------------------------------------------------------- training --
+
+
+def _train_cfg(arch, full, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(arch)
+    return dataclasses.replace(spec.config if full else spec.reduced, **kw)
+
+
+def _attention_calls(cfg) -> int:
+    """Attention calls of one forward: the attention-bearing layers and
+    the MTP block."""
+    from repro_torch.models import transformer
+
+    n = sum(k in transformer.ATTN_KINDS + transformer.HYMBA_KINDS
+            for k in cfg.all_layers())
+    return n + int(bool(cfg.mtp))
+
+
+def _launches_since(names):
+    from repro_torch import kernels
+
+    got = kernels.launch_counts()
+    return {n: got[n] for n in names}
+
+
+def train_full_width():
+    """Phase 15 (a): smollm-135m whole through ``launch.train.train`` with
+    the launch counts set to 0 just before and read just after; then two
+    steps of it under the profiler."""
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as lt
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    run = lt.RunConfig(**TRAIN, reduced=not TRAIN_FULL, ckpt_dir=tmp,
+                       device=DEV, log_every=5, resume=False)
+    _reset_peak()
+    kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    out = lt.train(run)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = _launches_since(kernels.registry())
+    TRAIN_LAUNCHES[f"({TRAIN['arch']})"] = counts
+    peak = _peak_gib()
+    cfg = out["config"]
+    steps, calls = TRAIN["steps"], _attention_calls(cfg)
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"training: a loss or grad norm is not finite: {out['losses']}, "
+          f"{out['grad_norms']}")
+    if DEV == "cuda":
+        check(counts["flash_attention"] == steps * calls,
+              f"training: K6 forward launched {counts['flash_attention']} "
+              f"times, not {steps} x {calls}")
+        check(counts["flash_attention_bwd"] == steps * calls,
+              f"training: K6 backward launched "
+              f"{counts['flash_attention_bwd']} times, not {steps} x "
+              f"{calls}")
+    init = init_params(transformer.model_specs(cfg), 0, DEV)
+    changed = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(init), tree_leaves(out["params"])))
+    check(changed == len(tree_leaves(init)),
+          f"training: {len(tree_leaves(init)) - changed} parameter tensors "
+          "unchanged")
+    saved = sorted(p.name for p in Path(tmp).iterdir()
+                   if p.name.startswith("ckpt_"))
+    check(saved[-1] == f"ckpt_{steps:08d}", f"training: checkpoints {saved}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    warm = sorted(out["step_seconds"][1:])
+    step_ms = 1e3 * warm[len(warm) // 2]
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    res = dict(arch=TRAIN["arch"], full=TRAIN_FULL, steps=steps,
+               tokens_per_step=tokens, attention_calls_per_step=calls,
+               launches=counts, losses=out["losses"],
+               grad_norms=out["grad_norms"], wall_s=wall,
+               first_step_ms=1e3 * out["step_seconds"][0],
+               step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               peak_gib=peak, checkpoints=saved)
+    if DEV == "cuda":
+        from benchmarks_torch.serve_replay_profile import profile_replay
+
+        step = ts_mod.make_train_step(cfg, opt_mod.OptConfig(
+            lr=run.lr, warmup_steps=run.warmup, total_steps=steps))
+        pipe = data_mod.DataPipeline(data_mod.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+            global_batch=TRAIN["global_batch"]), 1, device=DEV)
+        batch = {k: torch.as_tensor(v, device=DEV)
+                 for k, v in pipe.next_batch().items()}
+        state = [out["params"], out["opt_state"]]
+
+        def two_steps():
+            t = time.perf_counter()
+            for _ in range(2):
+                state[0], state[1], m = step(state[0], state[1], batch)
+            torch.cuda.synchronize()
+            return types.SimpleNamespace(wall_seconds=time.perf_counter()
+                                         - t)
+
+        two_steps()
+        kernels.reset_launch_counts()
+        _, prof = profile_replay(two_steps)
+        launched = _launches_since(kernels.registry())
+        # the trace is whole: every K6 launch of the two steps is in it, a
+        # forward kernel a forward launch, dq and dk/dv a backward launch
+        seen = {pat: sum(r["count"] for r in prof["kernels"]
+                         if f"::{pat}<" in r["name"])
+                for pat in ("mma_kernel", "split_kernel", "flash_kernel",
+                            "dq_kernel", "dkdv_kernel")}
+        fwd = seen["mma_kernel"] + seen["split_kernel"] + seen["flash_kernel"]
+        check(fwd == launched["flash_attention"] == 2 * calls
+              and seen["dq_kernel"] == seen["dkdv_kernel"]
+              == launched["flash_attention_bwd"] == 2 * calls,
+              f"training profile: recorded K6 runs {seen} against "
+              f"{launched['flash_attention']} forward and "
+              f"{launched['flash_attention_bwd']} backward launches (2 x "
+              f"{calls} each)")
+        res.update(profiled_k6_runs=seen,profiled_ms_per_step=prof["loop_ms"] / 2,
+                   device_busy_ms_per_step=prof["device_busy_ms"] / 2,
+                   idle_share=prof["idle_share"],
+                   top_kernels=[dict(r, name=r["name"][:60])
+                                for r in prof["kernels"][:8]])
+        top = ", ".join(f"{r['name'][:40]} {r['device_ms'] / 2:.2f} ms"
+                        for r in prof["kernels"][:6])
+        print(f"training under the profiler: {prof['loop_ms'] / 2:.1f} ms "
+              f"a step, device busy {prof['device_busy_ms'] / 2:.1f} ms, "
+              f"idle share {prof['idle_share']:.4f}; top device time a "
+              f"step: {top}")
+    print(f"training ({TRAIN['arch']}, {'full width' if TRAIN_FULL else
+                                        'reduced'}): {steps} steps of "
+          f"{tokens} tokens in {wall:.1f} s; step {step_ms:.1f} ms "
+          f"(median after the first, {res['first_step_ms']:.0f} ms), "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB; loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{SMI}]")
+    del out, init
+    _reset_peak()
+    return res
+
+
+def _batches(vocab, n, B, S, seed=0):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t = rng.integers(1, vocab, (B, S)).astype(np.int32)
+        lbl = np.concatenate([t[:, 1:], np.full((B, 1), -1, np.int32)], 1)
+        pos = np.ascontiguousarray(
+            np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)))
+        out.append({k: torch.as_tensor(v, device=DEV)
+                    for k, v in (("tokens", t), ("labels", lbl),
+                                 ("positions", pos))})
+    return out
+
+
+def train_crash_resume():
+    """Phase 15 (b): under deterministic algorithms, ``run_resilient``
+    with one injected ``WorkerFailure`` restores its checkpoint and ends
+    on the parameters of an uninterrupted run, bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    R = TRAIN_RESUME
+    cfg = _train_cfg(TRAIN["arch"], TRAIN_FULL)
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        params0 = init_params(transformer.model_specs(cfg), 0, DEV)
+        opt0 = opt_mod.init(params0, device=DEV)
+        step = ts_mod.make_train_step(
+            cfg, opt_mod.OptConfig(warmup_steps=2, total_steps=50))
+        batches = _batches(cfg.vocab_size, R["steps"], R["batch"],
+                           R["seq_len"])
+        p, o = params0, opt0
+        for b in batches:
+            p, o, _ = step(p, o, b)
+        truth = [t.clone() for t in tree_leaves(p)]
+        del p, o
+        run = dict(p=params0, o=opt0)
+        left = [1]
+
+        def step_fn(s):
+            if s == R["fail_at"] and left[0]:
+                left[0] -= 1
+                raise ft.WorkerFailure("injected")
+            run["p"], run["o"], _ = step(run["p"], run["o"], batches[s])
+
+        def save_fn(s):
+            ckpt.save(tmp, s, run["p"], run["o"])
+
+        def restore_fn():
+            run["p"], run["o"], s, _ = ckpt.restore(tmp, run["p"], run["o"],
+                                                    device=DEV)
+            return s
+
+        save_fn(0)
+        out = ft.run_resilient(step_fn, start_step=0, num_steps=R["steps"],
+                               save_every=R["save_every"], save_fn=save_fn,
+                               restore_fn=restore_fn)
+        got = tree_leaves(run["p"])
+        differ = sum(not torch.equal(a, b) for a, b in zip(truth, got))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(out == dict(final_step=R["steps"], restarts=1),
+          f"crash and resume: supervisor gave {out}")
+    check(differ == 0, f"crash and resume: {differ} of {len(truth)} "
+          "parameter tensors differ from the uninterrupted run")
+    res = dict(arch=TRAIN["arch"], full=TRAIN_FULL, steps=R["steps"],
+               batch=R["batch"], seq_len=R["seq_len"],
+               failed_at=R["fail_at"], restarts=out["restarts"],
+               tensors_equal=len(truth))
+    print(f"crash and resume ({TRAIN['arch']} "
+          f"{'at full width' if TRAIN_FULL else 'reduced'}, "
+          f"{R['batch']} x {R['seq_len']} tokens, {R['steps']} steps, "
+          f"deterministic algorithms): failed at step {R['fail_at']}, "
+          f"restored, all {len(truth)} parameter tensors equal to the "
+          f"uninterrupted run bit for bit")
+    _reset_peak()
+    return res
+
+
+def train_cuda_vs_cpu():
+    """Phase 15 (c): one train step of every reduced config (f32 compute)
+    on the card against the same step on the CPU.  Tolerances: loss 1e-5
+    relative; grad norm 1e-4 relative; every gradient within 1e-3 of its
+    leaf's largest magnitude (f32 sums in other orders, the attention
+    backward a kernel against autograd of the plain version); updated
+    parameters within 2.5 lr absolute (the first AdamW step moves an
+    element by about lr sign(g), so an element whose gradient is near 0
+    may move the other way) and within 1e-6 in all but 1% of elements;
+    router counts and co-activations exact."""
+    import torch
+    from repro_torch.configs import list_archs
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_leaves, tree_to
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    out = {}
+    for arch in list_archs():
+        cfg = _train_cfg(arch, False, compute_dtype="float32")
+        collect = cfg.moe is not None
+        ocfg = opt_mod.OptConfig(warmup_steps=1, total_steps=10)
+        p_cpu = init_params(transformer.model_specs(cfg), 0, "cpu")
+        batch = _frontend_or_tokens(cfg)
+        res = {}
+        for dev in ("cpu", DEV):
+            seen = {}
+
+            def capture(g, seen=seen):
+                seen["g"] = g
+                return g
+
+            step = ts_mod.make_train_step(cfg, ocfg, grad_transform=capture,
+                                          collect_router_stats=collect)
+            p = tree_to(p_cpu, dev)
+            b = {k: None if v is None else v.to(dev)
+                 for k, v in batch.items()}
+            p2, _, m = step(p, opt_mod.init(p, device=dev), b)
+            res[dev] = (tree_to(p2, "cpu"), tree_to(seen["g"], "cpu"),
+                        {k: v.cpu() for k, v in m.items()})
+        (pc, gc, mc), (pd, gd, md) = res["cpu"], res[DEV]
+        lr = float(mc["lr"])
+        check(abs(float(md["loss"]) - float(mc["loss"]))
+              <= 1e-5 * abs(float(mc["loss"])),
+              f"{arch}: loss {float(md['loss'])} vs {float(mc['loss'])}")
+        check(abs(float(md["grad_norm"]) - float(mc["grad_norm"]))
+              <= 1e-4 * float(mc["grad_norm"]), f"{arch}: grad norm")
+        g_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-12)
+                    for a, b in zip(tree_leaves(gd), tree_leaves(gc)))
+        check(g_err <= 1e-3, f"{arch}: gradients {g_err} off the CPU's")
+        p_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(tree_leaves(pd), tree_leaves(pc)))
+        n_far = sum(int(((a.float() - b.float()).abs() > 1e-6).sum())
+                    for a, b in zip(tree_leaves(pd), tree_leaves(pc)))
+        n_all = sum(a.numel() for a in tree_leaves(pc))
+        check(p_err <= 2.5 * lr and n_far <= 0.01 * n_all,
+              f"{arch}: parameters {p_err} off, {n_far} of {n_all} "
+              "elements beyond 1e-6")
+        if collect:
+            check(torch.equal(md["router_counts"], mc["router_counts"])
+                  and torch.equal(md["router_coact"], mc["router_coact"]),
+                  f"{arch}: router statistics differ from the CPU's")
+        out[arch] = dict(loss_rel_err=abs(float(md["loss"]) - float(
+            mc["loss"])) / abs(float(mc["loss"])), grad_rel_err=g_err,
+            param_max_abs_err=p_err, param_elements_beyond_1e6=n_far)
+    print(f"one train step of every reduced config (f32) on the card vs "
+          f"the CPU: {out}")
+    return out
+
+
+def _frontend_or_tokens(cfg):
+    """A (2, 16) training batch on the CPU from the shape registry (frontend
+    embeddings where the config has a frontend)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, materialize_batch
+
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16,
+                                global_batch=2)
+    return materialize_batch(cfg, shape, seed=0, device="cpu")["batch"]
+
+
+def _expert_slots(layers):
+    """Every expert slot's tensors of every MoE layer, flattened to one row
+    a slot: a list of (E, n) tensors (one a layer)."""
+    import torch
+
+    out = []
+    for moe in layers:
+        E = moe["router"].shape[1]
+        rows = [moe["router"].T.reshape(E, -1)]
+        rows += [moe[k].reshape(E, -1) for k in ("wi", "wg", "wo")]
+        out.append(torch.cat(rows, 1).clone())
+    return out
+
+
+def _ep_training(dev):
+    """The reduced deepseek-v3 (f32) with the a2a over ``ep_shards`` EP
+    shards and expert rebalancing on ``TRAIN_EP_RANKS`` EP ranks: the train
+    step under ``moe.use_mesh`` and the launcher's ``_rebalance_experts``
+    each step, as ``launch.train.train`` drives them, on Zipf-distributed
+    token ids.  Returns the fires, moved experts, losses, the router
+    counts' sums and what each fire kept (the multiset of expert slots, in
+    place)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed.mesh import ShardMesh
+    from repro_torch.launch import train as lt
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_to
+    from repro_torch.train import ep_runtime
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    base = _train_cfg(TRAIN_EP["arch"], False, compute_dtype="float32")
+    mcfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, impl="a2a"))
+    run = lt.RunConfig(arch=TRAIN_EP["arch"], steps=TRAIN_EP["steps"])
+    ocfg = opt_mod.OptConfig(lr=run.lr, warmup_steps=run.warmup,
+                             total_steps=run.steps)
+    step_fn = ts_mod.make_train_step(mcfg, ocfg, collect_router_stats=True)
+    mesh = ShardMesh(TRAIN_EP["ep_shards"], dev)
+    # the CPU's draw on both devices (a CUDA generator draws other numbers)
+    params = tree_to(init_params(transformer.model_specs(mcfg), run.seed,
+                                 "cpu"), dev)
+    opt_state = opt_mod.init(params, device=dev)
+    reb = ep_runtime.EPRebalancer(
+        mcfg.moe.num_experts, TRAIN_EP_RANKS, strategy=run.ep_strategy,
+        lb_every=TRAIN_EP["ep_balance_every"], device=dev)
+    fires, moved, losses, sums, conserved, in_place = [], [], [], [], [], []
+    stats = []
+    rng = np.random.default_rng(0)
+    B, S = TRAIN_EP["global_batch"], TRAIN_EP["seq_len"]
+    for s in range(TRAIN_EP["steps"]):
+        # Zipf(1.1) token ids, as word frequencies in text: the routing is
+        # skewed as text skews it (the pipeline's uniform ids route about
+        # evenly, within the planner's tolerance: nothing would move)
+        tok = np.minimum(rng.zipf(TRAIN_EP_ZIPF, (B, S)),
+                         mcfg.vocab_size - 1).astype(np.int32)
+        lbl = np.concatenate([tok[:, 1:], np.full((B, 1), -1, np.int32)], 1)
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+        batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+                 for k, v in (("tokens", tok), ("labels", lbl),
+                              ("positions", pos))}
+        with moe_mod.use_mesh(mesh):
+            params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        sums.append(float(m["router_counts"].sum()))
+        stats.append((m["router_counts"].cpu(), m["router_coact"].cpu()))
+        where = lt._moe_blocks(params)
+        before = _expert_slots([params["layers"][i]["moe"] for i in where])
+        ptrs = [params["layers"][i]["moe"]["wi"].data_ptr() for i in where]
+        params, info = lt._rebalance_experts(params, reb, m, s)
+        if info["fired"]:
+            fires.append(s)
+            moved.append(int(info["moved_experts"]))
+            after = _expert_slots([params["layers"][i]["moe"]
+                                   for i in where])
+            # the same rows, permuted: sort both by their bytes
+            same = all(torch.equal(_sorted_rows(a), _sorted_rows(b))
+                       for a, b in zip(before, after))
+            conserved.append(same)
+            in_place.append(ptrs == [params["layers"][i]["moe"]["wi"]
+                                     .data_ptr() for i in where])
+    # the statistics sum over the MoE layers
+    tokens = TRAIN_EP["global_batch"] * TRAIN_EP["seq_len"] * len(
+        lt._moe_blocks(params))
+    return dict(fires=fires, moved=moved, losses=losses,
+                counts_sums=sums, conserved=conserved, in_place=in_place,
+                tokens=tokens, top_k=mcfg.moe.top_k, stats=stats,
+                slot_expert=reb.slot_expert.tolist())
+
+
+def _ep_shadow(stats):
+    """A CPU ``EPRebalancer`` fed a run's router statistics, relocating
+    the initial weights' expert tensors: its fires, moved experts and
+    final slot → expert map."""
+    from repro_torch.launch import train as lt
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.train import ep_runtime
+
+    cfg = _train_cfg(TRAIN_EP["arch"], False)
+    params = init_params(transformer.model_specs(cfg), 0, "cpu")
+    reb = ep_runtime.EPRebalancer(
+        cfg.moe.num_experts, TRAIN_EP_RANKS, strategy="diff-comm",
+        lb_every=TRAIN_EP["ep_balance_every"], device="cpu")
+    fires, moved = [], []
+    for s, (counts, coact) in enumerate(stats):
+        params, info = lt._rebalance_experts(
+            params, reb, dict(router_counts=counts, router_coact=coact), s)
+        if info["fired"]:
+            fires.append(s)
+            moved.append(int(info["moved_experts"]))
+    return dict(fires=fires, moved=moved,
+                slot_expert=reb.slot_expert.tolist())
+
+
+def _sorted_rows(t):
+    """The rows of a 2-D tensor in lexicographic order of their values."""
+    import numpy as np
+    import torch
+
+    a = t.detach().cpu().numpy()
+    order = np.lexsort(a.T[::-1])
+    return torch.as_tensor(a[order])
+
+
+def train_ep_phase():
+    """Phase 15 (d): the reduced deepseek-v3 (MLA, MoE, MTP) with the a2a
+    over ShardMesh(4): its loss against the dense loss (capacity factor 8,
+    nothing dropped: within 1e-5 relative, f32), then 8 training steps with
+    expert rebalancing every 2 on the card (launch counts set to 0 just
+    before and read just after) and on the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed.mesh import ShardMesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    base = _train_cfg(TRAIN_EP["arch"], False, compute_dtype="float32")
+    wide = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=8.0, impl="a2a"))
+    params = init_params(transformer.model_specs(base), 0, DEV)
+    batch = _batches(base.vocab_size, 1, 4, 64, seed=1)[0]
+    with torch.no_grad():
+        with moe_mod.use_mesh(ShardMesh(TRAIN_EP["ep_shards"], DEV)):
+            la, ma = transformer.loss_fn(params, wide, batch,
+                                         collect_router_stats=True)
+        ld, md = transformer.loss_fn(params, base, batch,
+                                     collect_router_stats=True)
+    a2a_err = abs(float(la) - float(ld)) / abs(float(ld))
+    check(a2a_err <= 1e-5, f"a2a loss {float(la)} vs dense {float(ld)}")
+    check(torch.equal(ma["router_counts"], md["router_counts"]),
+          "a2a: router counts differ from the dense path's")
+    kernels.reset_launch_counts()
+    _sync()
+    card = _ep_training(DEV)
+    _sync()
+    counts = _launches_since(kernels.registry())
+    TRAIN_LAUNCHES["EP (deepseek-v3 reduced, a2a over 4 shards)"] = counts
+    cpu = _ep_training("cpu")
+    every = TRAIN_EP["ep_balance_every"]
+    want_fires = [s for s in range(TRAIN_EP["steps"]) if s and s % every == 0]
+    check(card["fires"] == want_fires,
+          f"EP training: fired at {card['fires']}, not {want_fires}")
+    check(all(s == card["tokens"] * card["top_k"]
+              for s in card["counts_sums"]),
+          f"EP training: router counts sum to {card['counts_sums']}")
+    check(all(card["conserved"]) and all(card["in_place"]),
+          f"EP training: relocation conserved {card['conserved']}, in "
+          f"place {card['in_place']}")
+    # the CPU's rebalancer on the card's statistics: the same decisions
+    shadow = _ep_shadow(card["stats"])
+    check((card["fires"], card["moved"], card["slot_expert"])
+          == (shadow["fires"], shadow["moved"], shadow["slot_expert"]),
+          f"EP training: card fires/moved {card['fires']}/{card['moved']} "
+          f"vs the CPU's rebalancer on the same statistics "
+          f"{shadow['fires']}/{shadow['moved']}")
+    # and the CPU's own run (its parameters drift from the card's by f32
+    # rounding, so a router near-tie could route one token differently)
+    check((card["fires"], card["moved"], card["slot_expert"])
+          == (cpu["fires"], cpu["moved"], cpu["slot_expert"]),
+          f"EP training: card fires/moved {card['fires']}/{card['moved']} "
+          f"vs the CPU's run {cpu['fires']}/{cpu['moved']}")
+    check(sum(card["moved"]) > 0, "EP training: no expert moved")
+    if DEV == "cuda":
+        calls = _attention_calls(base)
+        for k in TRAIN_EP_KERNELS:
+            check(counts[k] > 0, f"EP training: {k} not launched")
+        check(counts["flash_attention"] == counts["flash_attention_bwd"]
+              == TRAIN_EP["steps"] * calls,
+              f"EP training: K6 {counts['flash_attention']} forward, "
+              f"{counts['flash_attention_bwd']} backward launches, not "
+              f"{TRAIN_EP['steps']} x {calls}")
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    stat_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                     for a, b in zip(card["stats"], cpu["stats"]))
+    res = dict(a2a_vs_dense_loss_rel_err=a2a_err, fires=card["fires"],
+               moved_experts=card["moved"], losses=card["losses"],
+               router_stats_equal_cpu_every_step=stat_equal,
+               cpu_loss_max_rel_err=loss_err,
+               launches={k: v for k, v in counts.items() if v})
+    print(f"EP training (deepseek-v3 reduced, a2a over "
+          f"{TRAIN_EP['ep_shards']} shards, {TRAIN_EP['steps']} steps, LB "
+          f"every {every}): a2a loss {a2a_err:.3g} off the dense loss; "
+          f"fired at {card['fires']}, moved {card['moved']} experts, equal "
+          f"to the CPU's (router statistics equal every step: "
+          f"{stat_equal}); relocations in place and conserved; losses "
+          f"within {loss_err:.3g} of the CPU's; launches "
+          f"{res['launches']}")
+    return res
+
+
+def train_data_phase():
+    """Phase 15 (e): the data pipeline's rebalance over 8 ranks on the card
+    (launch counts set to 0 just before and read just after) against the
+    CPU: the same assignment and moved shards."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.train import data as data_mod
+
+    D = TRAIN_DATA
+    infos, assigns = {}, {}
+    for dev in (DEV, "cpu"):
+        cfg = data_mod.DataConfig(vocab_size=49152, seq_len=D["seq_len"],
+                                  global_batch=D["num_ranks"],
+                                  num_shards=D["num_shards"], seed=D["seed"])
+        pipe = data_mod.DataPipeline(cfg, D["num_ranks"], device=dev)
+        before = pipe.rank_loads()
+        if dev == DEV:
+            kernels.reset_launch_counts()
+            _sync()
+        infos[dev] = pipe.maybe_rebalance(threshold=D["threshold"])
+        if dev == DEV:
+            _sync()
+            counts = _launches_since(kernels.registry())
+        assigns[dev] = pipe.state.assignment.copy()
+        after = pipe.rank_loads()
+    TRAIN_LAUNCHES["data pipeline (8 ranks)"] = counts
+    check(infos[DEV] is not None and infos[DEV]["moved_shards"] > 0,
+          "data pipeline: no rebalance fired, or it moved no shard")
+    check(np.array_equal(assigns[DEV], assigns["cpu"])
+          and infos[DEV]["moved_shards"] == infos["cpu"]["moved_shards"],
+          "data pipeline: the card's assignment differs from the CPU's")
+    res = dict(moved_shards=infos[DEV]["moved_shards"],
+               max_avg_before=float(before.max() / before.mean()),
+               max_avg_after=float(after.max() / after.mean()),
+               launches={k: v for k, v in counts.items() if v})
+    print(f"data pipeline over {D['num_ranks']} ranks: rebalanced, moved "
+          f"{res['moved_shards']} shards (card == CPU), max/avg "
+          f"{res['max_avg_before']:.4f} -> {res['max_avg_after']:.4f}; "
+          f"launches {res['launches']}")
+    return res
+
+
+def training_phase():
+    """Phase 15: training (a)-(e); the backward kernel's checks are in
+    phase 11 (``flash_bwd_row``)."""
+    TRAINING["full_width"] = train_full_width()
+    TRAINING["crash_resume"] = train_crash_resume()
+    TRAINING["cuda_vs_cpu"] = train_cuda_vs_cpu()
+    TRAINING["ep"] = train_ep_phase()
+    TRAINING["data"] = train_data_phase()
+    _reset_peak()
 
 
 # ------------------------------------------------------ sharded paths --
@@ -3079,7 +3887,7 @@ def kernel_rows(counts, sim_graph, spill):
     print(f"diffusion_sweep at P={Pn}, K={K}: one sweep {err / ulp:.1f} ulp "
           f"off the plain version; stage 2 {int(vk.iters)} sweeps, "
           f"{err_v / ulp:.1f} ulp; device time of its two kernels "
-          f"{dms:.4f} ms a sweep (profiler)")
+          f"{dms:.4f} ms a sweep (CUDA events behind a sleep)")
     row("diffusion_sweep", "src/repro/kernels/diffusion/kernel.py:100",
         "src/repro_torch/csrc/diffusion_sweep.cu", err,
         "8 ulp of the largest load",
@@ -3168,15 +3976,35 @@ def main() -> int:
           f"K4 calls by form on each path: {K4_PATH_FORMS}")
     rows = kernel_rows(counts, sim_graph, spill)
     rows.append(flash_row(counts))
+    # phase 15 after the kernel checks; its launches join the rows below
+    training_phase()
+    # K6 on phase 15's training paths too; its backward only there
+    train_k6 = {p: n["flash_attention"] for p, n in TRAIN_LAUNCHES.items()}
+    rows[-1]["launches"] += sum(train_k6.values())
     rows[-1]["launches_by_path"] = {
         f"serving ({SERVE_ARCH})": serve_counts["flash_attention"],
-        **fam_counts}
-    check(len(rows) == 6, f"{len(rows)} kernel rows, not 6")
-    # K1, K3 and K4 on phase 14's paths: the EP replay, the relocation
+        **fam_counts, **{f"training {p}": n for p, n in train_k6.items()}}
+    counts["flash_attention_bwd"] = sum(
+        n["flash_attention_bwd"] for n in TRAIN_LAUNCHES.values())
+    # K6's backward, listed under K6's row: its own row beside it, and its
+    # numbers inside K6's row
+    rows.append(flash_bwd_row(counts))
+    # the forward at the training path's shape, measured there
+    rows[-2]["training"] = rows[-1].pop("training_forward")
+    rows[-2]["backward"] = {k: v for k, v in rows[-1].items()
+                            if k not in ("name", "route", "replaces")}
+    check(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
+    # K1, K3 and K4 on phase 14's paths (the EP replay, the relocation) and
+    # on phase 15's (the EP-balanced training, the data pipeline)
     for r in rows:
         if r["name"] in EP_KERNELS:
             r.setdefault("launches_by_path", {}).update({
                 f"EP {p}": n[r["name"]] for p, n in EP_LAUNCHES.items()})
+            r["launches_by_path"].update({
+                f"training {p}": n[r["name"]]
+                for p, n in TRAIN_LAUNCHES.items() if n[r["name"]]})
+            r["launches"] += sum(n[r["name"]]
+                                 for n in TRAIN_LAUNCHES.values())
     # K3, K4 and K5 at the sharded PIC path's shapes, with their launches
     # on that path's run
     for r in rows:
@@ -3186,6 +4014,7 @@ def main() -> int:
     print(json.dumps({"sharded": SHARDED}))
     print(json.dumps({"families": FAMILIES}))
     print(json.dumps({"expert_balancing": EPB}))
+    print(json.dumps({"training": TRAINING}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

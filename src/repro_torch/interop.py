@@ -1,5 +1,6 @@
 """Carrying data across packages as NumPy arrays: an ``LBProblem`` as a
-dict, the JAX package's model parameters and caches as nested trees.
+dict, the JAX package's model parameters, optimizer state and caches as
+nested trees.
 
 Imports only torch and NumPy: a caller (in practice the parity tests)
 builds the dict from the JAX package's problem with ``np.asarray`` on
@@ -47,6 +48,25 @@ def problem_to_numpy(problem: LBProblem) -> Dict:
 # ------------------------------------------------------- model weights --
 
 
+def _layers_from_tree(tree: Dict, cfg) -> list:
+    """The per-layer list, in ``cfg.all_layers()`` order, of a JAX-layout
+    tree's ``prefix``, stacked ``unit`` groups and ``suffix``."""
+    layers = list(tree["prefix"])
+    for g in range(cfg.num_groups):
+        layers += [tree_map(lambda a: np.asarray(a)[g], unit)
+                   for unit in tree["unit"]]
+    return layers + list(tree["suffix"])
+
+
+def _port_tree(tree: Dict, cfg) -> Dict:
+    out = dict(embed=tree["embed"], final_norm=tree["final_norm"],
+               layers=_layers_from_tree(tree, cfg))
+    for k in ("lm_head", "mtp"):
+        if k in tree:
+            out[k] = tree[k]
+    return out
+
+
 def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
     """The port's model parameters from the JAX package's parameter tree
     given as nested dicts and lists of NumPy arrays.
@@ -57,18 +77,28 @@ def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
     Returns ``{embed, final_norm, layers[, lm_head][, mtp]}`` with
     ``layers`` in ``cfg.all_layers()`` order, on ``device``."""
     dev = resolve_device(device)
-    layers = list(tree["prefix"])
-    for g in range(cfg.num_groups):
-        layers += [tree_map(lambda a: np.asarray(a)[g], unit)
-                   for unit in tree["unit"]]
-    layers += list(tree["suffix"])
-    out = dict(embed=tree["embed"], final_norm=tree["final_norm"],
-               layers=layers)
-    for k in ("lm_head", "mtp"):
-        if k in tree:
-            out[k] = tree[k]
     # copies: the arrays may be read-only views of another package's buffers
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), out)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
+                    _port_tree(tree, cfg))
+
+
+def opt_state_from_numpy(state, cfg, device="cuda"):
+    """The port's ``train.optimizer.OptState`` from the JAX package's
+    ``OptState`` (step, mu, nu, master) given as NumPy arrays (a
+    NamedTuple or a dict of those fields): the moments and the master
+    copy mapped onto the port's per-layer tree as
+    :func:`params_from_numpy` maps the parameters."""
+    from repro_torch.train.optimizer import OptState
+
+    dev = resolve_device(device)
+    get = (state.get if isinstance(state, dict)
+           else lambda k: getattr(state, k))
+    master = get("master")
+    return OptState(
+        torch.tensor(np.asarray(get("step")), dtype=torch.int32, device=dev),
+        params_from_numpy(get("mu"), cfg, dev),
+        params_from_numpy(get("nu"), cfg, dev),
+        None if master is None else params_from_numpy(master, cfg, dev))
 
 
 def cache_to_numpy(cache, cfg) -> Dict:

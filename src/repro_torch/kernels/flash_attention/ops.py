@@ -26,18 +26,32 @@ kernels its form issues; :data:`form_launches` counts the calls by form.
 ``_launch`` takes the form, key split, M tile and partials kernel as
 arguments, so tests and ``benchmarks_torch/flash_forms.py`` reach the
 variants the rule does not take.
+
+The backward (``csrc/flash_attention_bwd.cu``, its own library and
+launch count, :data:`BWD_KERNEL`) gives dq, dk and dv from q, k, v, the
+positions, the forward's output and its cotangent: a dq kernel (a warp
+per query row and group, which also writes the rows' softmax max, sum and
+``rowsum(do * o)``) and a dk/dv kernel (a warp per key), both f32 FMAs,
+no float atomics.  :func:`flash_attention` runs the forward inside the
+:class:`FlashAttention` autograd function when grad is enabled and an
+input requires it; on CPU tensors its backward is the autograd of the
+plain version (:func:`.ref.attention_bwd_ref`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import INT, PTR, CudaKernel, check_cuda
-from repro_torch.kernels.flash_attention.ref import chunked_attention
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     chunked_attention)
 
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_launch": [PTR] * 6 + [INT] * 10,
     "flash_attention_split_launch": [PTR] * 9 + [INT] * 14,
     "flash_attention_mma_launch": [PTR] * 9 + [INT] * 11,
+})
+BWD_KERNEL = CudaKernel("flash_attention_bwd", "flash_attention_bwd.cu", {
+    "flash_attention_bwd_launch": [PTR] * 13 + [INT] * 10,
 })
 
 MAX_HD = 576        # the simt form: 18 output columns a lane (csrc)
@@ -186,11 +200,85 @@ def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
     return out
 
 
-def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                    prefix_len: int = 0) -> torch.Tensor:
-    """GQA attention with causal / window / prefix masks from positions;
-    returns (B, Sq, KV, G, hd) in q's type."""
+def _forward(q, k, v, q_pos, kv_pos, window, prefix_len):
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, q_pos, kv_pos, window=window,
                                  prefix_len=prefix_len)
     return _flash_attention_cuda(q, k, v, q_pos, kv_pos, window, prefix_len)
+
+
+def flash_attention_bwd(q, k, v, q_pos, kv_pos, o, do, *, window: int = 0,
+                        prefix_len: int = 0):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at these inputs, its
+    output ``o`` and that output's cotangent ``do``: the backward kernel
+    for CUDA tensors, the plain version's autograd for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, q_pos, kv_pos, do, window=window,
+                                 prefix_len=prefix_len)
+    B, Sq, KV, G, hd = q.shape
+    T = k.shape[1]
+    if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
+        raise ValueError(f"flash attention backward takes f32 or bf16 q and "
+                         f"k/v of one type, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must have q's type {q.dtype}, got "
+                         f"{o.dtype}, {do.dtype}")
+    if not (k.shape == v.shape == (B, T, KV, hd) and o.shape == q.shape
+            and do.shape == q.shape and q_pos.shape == (B, Sq)
+            and kv_pos.shape == (B, T)):
+        raise ValueError("flash attention backward: inconsistent shapes")
+    if not (1 <= G <= MAX_G and 1 <= hd <= MAX_HD and T >= 1):
+        raise ValueError(f"flash attention backward takes 1 <= G <= {MAX_G}"
+                         f", 1 <= hd <= {MAX_HD} and T >= 1; got G={G}, "
+                         f"hd={hd}, T={T}")
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    qp, kp = _int32(q_pos), _int32(kv_pos)
+    check_cuda(q, k, v, o, do, qp, kp)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if Sq == 0 or B * KV == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    n = B * Sq * KV * G
+    rows = torch.empty(3 * n, dtype=torch.float32, device=q.device)
+    base = rows.data_ptr()
+    BWD_KERNEL.launch(
+        "flash_attention_bwd_launch",
+        *(t.data_ptr() for t in (q, k, v, qp, kp, o, do, dq, dk, dv)),
+        base, base + 4 * n, base + 8 * n,             # m, l, rowsum(do * o)
+        B, Sq, T, KV, G, hd, int(window), int(prefix_len),
+        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 forward, its backward kernel behind ``backward`` (the plain
+    versions for CPU tensors).  Saves q, k, v, the positions and the
+    output; no (Sq, T) tensor is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, prefix_len):
+        o = _forward(q, k, v, q_pos, kv_pos, window, prefix_len)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, o)
+        ctx.masks = (window, prefix_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, kv_pos, o = ctx.saved_tensors
+        window, prefix_len = ctx.masks
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, kv_pos, o,
+                                         do.contiguous(), window=window,
+                                         prefix_len=prefix_len)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """GQA attention with causal / window / prefix masks from positions;
+    returns (B, Sq, KV, G, hd) in q's type.  Differentiable in q, k and v
+    through :class:`FlashAttention` where grad is enabled."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_pos, kv_pos, int(window),
+                                    int(prefix_len))
+    return _forward(q, k, v, q_pos, kv_pos, window, prefix_len)

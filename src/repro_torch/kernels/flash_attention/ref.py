@@ -105,6 +105,18 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
 
 
 
+def attention_bwd_ref(q, k, v, q_pos, kv_pos, do, *, window: int = 0,
+                      prefix_len: int = 0):
+    """The backward's plain version: ``(dq, dk, dv)``, the autograd of
+    :func:`chunked_attention` at these inputs against the cotangent ``do``
+    of its output (each in its input's type)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = chunked_attention(*leaves, q_pos, kv_pos, window=window,
+                                prefix_len=prefix_len)
+        return torch.autograd.grad(out, leaves, do)
+
+
 # ------------------------------------------------------ the split form --
 # The kernel's split form in plain PyTorch (tests hold it against the JAX
 # package; the main path does not call it): the keys a row visits, each

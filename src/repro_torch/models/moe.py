@@ -8,11 +8,19 @@ tokens against the (E, D, F) stack), so the stacked weights are read in
 place: folding them into one (D, E*F) matrix would copy them (22.5 GB at
 deepseek-v3's width).
 
-The JAX package's expert-parallel ``a2a`` path exists only over a device
-mesh with a "model" axis; without one it computes ``moe_dense``, and so
-does :func:`moe_ffn` here for ``impl`` "auto", "a2a" and "dense".  Its
-capacity-bucketed body over a ``ShardMesh`` belongs to the training slice
-and raises.
+The expert-parallel ``a2a`` path (:func:`moe_a2a`) runs over a
+``distributed.mesh.ShardMesh`` of D EP shards held as the leading tensor
+axis on one device, the counterpart of the JAX package's ``shard_map``
+over its "model" axis: each shard routes its own tokens (a D-th of the
+sequence), buckets them per expert with a per-(expert, source) capacity
+(the in-bucket slot from K3's stable rank, ``kernels.migrate.ops.
+bucket_ranks``, on a card), dispatches into an (E, cap, D) buffer whose
+dropped slots go to a scratch row, exchanges by a transpose of the shard
+axis (the all-to-all), runs the experts batched and combines by the
+router's weights.  :func:`moe_ffn` takes it where a mesh is given (or
+ambient, :func:`use_mesh`) and ``impl`` is "a2a" or "auto"; otherwise
+``moe_dense``.  Its gradient is autograd of these tensor operations, as
+the JAX package's is autodiff of its einsums.
 
 ``pair_stats`` gives the per-expert token counts and the co-activation
 matrix the expert-placement balancer reads; both are small integers held
@@ -20,12 +28,14 @@ in f32, exact.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.migrate import ops as mops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 
@@ -128,18 +138,126 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor,
     return y, aux
 
 
+# --------------------------------------------------------------- a2a path --
+
+_AMBIENT: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``ShardMesh``) the ambient EP mesh of
+    :func:`moe_ffn` inside the block, as ``jax.sharding.set_mesh`` makes a
+    mesh ambient for the JAX package's MoE layers."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def dispatch_slots(flat_e: torch.Tensor, num_experts: int, cap: int):
+    """Each (token, k) pair's slot in its (source shard, expert) bucket —
+    the number of earlier pairs of the shard that chose the expert, the
+    JAX package's one-hot cumsum — and whether it is below the capacity:
+    ``(slot, keep)`` for expert ids ``flat_e`` (D, n).  One K3 call on a
+    card (bucket ``shard · E + expert``), its stable in-bucket rank."""
+    n_sh = flat_e.shape[0]
+    E = int(num_experts)
+    bucket = flat_e.to(torch.int32) + E * torch.arange(
+        n_sh, dtype=torch.int32, device=flat_e.device)[:, None]
+    slot, _ = mops.bucket_ranks(bucket.reshape(-1).contiguous(),
+                                C=n_sh * E)
+    slot = slot.reshape(flat_e.shape)
+    return slot, slot < cap
+
+
+def _a2a_local(x_loc: torch.Tensor, router, wi, wg, wo, *,
+               cfg: ModelConfig, collect_stats: bool = False):
+    """The EP body over all D shards at once: ``x_loc`` (D, T_loc, D_model)
+    holds each shard's local tokens.  Returns ``(y (D, T_loc, D_model),
+    aux)`` (aux the mean of the shards' router losses), plus the routing
+    statistics summed over the shards with ``collect_stats``."""
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    n_sh, T_loc, Dm = x_loc.shape
+    dt = x_loc.dtype
+    dev = x_loc.device
+    # per-(expert, source) capacity
+    cap = max(1, int(m.capacity_factor * k * T_loc) // E)
+
+    logits = x_loc.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                  # (D, T_loc, E)
+    w, ids = _top_k(probs.reshape(-1, E), k)
+    w, ids = w.reshape(n_sh, T_loc, k), ids.reshape(n_sh, T_loc, k)
+    w = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)).to(dt)
+    me = probs.mean(dim=1)                                 # (D, E)
+    ce = F.one_hot(ids.long(), E).sum(dim=(1, 2)).to(torch.float32) / (
+        T_loc * k)
+    aux = E * torch.sum(me * ce, dim=-1) + 1e-3 * torch.mean(
+        torch.logsumexp(logits, dim=-1) ** 2, dim=-1)      # (D,)
+
+    flat_e = ids.reshape(n_sh, T_loc * k)
+    slot, keep = dispatch_slots(flat_e, E, cap)
+    # dispatch buffer (E, cap, D) a shard; dropped pairs write to a scratch
+    # row past the end
+    row = flat_e.long() * cap + slot.long()
+    buf_idx = torch.where(keep, row, E * cap)
+    x_rep = x_loc[:, :, None, :].expand(n_sh, T_loc, k, Dm).reshape(
+        n_sh, T_loc * k, Dm)
+    disp = torch.zeros((n_sh, E * cap + 1, Dm), dtype=dt, device=dev)
+    disp = disp.scatter(1, buf_idx[..., None].expand(-1, -1, Dm),
+                        x_rep)[:, :E * cap]
+    # the all-to-all: expert e's rows from every source shard, (E, D·cap, Dm)
+    recv = disp.reshape(n_sh, E, cap, Dm).transpose(0, 1).reshape(
+        E, n_sh * cap, Dm)
+    h = F.silu(torch.matmul(recv, wg.to(dt))) * torch.matmul(recv,
+                                                              wi.to(dt))
+    out = torch.matmul(h, wo.to(dt))                       # (E, D·cap, Dm)
+    # the return trip, then each kept pair's result weighted and summed
+    back = out.reshape(E, n_sh, cap, Dm).transpose(0, 1).reshape(
+        n_sh, E * cap, Dm)
+    gathered = back.gather(1, torch.where(keep, row, 0)[..., None].expand(
+        -1, -1, Dm))
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=dt, device=dev))
+    y = torch.sum(gathered.reshape(n_sh, T_loc, k, Dm) * w[..., None],
+                  dim=2)
+    aux = aux.mean()
+    if collect_stats:
+        return y, aux, pair_stats(ids.reshape(-1, k), E)
+    return y, aux
+
+
+def moe_a2a(params, cfg: ModelConfig, x: torch.Tensor,
+            collect_stats: bool = False, *, mesh):
+    """Expert-parallel MoE over the D shards of ``mesh``: shard d holds the
+    d-th block of the sequence of every row (the JAX package's
+    sequence-over-"model" boundary layout); ``moe_dense`` where E or S does
+    not divide over D."""
+    D = mesh.num_shards
+    B, S, Dm = x.shape
+    if cfg.moe.num_experts % D or S % D:
+        return moe_dense(params, cfg, x, collect_stats)
+    x_loc = x.reshape(B, D, S // D, Dm).transpose(0, 1).reshape(
+        D, B * (S // D), Dm)
+    out = _a2a_local(x_loc, params["router"], params["wi"], params["wg"],
+                     params["wo"], cfg=cfg, collect_stats=collect_stats)
+    y = out[0].reshape(D, B, S // D, Dm).transpose(0, 1).reshape(B, S, Dm)
+    if cfg.moe.num_shared:
+        y = y + _shared(params, x, x.dtype)
+    return (y,) + tuple(out[1:])
+
+
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
             impl: Optional[str] = None, collect_stats: bool = False, *,
             mesh=None):
-    """The MoE FFN: ``moe_dense`` for every ``impl`` on one device.  The
-    expert-parallel body over a mesh (``mesh`` given with "auto" or
-    "a2a") waits for the training slice and raises."""
+    """The MoE FFN: :func:`moe_a2a` over ``mesh`` (or the ambient mesh of
+    :func:`use_mesh`) for ``impl`` "a2a" or "auto", else ``moe_dense``."""
     impl = impl or cfg.moe.impl
     if impl not in IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}; one of {IMPLS}")
+    if mesh is None and _AMBIENT:
+        mesh = _AMBIENT[-1]
     if mesh is not None and impl != "dense":
-        raise NotImplementedError(
-            "the expert-parallel a2a body over a ShardMesh (moe._a2a_local "
-            "in the JAX package) is not ported yet: it comes with the "
-            "training slice")
+        return moe_a2a(params, cfg, x, collect_stats, mesh=mesh)
     return moe_dense(params, cfg, x, collect_stats)

@@ -21,16 +21,23 @@ bidirectionally (prefix-LM, ``prefix_len = vision_prefix``).
 
 Entry points: ``forward`` (hidden states, optionally writing a cache and
 returning the aux channel), ``logits_head``, ``prefill`` (last-position
-logits) and ``decode_step``.  The multi-token-prediction parameters are
-declared (``model_specs``) so that counts and carried weights agree; their
-loss and ``loss_fn`` belong to the training slice and raise.
+logits), ``decode_step`` and ``loss_fn`` (the training loss: the
+sequence-chunked next-token CE with its z-loss, the MoE aux term and
+DeepSeek's multi-token-prediction term).
+
+Rematerialization (``remat``): "none" keeps every layer's activations
+for the backward; "full" runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), so the backward recomputes it.  The JAX package's
+"dots" is an XLA saving policy (keep the matmul outputs) with no
+counterpart in eager PyTorch; it takes the "full" path.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
@@ -41,16 +48,10 @@ from repro_torch.models.layers import (embed_specs, mlp, mlp_specs, rms_norm,
                                        rms_norm_spec)
 from repro_torch.models.params import ParamSpec, tree_map
 
+REMATS = ("none", "full", "dots")
 ATTN_KINDS = ("attn", "attn_local", "moe", "moe_local")
 HYMBA_KINDS = ("hymba", "hymba_g")
 XLSTM_KINDS = ("mlstm", "slstm")
-
-
-def _training_slice(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: the PyTorch port serves every block "
-        "kind (forward, prefill, decode_step); training, the MTP loss and "
-        "the expert-parallel a2a over a mesh come with the training slice")
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -264,23 +265,35 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             cache: Optional[List[Dict]] = None, decode: bool = False,
-            collect_router_stats: bool = False, with_aux: bool = False):
+            collect_router_stats: bool = False, with_aux: bool = False,
+            remat: str = "none"):
     """Run the stack on ``batch = {tokens (B, S) and/or embeds (B, S', D),
     positions (B, S)}``; returns ``(hidden (B, S, D), cache)``, the cache
     updated in place, or ``(hidden, cache, aux)`` with ``with_aux`` (aux
     summed over the layers; ``(aux, RouterStats)`` with
     ``collect_router_stats``).  ``decode`` takes the recurrent blocks'
-    single-step forms (one token a row)."""
+    single-step forms (one token a row).  ``remat`` "full" (or "dots")
+    checkpoints each layer where grad is enabled and there is no cache."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
     x = _embed_inputs(params, cfg, batch)
     positions = batch["positions"]
     prefix_len = cfg.vision_prefix if cfg.prefix_lm else 0
     aux_total = (zero_aux(cfg, collect_router_stats, x.device)
                  if with_aux or collect_router_stats else None)
+    recompute = (remat != "none" and cache is None
+                 and torch.is_grad_enabled())
     for i, kind in enumerate(cfg.all_layers()):
-        x, aux = apply_block(params["layers"][i], cfg, kind, x, positions,
-                             None if cache is None else cache[i],
-                             prefix_len=prefix_len, decode=decode,
-                             collect_router_stats=collect_router_stats)
+        kw = dict(prefix_len=prefix_len, decode=decode,
+                  collect_router_stats=collect_router_stats)
+        if recompute:
+            x, aux = checkpoint(apply_block, params["layers"][i], cfg, kind,
+                                x, positions, None, use_reentrant=False,
+                                **kw)
+        else:
+            x, aux = apply_block(params["layers"][i], cfg, kind, x,
+                                 positions,
+                                 None if cache is None else cache[i], **kw)
         if aux_total is not None:
             aux_total = _aux_add(aux_total, aux)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -296,8 +309,108 @@ def logits_head(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ w
 
 
-def loss_fn(*args, **kwargs):
-    raise _training_slice("loss_fn (training, with the MTP loss)")
+# ------------------------------------------------------------------- loss --
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, dt):
+    """Per-position ``(nll, lse^2, valid)`` of f32 logits (..., V) against
+    labels (-1 = masked).  The label logit is read from the logits cast
+    to the compute type ``dt``, as the JAX einsum against a ``dt`` one-hot
+    reads it."""
+    m = logits.amax(dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    label_logit = logits.to(dt).gather(
+        -1, labels.clamp(min=0).long()[..., None])[..., 0].to(torch.float32)
+    valid = labels >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return (torch.where(valid, lse - label_logit, zero),
+            torch.where(valid, lse * lse, zero), valid)
+
+
+def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor):
+    """One sequence chunk's summed nll and z terms: logits (B, c, V) in
+    f32 from the compute-type product."""
+    nll, zl, _ = _ce_terms((hx @ w).to(torch.float32), lx, hx.dtype)
+    return nll.sum(), zl.sum()
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
+            remat: str = "none", seq_chunk: int = 512,
+            z_weight: float = 1e-4, collect_router_stats: bool = False
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token CE; ``batch["labels"]`` is (B, S) with -1 = masked.
+
+    The head runs in sequence chunks of ``seq_chunk``, each under
+    ``torch.utils.checkpoint`` (its backward recomputes the chunk's
+    logits), so no (B, S, V) tensor is kept.  ``loss = ce + z_weight ·
+    mean(lse²)``, plus ``router_aux_weight · aux`` for a MoE config and
+    ``0.3 · mtp`` for an MTP config.  Returns ``(loss, metrics)`` with
+    ``ce``, ``aux``, ``tokens`` and ``mtp``, and with
+    ``collect_router_stats`` the detached ``router_counts`` (E,) and
+    ``router_coact`` (E, E)."""
+    h, _, aux = forward(params, cfg, batch, with_aux=True, remat=remat,
+                        collect_router_stats=collect_router_stats)
+    rstats = None
+    if collect_router_stats:
+        aux, rstats = aux
+        rstats = moe_mod.RouterStats(*(t.detach() for t in rstats))
+    labels = batch["labels"]
+    B, S = labels.shape
+    dt = h.dtype
+    w = (params["embed"].to(dt).T if cfg.tie_embeddings
+         else params["lm_head"].to(dt))
+    c = min(seq_chunk, S)
+    Sp = -(-S // c) * c
+    hp, lp = h, labels
+    if Sp != S:
+        hp = torch.nn.functional.pad(h, (0, 0, 0, Sp - S))
+        lp = torch.nn.functional.pad(labels, (0, Sp - S), value=-1)
+    f32 = torch.float32
+    tot = torch.zeros((), dtype=f32, device=h.device)
+    ztot = torch.zeros((), dtype=f32, device=h.device)
+    for i in range(0, Sp, c):
+        hx, lx = hp[:, i:i + c], lp[:, i:i + c]
+        if torch.is_grad_enabled():
+            nll, zl = checkpoint(_chunk_ce, hx, lx, w, use_reentrant=False)
+        else:
+            nll, zl = _chunk_ce(hx, lx, w)
+        tot = tot + nll
+        ztot = ztot + zl
+    cnt = (labels >= 0).sum().to(torch.int32)
+    denom = torch.clamp(cnt, min=1).to(f32)
+    ce = tot / denom
+    loss = ce + z_weight * ztot / denom
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    mtp = torch.zeros((), dtype=f32, device=h.device)
+    if cfg.mtp and batch.get("tokens") is not None:
+        mtp = _mtp_loss(params, cfg, batch, h[:, :S])
+        loss = loss + 0.3 * mtp
+    metrics = dict(ce=ce, aux=aux, tokens=cnt, mtp=mtp)
+    if rstats is not None:
+        metrics["router_counts"] = rstats.counts
+        metrics["router_coact"] = rstats.coact
+    return loss, metrics
+
+
+def _mtp_loss(params: Dict, cfg: ModelConfig, batch: Dict,
+              h: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction: one extra attention block
+    predicting t+2 from ``[norm(h_t) ; emb(token_{t+1})]``, sharing the
+    embedding and the head; the mean CE over valid positions."""
+    dt = h.dtype
+    tokens, labels = batch["tokens"], batch["labels"]
+    nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    lbl2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, -1:], -1)],
+                     dim=1)
+    e = params["embed"][nxt.long()].to(dt)
+    hm = rms_norm(h, params["mtp"]["norm"], cfg.norm_eps)
+    x = torch.cat([hm, e], dim=-1) @ params["mtp"]["proj"].to(dt)
+    x, _ = apply_block(params["mtp"]["block"], cfg, "attn", x,
+                       batch["positions"], None)
+    logits = logits_head(params, cfg, x).to(torch.float32)
+    nll, _, valid = _ce_terms(logits, lbl2, dt)
+    return nll.sum() / torch.clamp(valid.sum(), min=1).to(torch.float32)
 
 
 # ------------------------------------------------------------ decode step --

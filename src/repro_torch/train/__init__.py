@@ -1,8 +1,9 @@
-"""Training runtime pieces (counterpart of ``repro.train``): the supervised
-restart loop, heartbeats and the straggler balancer
-(:mod:`.fault_tolerance`), and live MoE expert rebalancing
-(:mod:`.ep_runtime`: the EP replay, the real-weight relocation and the
-train-loop rebalancer)."""
+"""Training (counterpart of ``repro.train``): AdamW (:mod:`.optimizer`),
+the train step (:mod:`.train_step`), checkpoints (:mod:`.checkpoint`),
+the data pipeline (:mod:`.data`), the supervised restart loop,
+heartbeats and the straggler balancer (:mod:`.fault_tolerance`), and live
+MoE expert rebalancing (:mod:`.ep_runtime`: the EP replay, the
+real-weight relocation and the train-loop rebalancer)."""
 from repro_torch.train.ep_runtime import (
     EPRebalancer,
     EPReplayResult,

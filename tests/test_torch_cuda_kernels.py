@@ -1051,3 +1051,69 @@ def test_ep_replay_loops_on_cuda_equal_cpu(dev, strategy, trigger):
                                       err_msg=f)
     sp = np.spacing(c.max_avg.astype(np.float32)).astype(np.float64)
     assert (np.abs(a.max_avg - c.max_avg) <= 2 * sp).all()
+
+
+def _bwd_case(dev, B, S, KV, G, hd, dt, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((B, S, KV, G, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S).contiguous()
+    do = torch.randn((B, S, KV, G, hd), generator=g, device=dev).to(dt)
+    return q, k, v, pos, do
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,dt,window,prefix", [
+    (1, 64, 2, 3, 64, torch.float32, 0, 0),
+    (2, 300, 3, 3, 64, torch.bfloat16, 0, 0),      # smollm's heads
+    (1, 300, 2, 3, 64, torch.float32, 64, 0),
+    (1, 300, 2, 3, 64, torch.float32, 0, 40),
+    (2, 200, 1, 4, 24, torch.float32, 0, 0),       # reduced MLA latents
+    (1, 70, 1, 16, 576, torch.bfloat16, 0, 0),     # past hd 288
+    (1, 40, 1, 128, 96, torch.float32, 0, 0),      # G at its limit
+])
+def test_flash_attention_bwd_kernel_matches_plain(dev, B, S, KV, G, hd, dt,
+                                                  window, prefix):
+    """K6's backward against the autograd of the plain version (f32
+    inputs, the kernel's own operands upcast): f32 within 1e-4 of each
+    gradient's largest magnitude, bf16 within 2e-2 (bf16 outputs, and the
+    forward's output rounded to bf16 in D); two calls equal bit for bit."""
+    q, k, v, pos, do = _bwd_case(dev, B, S, KV, G, hd, dt, 0)
+    kw = dict(window=window, prefix_len=prefix)
+    o = fops.flash_attention(q, k, v, pos, pos, **kw)
+    got = fops.flash_attention_bwd(q, k, v, pos, pos, o, do, **kw)
+    again = fops.flash_attention_bwd(q, k, v, pos, pos, o, do, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), pos, pos,
+                             do.float(), **kw)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        assert float((a.float() - b).abs().max()) <= tol * float(
+            b.abs().max())
+
+
+def test_flash_attention_autograd_launches_both_kernels(dev):
+    q, k, v, pos, do = _bwd_case(dev, 2, 128, 3, 3, 64, torch.bfloat16, 1)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    f0, b0 = fops.KERNEL.launches, fops.BWD_KERNEL.launches
+    o = fops.flash_attention(*leaves, pos, pos)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert (fops.KERNEL.launches - f0, fops.BWD_KERNEL.launches - b0) == (1, 1)
+    want = fops.flash_attention_bwd(q, k, v, pos, pos, o.detach(), do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_flash_attention_bwd_rejects_what_it_does_not_take(dev):
+    q, k, v, pos, do = _bwd_case(dev, 1, 16, 1, 4, 64, torch.float32, 2)
+    o = fops.flash_attention(q, k, v, pos, pos)
+    with pytest.raises(ValueError):
+        fops.flash_attention_bwd(q, k, v, pos, pos, o, do.to(torch.bfloat16))
+    big = torch.zeros((1, 4, 1, 4, 640), device=dev)
+    kb = torch.zeros((1, 4, 1, 640), device=dev)
+    p4 = pos[:, :4].contiguous()
+    with pytest.raises(ValueError):
+        fops.flash_attention_bwd(big, kb, kb, p4, p4, big, big)

@@ -1,9 +1,13 @@
 """The port's fault tolerance (``train.fault_tolerance``): the supervised
 restart loop, heartbeats and the straggler balancer, against the JAX
-package on the CPU (``tests/test_fault_tolerance.py`` without the
-training test, which needs the training slice)."""
+package on the CPU, and training that crashes, restores its checkpoint and
+ends bit for bit where an uninterrupted run ends
+(``tests/test_fault_tolerance.py``)."""
+import tempfile
+
 import numpy as np
 import pytest
+import torch
 
 from repro.train import fault_tolerance as j_ft
 from repro_torch.train import fault_tolerance as ft
@@ -100,3 +104,62 @@ def test_straggler_balancer_ignores_noise():
                           is not None)
     assert not fired, "2% noise must not trigger data movement"
     assert ft.StragglerBalancer(num_hosts=2).device == "cuda"
+
+
+def test_resilient_training_bit_exact_after_crash():
+    """Crash at step 6 of 10, restore the step-6 checkpoint from disk, go
+    on: the final parameters equal 10 clean steps bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    cfg = get_arch("smollm-135m").reduced
+    params0 = init_params(transformer.model_specs(cfg), 0, CPU)
+    opt0 = opt_mod.init(params0, device=CPU)
+    step = ts_mod.make_train_step(
+        cfg, opt_mod.OptConfig(warmup_steps=2, total_steps=50))
+    rngb = np.random.default_rng(0)
+    B, S = 2, 16
+    batches = []
+    for _ in range(10):
+        t = rngb.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+        lbl = np.concatenate([t[:, 1:], np.full((B, 1), -1, np.int32)], 1)
+        pos = np.ascontiguousarray(
+            np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)))
+        batches.append(dict(tokens=torch.as_tensor(t),
+                            labels=torch.as_tensor(lbl),
+                            positions=torch.as_tensor(pos)))
+
+    p, o = params0, opt0
+    for b in batches:
+        p, o, _ = step(p, o, b)
+    truth = tree_leaves(p)
+
+    with tempfile.TemporaryDirectory() as d:
+        run = dict(p=params0, o=opt0)
+        crashed = dict(left=1)
+
+        def step_fn(s):
+            if s == 6 and crashed["left"]:
+                crashed["left"] -= 1
+                raise ft.WorkerFailure("boom")
+            run["p"], run["o"], _ = step(run["p"], run["o"], batches[s])
+
+        def save_fn(s):
+            ckpt.save(d, s, run["p"], run["o"])
+
+        def restore_fn():
+            run["p"], run["o"], s, _ = ckpt.restore(d, run["p"], run["o"],
+                                                    device=CPU)
+            return s
+
+        save_fn(0)
+        out = ft.run_resilient(step_fn, start_step=0, num_steps=10,
+                               save_every=2, save_fn=save_fn,
+                               restore_fn=restore_fn)
+        assert out == dict(final_step=10, restarts=1)
+        for a, b in zip(truth, tree_leaves(run["p"])):
+            assert torch.equal(a, b)

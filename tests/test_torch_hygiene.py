@@ -23,7 +23,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "repro_torch.runtime.resilience",
             "repro_torch.train.fault_tolerance",
             "repro_torch.distributed.ep_balance",
-            "repro_torch.train.ep_runtime"} <= set(mods)
+            "repro_torch.train.ep_runtime",
+            # the training slice
+            "repro_torch.train.optimizer", "repro_torch.train.train_step",
+            "repro_torch.train.checkpoint", "repro_torch.train.data",
+            "repro_torch.distributed.data_balance",
+            "repro_torch.distributed.grad_compress",
+            "repro_torch.launch.train", "repro_torch.launch.mesh"} <= set(
+                mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -527,3 +534,91 @@ def test_chip_smoke_expert_balancing_phase_rehearses_on_cpu(monkeypatch):
     assert all(ep["benches"]["ep_balance"]["gates"].values())
     assert reloc["moved_experts"] >= 1 and reloc["ranks"] == 2
     assert reloc["logits_max_abs_err"] <= 1e-3
+
+
+def test_training_entry_points_default_to_cuda():
+    """The training slice's entry points (the launcher's build and train,
+    the optimizer's state, checkpoint restore, the data pipeline's
+    balancing, the meshes) run on the card unless asked for the CPU;
+    without one they raise."""
+    import inspect
+
+    from repro_torch import interop
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint, data, optimizer
+
+    assert lt.RunConfig().device == "cuda"
+    for fn in (optimizer.init, checkpoint.restore, data.DataPipeline,
+               data.balance_shards, data.shard_problem,
+               lmesh.make_host_mesh, lmesh.make_production_mesh,
+               interop.opt_state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    p = dict(w=torch.ones((2, 2)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        optimizer.init(p)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lt.build(lt.RunConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        lt.train(lt.RunConfig(steps=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        lt.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        lmesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        lmesh.make_production_mesh()
+    pipe = data.DataPipeline(data.DataConfig(vocab_size=100, seq_len=16,
+                                             global_batch=4, num_shards=16,
+                                             seed=7), num_ranks=4)
+    pipe.next_batch()                     # NumPy: no device
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipe.maybe_rebalance(threshold=1.0)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, p)
+        with pytest.raises(RuntimeError, match="cuda"):
+            checkpoint.restore(d, p)
+        assert torch.equal(checkpoint.restore(d, p, device="cpu")[0]["w"],
+                           p["w"])
+    # on the CPU when asked
+    out = lt.main(["--steps", "2", "--seq-len", "8", "--batch", "2",
+                   "--device", "cpu"])
+    assert out is None
+
+
+def test_chip_smoke_training_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 15 (training through the launcher with
+    checkpoints; crash and resume bit for bit; one step of every reduced
+    config against the CPU; the reduced deepseek-v3 with the a2a over 4
+    shards and expert rebalancing; the data pipeline's rebalance) runs end
+    to end on the CPU's plain versions with the reduced configs."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "TRAIN_FULL", False)
+    monkeypatch.setattr(chip_smoke, "TRAIN", dict(
+        arch="smollm-135m", steps=4, seq_len=32, global_batch=2,
+        save_every=2))
+    monkeypatch.setattr(chip_smoke, "TRAIN_RESUME", dict(
+        steps=4, seq_len=16, batch=2, fail_at=2, save_every=2))
+    monkeypatch.setattr(chip_smoke, "TRAINING", {})
+    monkeypatch.setattr(chip_smoke, "TRAIN_LAUNCHES", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        chip_smoke.training_phase()
+    finally:
+        torch.set_num_threads(threads)
+    tr = chip_smoke.TRAINING
+    assert tr["full_width"]["checkpoints"] == ["ckpt_00000002",
+                                               "ckpt_00000004"]
+    assert tr["crash_resume"]["restarts"] == 1
+    assert len(tr["cuda_vs_cpu"]) == 10
+    assert tr["ep"]["fires"] == [2, 4, 6] and sum(tr["ep"]["moved_experts"])
+    assert tr["data"]["moved_shards"] > 0
+    assert not any(sum(n.values()) for n in chip_smoke.TRAIN_LAUNCHES.values())

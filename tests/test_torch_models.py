@@ -381,17 +381,26 @@ def test_init_params_is_seeded_and_shaped():
 
 
 def test_later_slice_blocks_raise():
-    """What the serving slice leaves to the training slice raises and
-    says so: ``loss_fn`` (with the MTP loss) and the expert-parallel a2a
-    body over a mesh; every other block kind builds specs and caches."""
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tt.loss_fn()
+    """What the serving slice left to the training slice runs now:
+    ``loss_fn`` (with the MTP loss) and the expert-parallel a2a body over
+    a mesh (``tests/test_torch_train.py`` and ``test_torch_moe_a2a.py``
+    hold them to the JAX package); every other block kind builds specs
+    and caches, and unknown names still raise."""
+    from repro_torch.distributed.mesh import ShardMesh
+
     cfg = get_arch("llama4-scout-17b-a16e").reduced
-    p = init_params(tt.model_specs(cfg), 0, device="cpu")["layers"][0]
-    x = torch.zeros(1, 3, cfg.d_model)
+    params = init_params(tt.model_specs(cfg), 0, device="cpu")
+    tok = torch.arange(8, dtype=torch.int32)[None] % cfg.vocab_size
+    loss, m = tt.loss_fn(params, cfg, dict(
+        tokens=tok, labels=tok, positions=torch.arange(
+            8, dtype=torch.int32)[None]))
+    assert bool(torch.isfinite(loss)) and int(m["tokens"]) == 8
+    p = params["layers"][0]
+    x = torch.randn(1, 4, cfg.d_model)
     for impl in ("auto", "a2a"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            t_moe.moe_ffn(p["moe"], cfg, x, impl=impl, mesh=object())
+        y, aux = t_moe.moe_ffn(p["moe"], cfg, x, impl=impl,
+                               mesh=ShardMesh(2, "cpu"))
+        assert y.shape == x.shape and bool(torch.isfinite(aux))
     y, aux = t_moe.moe_ffn(p["moe"], cfg, x, impl="dense", mesh=object())
     assert y.shape == x.shape and float(aux) > 0
     with pytest.raises(ValueError, match="impl"):
