@@ -96,8 +96,10 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      backward against the autograd of its plain version at phase 15
      (a)'s attention call (B 8, S 2048, bf16, causal; its forward output
      against the plain attention too, and the forward's times), at B 2,
-     a window, a prefix-LM and the reduced MLA latents, twice bit for
-     bit, with its time, bound, the plain version's and SDPA's backward.
+     a window, a prefix-LM and the reduced MLA latents, in the form its
+     rule names (tensor-core mma for every bf16 case), twice bit for
+     bit, with its time, bound, the plain version's, SDPA's backward and
+     the SIMT form's (held to the mma form's gradients) at the main case.
      Device times are CUDA events around calls queued behind a sleep
      kernel, not the profiler's (which records only part of the runs
      this late in the process).
@@ -164,10 +166,11 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      loss and grad norm finite, every parameter changed, K6 forward and
      backward once per attention call (30 a step); step ms, tokens/s,
      peak memory, and two more steps under the profiler (idle share, top
-     kernels); (b) under deterministic algorithms, ``run_resilient`` with
-     one injected failure restores its checkpoint and ends on the
-     uninterrupted run's parameters bit for bit (full width, 2 x 256
-     tokens); (c) one f32 train step of every reduced config on the card
+     kernels, one dq and one dk/dv mma kernel run a backward launch); (b)
+     under deterministic algorithms, ``run_resilient`` with one injected
+     failure restores its checkpoint and ends on the uninterrupted run's
+     parameters bit for bit (full width, 2 x 256 tokens, the backward's
+     mma form alone); (c) one f32 train step of every reduced config on the card
      against the CPU; (d) the reduced deepseek-v3 (MLA, MoE, MTP) with the
      a2a over ShardMesh(4): its loss against the dense loss, then 8 steps
      with an ``EPRebalancer`` every 2 (fires at the cadence, experts
@@ -1749,10 +1752,13 @@ def flash_bwd_row(counts):
     model's chunked attention, on the inputs upcast to f32) at the training
     path's shape — phase 15 (a)'s smollm-135m attention call (B 8, S 2048,
     KV 3, G 3, hd 64, bf16, causal) — and at B 2, a window, a prefix-LM
-    and the reduced MLA shape: the error (bf16 within 2e-2 of each
-    gradient's largest magnitude, f32 within 1e-4), two calls equal bit
-    for bit, and the main case's time beside its bound, the plain
-    version's and SDPA's backward.  Each case's forward output, which the
+    and the reduced MLA shape: the form ``bwd_form`` names (the mma form at
+    every bf16 case), the error (bf16 within 2e-2 of each gradient's
+    largest magnitude, f32 within 1e-4), two calls equal bit for bit, and
+    the main case's time beside its bound, the plain version's, SDPA's
+    backward and the simt form's (reached through ``_launch_bwd``, its
+    gradients held to the mma form's within 2e-2).  Each case's forward
+    output, which the
     backward reads, is held to the plain chunked attention as in
     :func:`flash_row` (2e-2 abs + rel for bf16, 2e-3 for f32); at the main
     case the forward's time, bound, plain and SDPA times go under
@@ -1809,7 +1815,14 @@ def flash_bwd_row(counts):
         check(bool((o_diff <= ftol + ftol * o_want.float().abs()).all()),
               f"flash_attention ({label}): forward max_abs_err {o_err} "
               f"beyond {ftol} abs + {ftol} rel")
+        bform = fops.bwd_form(B, S, S, KV, G, hd, dt, dt)
+        check(bform == ("mma" if dt == bf16 else "simt"),
+              f"flash_attention_bwd ({label}): bwd_form names {bform}")
+        before = fops.bwd_form_launches[bform]
         got = fops.flash_attention_bwd(q, k, v, pos, pos, o, do, **kw)
+        check(fops.bwd_form_launches[bform] == before + 1,
+              f"flash_attention_bwd ({label}) did not take the {bform} "
+              "form")
         check(all(torch.equal(a, b) for a, b in zip(got, fops.
               flash_attention_bwd(q, k, v, pos, pos, o, do, **kw))),
               f"flash_attention_bwd ({label}): two calls differ")
@@ -1843,7 +1856,7 @@ def flash_bwd_row(counts):
                 f"G={G}, hd={hd}, window={win}, prefix={pre}, "
                 f"{str(dt)[6:]}): forward ({form} form) max_abs_err "
                 f"{o_err:.6g} (tolerance {ftol} abs + rel); backward "
-                f"max_abs_err {err:.6g} (tolerance {tol} "
+                f"({bform} form) max_abs_err {err:.6g} (tolerance {tol} "
                 f"of each gradient's largest magnitude), two calls equal "
                 f"bit for bit, kernel {ms:.4f} ms, bound {bd[0]:.6f} ms "
                 f"({bd[1]})")
@@ -1855,8 +1868,26 @@ def flash_bwd_row(counts):
             y = F.scaled_dot_product_attention(*leaves, is_causal=True)
             lib = time_ms(lambda: torch.autograd.grad(
                 y, leaves, gy, retain_graph=True), reps=10)
-            res[label].update(plain=plain, lib=lib)
-            line += f", plain {plain:.4f} ms, SDPA backward {lib:.4f} ms"
+            # the simt form at the same inputs: held to the mma form's
+            # gradients, and timed beside it
+            simt = fops._launch_bwd(q, k, v, pos, pos, o, do, win, pre,
+                                    "simt")
+            torch.cuda.synchronize()
+            simt_err = 0.0
+            for name, a, b in zip(("dq", "dk", "dv"), got, simt):
+                e = float((a.float() - b.float()).abs().max())
+                check(e <= 2e-2 * float(b.float().abs().max()),
+                      f"flash_attention_bwd ({label}): mma and simt forms' "
+                      f"{name} differ by {e}")
+                simt_err = max(simt_err, e)
+            del simt
+            simt_ms = time_ms(lambda: fops._launch_bwd(
+                q, k, v, pos, pos, o, do, win, pre, "simt"), reps=3)
+            res[label].update(plain=plain, lib=lib, simt_ms=simt_ms,
+                              simt_err=simt_err)
+            line += (f", plain {plain:.4f} ms, SDPA backward {lib:.4f} ms, "
+                     f"simt form {simt_ms:.4f} ms (max_abs_err "
+                     f"{simt_err:.6g} against the mma form)")
             # the forward at this shape: read q, k, v and the positions,
             # write o; 2 products of 2 hd flops per allowed (pair, key)
             f_bd = bound_ms(
@@ -1889,6 +1920,8 @@ def flash_bwd_row(counts):
                 max_abs_err=max(errs), ms=main["ms"],
                 plain_ms=main["plain"], bound_ms=main["bound"][0],
                 bound_by=main["bound"][1], library_ms=main["lib"],
+                form="mma", simt_ms=main["simt_ms"],
+                simt_max_abs_diff=main["simt_err"],
                 cases={lbl: dict(ms=r["ms"], max_abs_err=r["err"],
                                  forward_max_abs_err=r["forward_err"],
                                  bound_ms=r["bound"][0])
@@ -2682,14 +2715,15 @@ def train_full_width():
         _, prof = profile_replay(two_steps)
         launched = _launches_since(kernels.registry())
         # the trace is whole: every K6 launch of the two steps is in it, a
-        # forward kernel a forward launch, dq and dk/dv a backward launch
+        # forward kernel a forward launch, the mma form's dq and dk/dv
+        # kernels a backward launch
         seen = {pat: sum(r["count"] for r in prof["kernels"]
                          if f"::{pat}<" in r["name"])
                 for pat in ("mma_kernel", "split_kernel", "flash_kernel",
-                            "dq_kernel", "dkdv_kernel")}
+                            "dq_mma_kernel", "dkdv_mma_kernel")}
         fwd = seen["mma_kernel"] + seen["split_kernel"] + seen["flash_kernel"]
         check(fwd == launched["flash_attention"] == 2 * calls
-              and seen["dq_kernel"] == seen["dkdv_kernel"]
+              and seen["dq_mma_kernel"] == seen["dkdv_mma_kernel"]
               == launched["flash_attention_bwd"] == 2 * calls,
               f"training profile: recorded K6 runs {seen} against "
               f"{launched['flash_attention']} forward and "
@@ -2750,8 +2784,11 @@ def train_crash_resume():
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import train_step as ts_mod
 
+    from repro_torch.kernels.flash_attention import ops as fops
+
     R = TRAIN_RESUME
     cfg = _train_cfg(TRAIN["arch"], TRAIN_FULL)
+    forms0 = dict(fops.bwd_form_launches)
     torch.use_deterministic_algorithms(True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
     try:
@@ -2796,16 +2833,21 @@ def train_crash_resume():
           f"crash and resume: supervisor gave {out}")
     check(differ == 0, f"crash and resume: {differ} of {len(truth)} "
           "parameter tensors differ from the uninterrupted run")
+    bwd_forms = {f: n - forms0[f] for f, n in fops.bwd_form_launches.items()}
+    if DEV == "cuda" and TRAIN_FULL:
+        check(bwd_forms["mma"] > 0 and bwd_forms["simt"] == 0,
+              f"crash and resume: K6 backward's forms {bwd_forms}, not the "
+              "mma form alone")
     res = dict(arch=TRAIN["arch"], full=TRAIN_FULL, steps=R["steps"],
                batch=R["batch"], seq_len=R["seq_len"],
                failed_at=R["fail_at"], restarts=out["restarts"],
-               tensors_equal=len(truth))
+               tensors_equal=len(truth), backward_forms=bwd_forms)
     print(f"crash and resume ({TRAIN['arch']} "
           f"{'at full width' if TRAIN_FULL else 'reduced'}, "
           f"{R['batch']} x {R['seq_len']} tokens, {R['steps']} steps, "
           f"deterministic algorithms): failed at step {R['fail_at']}, "
           f"restored, all {len(truth)} parameter tensors equal to the "
-          f"uninterrupted run bit for bit")
+          f"uninterrupted run bit for bit; K6 backward's forms {bwd_forms}")
     _reset_peak()
     return res
 

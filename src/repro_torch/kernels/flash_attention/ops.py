@@ -29,10 +29,23 @@ variants the rule does not take.
 
 The backward (``csrc/flash_attention_bwd.cu``, its own library and
 launch count, :data:`BWD_KERNEL`) gives dq, dk and dv from q, k, v, the
-positions, the forward's output and its cotangent: a dq kernel (a warp
-per query row and group, which also writes the rows' softmax max, sum and
-``rowsum(do * o)``) and a dk/dv kernel (a warp per key), both f32 FMAs,
-no float atomics.  :func:`flash_attention` runs the forward inside the
+positions, the forward's output and its cotangent: a dq kernel (which
+also writes the rows' softmax max, sum and ``rowsum(do * o)``), then a
+dk/dv kernel, no float atomics, two calls equal bit for bit.  It has two
+forms, one C entry each; :func:`bwd_form` picks one from the shapes and
+types alone, :data:`bwd_form_launches` counts the calls by form:
+
+* ``"mma"`` — bf16 q and k/v, ``hd % 16 == 0``, ``hd <= 128`` (the dk/dv
+  accumulators' registers), ``G <= 32`` (the training path): both kernels
+  on bf16 ``mma.sync`` tensor-core products in FlashAttention-2's order,
+  64 pairs a dq block, 64 keys a dk/dv block;
+* ``"simt"`` — everything else (f32 and mixed types, ``hd % 16 != 0``,
+  past hd 128 or G 32 up to the simt forward's G 128, hd 576): a warp per
+  pair in the dq kernel, a warp per key in the dk/dv kernel, f32 FMAs.
+
+``_launch_bwd`` takes the form as an argument, so tests and
+``chip_smoke.py`` reach the simt form at the mma form's shapes.
+:func:`flash_attention` runs the forward inside the
 :class:`FlashAttention` autograd function when grad is enabled and an
 input requires it; on CPU tensors its backward is the autograd of the
 plain version (:func:`.ref.attention_bwd_ref`).
@@ -52,6 +65,7 @@ KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
 })
 BWD_KERNEL = CudaKernel("flash_attention_bwd", "flash_attention_bwd.cu", {
     "flash_attention_bwd_launch": [PTR] * 13 + [INT] * 10,
+    "flash_attention_bwd_mma_launch": [PTR] * 15 + [INT] * 8,
 })
 
 MAX_HD = 576        # the simt form: 18 output columns a lane (csrc)
@@ -63,9 +77,13 @@ SPLIT_BLOCKS = 132      # blocks a split launch aims at: the H100's SMs
 MMA_WARPS = 4           # 16 pairs a warp: 64-pair M tiles
 MMA_BLOCKS = 264        # blocks an mma launch aims at: two an SM
 FORMS = ("split", "mma", "simt")
+BWD_MMA_MAX_HD = 128    # the backward's mma form: dk/dv registers (csrc)
+BWD_MMA_MAX_G = 32
+BWD_FORMS = ("mma", "simt")
 _TYPES = (torch.float32, torch.bfloat16)
 
 form_launches = {f: 0 for f in FORMS}
+bwd_form_launches = {f: 0 for f in BWD_FORMS}
 
 
 def takes_tensor_cores(hd: int, q_dtype, kv_dtype) -> bool:
@@ -86,6 +104,17 @@ def flash_form(B: int, Sq: int, T: int, KV: int, G: int, hd: int,
     if Sq * G <= SPLIT_MAX_PAIRS:
         return "split"
     if takes_tensor_cores(hd, q_dtype, kv_dtype):
+        return "mma"
+    return "simt"
+
+
+def bwd_form(B: int, Sq: int, T: int, KV: int, G: int, hd: int,
+             q_dtype, kv_dtype) -> str:
+    """The backward's form for these shapes and types: "mma" where the
+    tensor cores take the operands (bf16 q and k/v, ``hd % 16 == 0``) and
+    ``hd <= 128``, ``G <= 32``, else "simt"."""
+    if (G <= BWD_MMA_MAX_G and hd <= BWD_MMA_MAX_HD
+            and takes_tensor_cores(hd, q_dtype, kv_dtype)):
         return "mma"
     return "simt"
 
@@ -210,11 +239,23 @@ def _forward(q, k, v, q_pos, kv_pos, window, prefix_len):
 def flash_attention_bwd(q, k, v, q_pos, kv_pos, o, do, *, window: int = 0,
                         prefix_len: int = 0):
     """``(dq, dk, dv)`` of :func:`flash_attention` at these inputs, its
-    output ``o`` and that output's cotangent ``do``: the backward kernel
-    for CUDA tensors, the plain version's autograd for CPU tensors."""
+    output ``o`` and that output's cotangent ``do``: the backward kernel in
+    the form :func:`bwd_form` names for CUDA tensors, the plain version's
+    autograd for CPU tensors."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, q_pos, kv_pos, do, window=window,
                                  prefix_len=prefix_len)
+    B, Sq, KV, G, hd = q.shape
+    form = bwd_form(B, Sq, k.shape[1], KV, G, hd, q.dtype, k.dtype)
+    return _launch_bwd(q, k, v, q_pos, kv_pos, o, do, window, prefix_len,
+                       form)
+
+
+def _launch_bwd(q, k, v, q_pos, kv_pos, o, do, window, prefix_len, form):
+    """One call of the backward kernel in ``form``; the training path takes
+    :func:`bwd_form`'s, tests and ``chip_smoke.py`` name the simt form to
+    hold the two to each other.  Checks everything before it touches a
+    device."""
     B, Sq, KV, G, hd = q.shape
     T = k.shape[1]
     if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
@@ -232,6 +273,14 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, o, do, *, window: int = 0,
         raise ValueError(f"flash attention backward takes 1 <= G <= {MAX_G}"
                          f", 1 <= hd <= {MAX_HD} and T >= 1; got G={G}, "
                          f"hd={hd}, T={T}")
+    if form not in BWD_FORMS:
+        raise ValueError(f"unknown flash attention backward form {form!r}")
+    if form == "mma" and bwd_form(B, Sq, T, KV, G, hd, q.dtype,
+                                  k.dtype) != "mma":
+        raise ValueError(f"the backward's mma form takes bf16 q and k/v with "
+                         f"hd % 16 == 0, hd <= {BWD_MMA_MAX_HD} and G <= "
+                         f"{BWD_MMA_MAX_G}; got {q.dtype}, {k.dtype}, G={G}, "
+                         f"hd={hd}")
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     qp, kp = _int32(q_pos), _int32(kv_pos)
     check_cuda(q, k, v, o, do, qp, kp)
@@ -239,14 +288,23 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, o, do, *, window: int = 0,
     if Sq == 0 or B * KV == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     n = B * Sq * KV * G
-    rows = torch.empty(3 * n, dtype=torch.float32, device=q.device)
+    # the pairs' m, l and rowsum(do * o) (f32); the mma form adds their
+    # visit ends and a record of 4 int32 for each 64-pair tile (16-byte
+    # aligned: torch allocates on 256 bytes)
+    words = 3 * n if form == "simt" else 4 * n + 4 * B * KV * -(-Sq * G // 64)
+    rows = torch.empty(words, dtype=torch.float32, device=q.device)
     base = rows.data_ptr()
-    BWD_KERNEL.launch(
-        "flash_attention_bwd_launch",
-        *(t.data_ptr() for t in (q, k, v, qp, kp, o, do, dq, dk, dv)),
-        base, base + 4 * n, base + 8 * n,             # m, l, rowsum(do * o)
-        B, Sq, T, KV, G, hd, int(window), int(prefix_len),
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16))
+    ptrs = [*(t.data_ptr() for t in (q, k, v, qp, kp, o, do, dq, dk, dv)),
+            base, base + 4 * n, base + 8 * n]
+    shapes = [B, Sq, T, KV, G, hd, int(window), int(prefix_len)]
+    if form == "mma":
+        BWD_KERNEL.launch("flash_attention_bwd_mma_launch", *ptrs,
+                          base + 12 * n, base + 16 * n, *shapes)
+    else:
+        BWD_KERNEL.launch("flash_attention_bwd_launch", *ptrs, *shapes,
+                          int(q.dtype == torch.bfloat16),
+                          int(k.dtype == torch.bfloat16))
+    bwd_form_launches[form] += 1
     return dq, dk, dv
 
 

@@ -1064,25 +1064,39 @@ def _bwd_case(dev, B, S, KV, G, hd, dt, seed):
     return q, k, v, pos, do
 
 
-@pytest.mark.parametrize("B,S,KV,G,hd,dt,window,prefix", [
-    (1, 64, 2, 3, 64, torch.float32, 0, 0),
-    (2, 300, 3, 3, 64, torch.bfloat16, 0, 0),      # smollm's heads
-    (1, 300, 2, 3, 64, torch.float32, 64, 0),
-    (1, 300, 2, 3, 64, torch.float32, 0, 40),
-    (2, 200, 1, 4, 24, torch.float32, 0, 0),       # reduced MLA latents
-    (1, 70, 1, 16, 576, torch.bfloat16, 0, 0),     # past hd 288
-    (1, 40, 1, 128, 96, torch.float32, 0, 0),      # G at its limit
+@pytest.mark.parametrize("B,S,KV,G,hd,dt,window,prefix,form", [
+    (1, 64, 2, 3, 64, torch.float32, 0, 0, "simt"),
+    (2, 300, 3, 3, 64, torch.bfloat16, 0, 0, "mma"),   # smollm's heads, B 2
+    (1, 70, 2, 3, 64, torch.bfloat16, 0, 0, "mma"),    # ragged S
+    (1, 300, 4, 1, 64, torch.bfloat16, 0, 0, "mma"),   # G 1
+    (1, 300, 1, 8, 128, torch.bfloat16, 0, 0, "mma"),  # G 8, hd 128
+    (1, 200, 1, 32, 16, torch.bfloat16, 0, 0, "mma"),  # G 32, hd 16
+    (2, 70, 2, 4, 128, torch.bfloat16, 0, 0, "mma"),
+    (1, 130, 2, 2, 48, torch.bfloat16, 0, 0, "mma"),   # hd at run time
+    (1, 130, 1, 4, 96, torch.bfloat16, 0, 0, "mma"),
+    (1, 300, 2, 3, 64, torch.bfloat16, 64, 0, "mma"),  # window
+    (1, 300, 2, 3, 64, torch.bfloat16, 0, 40, "mma"),  # prefix-LM
+    (1, 300, 2, 3, 64, torch.float32, 64, 0, "simt"),
+    (1, 300, 2, 3, 64, torch.float32, 0, 40, "simt"),
+    (2, 200, 1, 4, 24, torch.float32, 0, 0, "simt"),   # reduced MLA latents
+    (1, 70, 1, 16, 576, torch.bfloat16, 0, 0, "simt"),  # past hd 128
+    (1, 40, 1, 128, 96, torch.float32, 0, 0, "simt"),  # G at its limit
 ])
 def test_flash_attention_bwd_kernel_matches_plain(dev, B, S, KV, G, hd, dt,
-                                                  window, prefix):
-    """K6's backward against the autograd of the plain version (f32
-    inputs, the kernel's own operands upcast): f32 within 1e-4 of each
-    gradient's largest magnitude, bf16 within 2e-2 (bf16 outputs, and the
-    forward's output rounded to bf16 in D); two calls equal bit for bit."""
+                                                  window, prefix, form):
+    """K6's backward, in the form ``bwd_form`` names, against the autograd
+    of the plain version (f32 inputs, the kernel's own operands upcast):
+    f32 within 1e-4 of each gradient's largest magnitude, bf16 within 2e-2
+    (bf16 outputs, the forward's output rounded to bf16 in D, and in the
+    mma form P and dS rounded to bf16 as tensor-core operands); two calls
+    equal bit for bit."""
     q, k, v, pos, do = _bwd_case(dev, B, S, KV, G, hd, dt, 0)
     kw = dict(window=window, prefix_len=prefix)
     o = fops.flash_attention(q, k, v, pos, pos, **kw)
+    assert fops.bwd_form(B, S, S, KV, G, hd, dt, dt) == form
+    before = fops.bwd_form_launches[form]
     got = fops.flash_attention_bwd(q, k, v, pos, pos, o, do, **kw)
+    assert fops.bwd_form_launches[form] == before + 1
     again = fops.flash_attention_bwd(q, k, v, pos, pos, o, do, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1096,13 +1110,48 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, B, S, KV, G, hd, dt,
             b.abs().max())
 
 
+@pytest.mark.parametrize("B,S,KV,G,hd,window,prefix,shift", [
+    (2, 2048, 3, 3, 64, 0, 0, 0),      # the training call at B 2
+    (2, 300, 2, 3, 64, 0, 0, 40),      # the first 40 rows see no key
+    (1, 300, 1, 8, 128, 64, 0, 40),
+    (1, 200, 1, 32, 16, 0, 40, 20),
+    (2, 70, 2, 4, 128, 0, 0, 0),
+])
+def test_flash_attention_bwd_mma_form_matches_simt(dev, B, S, KV, G, hd,
+                                                   window, prefix, shift):
+    """The mma form against the simt form at the same bf16 inputs, within
+    2e-2 of each gradient's largest magnitude: both follow the forward's
+    visit rule, which the plain version does not, so this holds them to
+    each other where rows see no allowed key (keys ``shift`` positions
+    ahead of their slots) and where kv slots are unwritten (sentinel
+    positions, a tenth of them)."""
+    q, k, v, pos, do = _bwd_case(dev, B, S, KV, G, hd, torch.bfloat16, 4)
+    kp = pos + shift
+    kp[:, S // 3: S // 3 + S // 10] = POS_SENTINEL
+    kw = dict(window=window, prefix_len=prefix)
+    o = fops.flash_attention(q, k, v, pos, kp, **kw)
+    assert fops.bwd_form(B, S, S, KV, G, hd, q.dtype, k.dtype) == "mma"
+    got = fops._launch_bwd(q, k, v, pos, kp, o, do, window, prefix, "mma")
+    want = fops._launch_bwd(q, k, v, pos, kp, o, do, window, prefix, "simt")
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(
+            b.float().abs().max())
+
+
 def test_flash_attention_autograd_launches_both_kernels(dev):
+    """Autograd through ``flash_attention`` launches the forward once and
+    the backward once, in the mma form at bf16 smollm heads, and gives the
+    backward's own gradients bit for bit."""
     q, k, v, pos, do = _bwd_case(dev, 2, 128, 3, 3, 64, torch.bfloat16, 1)
     leaves = [t.requires_grad_() for t in (q, k, v)]
     f0, b0 = fops.KERNEL.launches, fops.BWD_KERNEL.launches
+    m0 = fops.bwd_form_launches["mma"]
     o = fops.flash_attention(*leaves, pos, pos)
     grads = torch.autograd.grad(o, leaves, do)
     assert (fops.KERNEL.launches - f0, fops.BWD_KERNEL.launches - b0) == (1, 1)
+    assert fops.bwd_form_launches["mma"] == m0 + 1
     want = fops.flash_attention_bwd(q, k, v, pos, pos, o.detach(), do)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
 

@@ -258,3 +258,54 @@ def test_launch_holds_each_forms_limits(form, G, hd):
     kp = torch.zeros(1, 64, dtype=torch.int32)
     with pytest.raises(ValueError, match="form takes|kernel takes"):
         fops._launch(q, k, k, qp, kp, 0, 0, form, 64)
+
+
+@pytest.mark.parametrize("shape,q_dtype,kv_dtype,form", [
+    ((8, 2048, 2048, 3, 3, 64), "bf16", "bf16", "mma"),   # the training call
+    ((2, 300, 300, 3, 3, 64), "bf16", "bf16", "mma"),
+    ((1, 70, 70, 2, 4, 128), "bf16", "bf16", "mma"),      # hd at its limit
+    ((1, 70, 70, 2, 4, 144), "bf16", "bf16", "simt"),     # past it
+    ((1, 70, 70, 1, 32, 16), "bf16", "bf16", "mma"),      # G at its limit
+    ((1, 70, 70, 1, 33, 16), "bf16", "bf16", "simt"),     # past it
+    ((1, 70, 70, 4, 1, 64), "bf16", "bf16", "mma"),       # G 1
+    ((8, 2048, 2048, 3, 3, 64), "f32", "f32", "simt"),    # the f32 configs
+    ((2, 64, 64, 3, 3, 64), "bf16", "f32", "simt"),       # mixed types
+    ((2, 64, 64, 3, 3, 64), "f32", "bf16", "simt"),
+    ((1, 64, 64, 1, 4, 40), "bf16", "bf16", "simt"),      # hd % 16 != 0
+    ((1, 64, 64, 2, 16, 168), "bf16", "bf16", "simt"),    # gemma3-27b's hd
+    ((1, 512, 512, 1, 128, 576), "bf16", "bf16", "simt"),  # MLA's latents
+    ((4, 64, 64, 1, 4, 24), "f32", "f32", "simt"),        # reduced MLA
+])
+def test_bwd_form_rule(shape, q_dtype, kv_dtype, form):
+    """The backward's form from shapes and types alone: mma for bf16 q and
+    k/v with hd % 16 == 0, hd <= 128 and G <= 32, simt for the rest."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    assert (fops.BWD_MMA_MAX_HD, fops.BWD_MMA_MAX_G) == (128, 32)
+    assert fops.bwd_form(*shape, dt[q_dtype], dt[kv_dtype]) == form
+
+
+@pytest.mark.parametrize("G,hd,dtype,o_dtype,form", [
+    (129, 64, torch.float32, torch.float32, None),     # past simt's G 128
+    (4, 577, torch.float32, torch.float32, None),      # past simt's hd 576
+    (4, 64, torch.float16, torch.float16, None),       # no form takes f16
+    (4, 64, torch.bfloat16, torch.float32, None),      # o not in q's type
+    (4, 64, torch.float32, torch.float32, "mma"),      # mma takes bf16 only
+    (4, 144, torch.bfloat16, torch.bfloat16, "mma"),   # past mma's hd 128
+    (33, 64, torch.bfloat16, torch.bfloat16, "mma"),   # past mma's G 32
+    (4, 40, torch.bfloat16, torch.bfloat16, "mma"),    # hd % 16 != 0
+    (4, 64, torch.bfloat16, torch.bfloat16, "wgmma"),  # no such form
+])
+def test_flash_attention_bwd_rejects_what_no_form_takes(G, hd, dtype,
+                                                        o_dtype, form):
+    """The backward raises on what neither form takes, and the private
+    hook on a form that does not take the shapes, before any device is
+    touched (meta tensors: no data)."""
+    q = torch.zeros(1, 8, 1, G, hd, dtype=dtype, device="meta")
+    k = torch.zeros(1, 8, 1, hd, dtype=dtype, device="meta")
+    o = torch.zeros(1, 8, 1, G, hd, dtype=o_dtype, device="meta")
+    p = torch.zeros(1, 8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="backward|q.s type"):
+        if form is None:
+            fops.flash_attention_bwd(q, k, k, p, p, o, o)
+        else:
+            fops._launch_bwd(q, k, k, p, p, o, o, 0, 0, form)
