@@ -56,3 +56,53 @@ def environment(device) -> Dict:
     except OSError:
         pass
     return out
+
+
+def event_ms(fn, reps: int = 20) -> float:
+    """Mean ms of ``fn()`` by CUDA events around ``reps`` back-to-back
+    calls after a warm-up: what a caller waits for when the calls queue
+    (the wrapper's host work where that is the longer)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_device_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn()`` a call, the launch gaps between its kernels
+    included: CUDA events around ``reps`` calls issued behind a queued
+    sleep kernel, so that the card never waits on the host between them.
+    Raises if the host had not issued them all before the sleep ended."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    issue_ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # 2e6 cycles are at least 1 ms at the card's clock (at most 1.98 GHz)
+    torch.cuda._sleep(int(2e6 * (20 + 3 * reps * issue_ms)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    behind = not start.query()
+    torch.cuda.synchronize()
+    if not behind:
+        raise RuntimeError(f"queued_device_ms: the sleep ended before the "
+                           f"host had issued {reps} calls ({issue_ms:.3f} "
+                           "ms each to issue)")
+    return start.elapsed_time(end) / reps

@@ -3,7 +3,8 @@
 card: the measurement behind ``kernels/diffusion/ops.py`` ``WARP_MAX_PK``,
 ``BLOCK_MAX_PK`` and ``FUSED_MAX_PK``.
 
-For K in {4, 8} and P in {8, 32, 128, 512, 1024, ..., 131072} nodes on a
+For K in {4, 8} and P in {8, 32, 128, 512, 1024, ..., 131072} nodes, and
+at K = 8 on to P = 2^20 (P K = 2^23, past ``FUSED_MAX_PK``), on a
 periodic 2D grid graph (K = 4: the four edge neighbours; K = 8: the Moore
 neighbourhood), with loads drawn from a seed, it times one S = 8 chunk from
 the initial carry (all eight sweeps active) of
@@ -21,7 +22,9 @@ the initial carry (all eight sweeps active) of
 and one sweep of the streaming kernel and of its plain version.  Times are
 CUDA-event means over ``--reps`` calls after a warm-up (what a caller waits
 for, the wrapper's host work where that is longer); each K1 form also
-with its device time (``torch.profiler``, the sum of its kernel).  It checks that
+with its device time (``torch.profiler``, the sum of its kernel), the
+streaming chunk and the sweep with theirs (CUDA events around calls
+queued behind a sleep kernel, ``common.queued_device_ms``).  It checks that
 every chunk ends on the same ``it`` and ``stall`` (and the two streaming
 ones on the same bits) and prints which form ``k1_form`` and which path
 ``sweep_impl`` pick.  Prints the card's name and power limit and a table;
@@ -45,7 +48,12 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmarks_torch.common import table  # noqa: E402
+from benchmarks_torch.common import (event_ms as time_ms,  # noqa: E402
+                                     queued_device_ms, table)
+
+# P for both K, then the K = 8 sizes past K1's limit
+SIZES = (8, 32, 128, *(512 << i for i in range(9)))
+WIDE = (1 << 18, 1 << 19, 1 << 20)
 
 
 def grid_graph(P: int, K: int):
@@ -62,19 +70,6 @@ def grid_graph(P: int, K: int):
         raise ValueError(f"K = 4 or 8, got {K}")
     nb = [((ii + di) % a) * b + (jj + dj) % b for di, dj in offs]
     return np.stack([c.ravel() for c in nb], 1).astype(np.int32)
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps: int) -> float:
@@ -138,8 +133,12 @@ def measure(P: int, K: int, reps: int):
     sw = (x, x, nbr, mask, rev, alpha, True)
     row.update(
         agree=same, streaming_ms=time_ms(streaming, reps),
+        # few calls: a chunk's graph replay fills the launch queue
+        streaming_device_ms=queued_device_ms(streaming, 4),
         eager_ms=time_ms(eager, max(2, reps // 4)),
         sweep_ms=time_ms(lambda: dops.diffusion_sweep(*sw), reps),
+        sweep_device_ms=queued_device_ms(
+            lambda: dops.diffusion_sweep(*sw), reps),
         plain_sweep_ms=time_ms(lambda: diffusion_sweep_ref(*sw), reps),
         form=dops.k1_form(P, K), picks=dops.sweep_impl(P, K, dev))
     return row
@@ -162,21 +161,24 @@ def main() -> int:
     print(smi)
     kernels.build_all()
     rows = [measure(P, K, args.reps) for K in (4, 8)
-            for P in (8, 32, 128, *(512 << i for i in range(9)))]
+            for P in SIZES + (WIDE if K == 8 else ())]
 
     def ms(v):
         return "-" if v is None else f"{v:.4f}"
 
     print(table(["K", "P", "sweeps", "warp ms", "block ms", "grid ms",
                  "warp dev", "block dev", "grid dev",
-                 "streaming ms", "eager ms", "K2 sweep ms", "plain sweep ms",
+                 "streaming ms", "streaming dev", "eager ms", "K2 sweep ms",
+                 "K2 sweep dev", "plain sweep ms",
                  "k1_form", "sweep_impl", "agree"],
                 [[r["K"], r["P"], r["sweeps"], ms(r["warp_ms"]),
                   ms(r["block_ms"]), ms(r["grid_ms"]),
                   ms(r["warp_device_ms"]), ms(r["block_device_ms"]),
                   ms(r["grid_device_ms"]),
-                  ms(r["streaming_ms"]), ms(r["eager_ms"]),
-                  ms(r["sweep_ms"]), ms(r["plain_sweep_ms"]), r["form"],
+                  ms(r["streaming_ms"]), ms(r["streaming_device_ms"]),
+                  ms(r["eager_ms"]), ms(r["sweep_ms"]),
+                  ms(r["sweep_device_ms"]), ms(r["plain_sweep_ms"]),
+                  r["form"],
                   r["picks"], r["agree"]] for r in rows]))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -33,7 +33,15 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      streaming one (K2 in a replayed CUDA graph); holds K4's ordered form
      (the card's f32 segment sums) at the PIC path's PE loads and the
      snapshot's node loads and node-pair bytes against the CPU, bit for
-     bit;
+     bit; then the JAX kernel bench's largest diffusion shape, its ring at
+     P = 2^20, K = 8 with loads from seed 0: one K2 sweep against the
+     plain one (8 ulp) and twice bit for bit, and stage 2 to its end
+     through ``virtual_balance`` with the streaming chunk (K2; the launch
+     counts set to 0 just before and read just after), K1's grid form and
+     the plain chunk (iterations and stall exact, x and flow within 64
+     ulp of K1's and 256 of the plain chunk's, which sums rows in another
+     order), with K2's device time a sweep at the kernel bench's four
+     shapes;
   5. runs the port's Table I and Fig 2 scripts on the card, and a small
      replay on the card against the same replay on the CPU; a small
      ``greedy-refine`` replay and a small batched replay of every
@@ -219,6 +227,10 @@ SIM_KERNELS = ("diffusion_nsweeps", "histogram")   # K4: segment sums
 # K2 (the streaming sweep) runs where a caller plans with
 # LBEngine(step_fn=ops.diffusion_sweep): the snapshot's plan in sim_engines
 STEP_KERNELS = ("diffusion_sweep",)
+
+# the JAX kernel bench's diffusion shapes (benchmarks/kernel_bench.py:62,
+# ring graphs, loads from seed 0); stage 2 runs at the largest
+K2_SHAPES = ((4096, 4), (8192, 8), (65536, 8), (1 << 20, 8))
 
 # the serving path: gemma3-1b at full width on two replicas; prompts stay
 # within the 1024-token window (a longer prefill would write several
@@ -798,6 +810,120 @@ def sim_engines(snap):
         print("stage 3: the fused and streaming flows give equal "
               "assignments")
     return args, step_counts
+
+
+def ring_case(P, K, dev):
+    """The JAX kernel bench's ring (hops +1..+K/2, then -1..-(K - K/2);
+    ``benchmarks/kernel_bench.py:64-66``) with its loads (seed 0):
+    ``(x, nbr, mask, rev, alpha)``."""
+    import numpy as np
+    import torch
+    from benchmarks_torch.kernel_bench import ring_graph
+    from repro_torch.core import virtual_lb as vlb
+
+    nbr = torch.as_tensor(ring_graph(P, K), device=dev)
+    mask = torch.ones_like(nbr, dtype=torch.bool)
+    x = torch.as_tensor(np.random.default_rng(0).random(P).astype(
+        np.float32), device=dev)
+    alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
+    return x, nbr, mask, vlb.reverse_slots(nbr, mask), alpha
+
+
+def k2_ring_phase():
+    """K2 at the JAX kernel bench's largest shape, the ring at P = 2^20,
+    K = 8: one sweep against the plain one and twice bit for bit; stage 2
+    to its end through the streaming chunk (launch counts set to 0 just
+    before and read just after), K1's grid form and the plain chunk; K2's
+    device time a sweep at every shape of ``K2_SHAPES``.  Returns the
+    numbers for K2's row."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import virtual_lb as vlb
+    from repro_torch.kernels.diffusion import ops as dops
+    from repro_torch.kernels.diffusion.ref import (diffusion_nsweeps_ref,
+                                                   diffusion_sweep_ref)
+
+    P, K = K2_SHAPES[-1]
+    x, nbr, mask, rev, alpha = ring_case(P, K, DEV)
+    ulp = spacing(x)
+    sw = (x, x, nbr, mask, rev, alpha, True)
+    got, again = dops.diffusion_sweep(*sw), dops.diffusion_sweep(*sw)
+    want = diffusion_sweep_ref(*sw)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(err <= 8 * ulp, f"K2 on the ring at P={P}: {err / ulp:.1f} ulp "
+          "off the plain sweep")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K2 on the ring at P={P}: two calls differ")
+
+    # stage 2 through the chunk sweep_impl selects if that is the
+    # streaming one, else the streaming chunk named; the last carry of
+    # each run is kept for its stall count
+    impl = dops.sweep_impl(P, K, DEV)
+    k2_chunk = (dops.diffusion_nsweeps if impl == "streaming"
+                else dops.streaming_nsweeps)
+    last = {}
+
+    def kept(name, fn):
+        def chunk(*a, **kw):
+            last[name] = fn(*a, **kw)
+            return last[name]
+        return chunk
+
+    runs, secs = {}, {}
+    for name, fn in (("K2", k2_chunk), ("K1", dops.fused_nsweeps),
+                     ("plain", diffusion_nsweeps_ref)):
+        if name == "K2":
+            kernels.reset_launch_counts()
+        _sync()
+        t0 = time.perf_counter()
+        runs[name] = vlb.virtual_balance(x, nbr, mask,
+                                         chunk_fn=kept(name, fn))
+        _sync()
+        secs[name] = time.perf_counter() - t0
+        if name == "K2":
+            counts = kernels.launch_counts()
+    check(counts["diffusion_sweep"] > 0, "K2 was not launched by stage 2 "
+          f"at P={P}")
+    check(counts["diffusion_nsweeps"] == 0, "stage 2 through the streaming "
+          f"chunk at P={P} launched K1")
+    k2 = runs["K2"]
+    # ulp of the largest load: K1 sums each row in K2's order; the plain
+    # chunk in torch's, and over this stage 2's 512 sweeps of 2^20 rows the
+    # two drift apart (108.8 ulp on an H100 in the run that set this bound)
+    tol = {"K1": 64, "plain": 256}
+    errs = {}
+    for name in tol:
+        r = runs[name]
+        check(int(r.iters) == int(k2.iters) and int(last[name][5])
+              == int(last["K2"][5]), f"stage 2 at P={P}: {name} ends at "
+              f"{int(r.iters)} sweeps, stall {int(last[name][5])}; K2 at "
+              f"{int(k2.iters)}, stall {int(last['K2'][5])}")
+        errs[name] = max(float((r.target_loads - k2.target_loads).abs()
+                               .max()),
+                         float((r.flows - k2.flows).abs().max())) / ulp
+    print(f"stage 2 at P={P}: K2 off K1 {errs['K1']:.1f} ulp, off the plain "
+          f"chunk {errs['plain']:.1f} ulp of the largest load")
+    for name, n_ulp in tol.items():
+        check(errs[name] <= n_ulp, f"stage 2 at P={P}: K2 "
+              f"{errs[name]:.1f} ulp off {name} (bound {n_ulp})")
+    shapes = {}
+    for Ps, Ks in K2_SHAPES:
+        case = ring_case(Ps, Ks, DEV) if Ps != P else (x, nbr, mask, rev,
+                                                        alpha)
+        one = (case[0], case[0], *case[1:], True)
+        shapes[f"P={Ps},K={Ks}"] = dict(
+            device_ms=device_ms(lambda: dops.diffusion_sweep(*one)),
+            ms=time_ms(lambda: dops.diffusion_sweep(*one)),
+            bound_ms=bound_ms(16 * Ps + 13 * Ps * Ks, 8 * Ps * Ks + 5 * Ps)[0])
+    print(f"K2 on the kernel bench's ring at P={P}, K={K}: one sweep "
+          f"{err / ulp:.1f} ulp off the plain sweep, twice bit for bit; "
+          f"stage 2 ({impl} selected) through K2 {int(k2.iters)} sweeps in "
+          f"{secs['K2']:.3f} s ({counts['diffusion_sweep']} K2 launches), "
+          f"K1 {secs['K1']:.3f} s, plain {secs['plain']:.3f} s; a sweep by "
+          f"shape {shapes}")
+    return dict(launches=counts["diffusion_sweep"], sweeps=int(k2.iters),
+                sweep_err=err, stage2_ulp=errs, stage2_s=secs,
+                selected=impl, shapes=shapes)
 
 
 def paper_scripts_and_small_replay():
@@ -3633,7 +3759,7 @@ def sharded_kernel_checks():
 # -------------------------------------------------------------- kernels --
 
 
-def kernel_rows(counts, sim_graph, spill):
+def kernel_rows(counts, sim_graph, spill, k2_ring):
     import numpy as np
     import torch
     from repro_torch.core import comm_graph, engine
@@ -3931,11 +4057,16 @@ def kernel_rows(counts, sim_graph, spill):
           f"{err_v / ulp:.1f} ulp; device time of its two kernels "
           f"{dms:.4f} ms a sweep (CUDA events behind a sleep)")
     row("diffusion_sweep", "src/repro/kernels/diffusion/kernel.py:100",
-        "src/repro_torch/csrc/diffusion_sweep.cu", err,
-        "8 ulp of the largest load",
+        "src/repro_torch/csrc/diffusion_sweep.cu",
+        max(err, k2_ring["sweep_err"]), "8 ulp of the largest load",
         time_ms(lambda: dops.diffusion_sweep(*sw)),
         time_ms(lambda: diffusion_sweep_ref(*sw)),
         bound_ms(16 * Pn + 13 * Pn * K, 8 * Pn * K + 5 * Pn), None)
+    rows[-1].update(
+        device_ms=dms, launches_by_path={
+            "step_fn plan": counts["diffusion_sweep"] - k2_ring["launches"],
+            "stage 2 on the ring at P=2^20": k2_ring["launches"]},
+        ring=k2_ring)
     return rows
 
 
@@ -3971,6 +4102,7 @@ def main() -> int:
                        lb_seconds=pic_diff.lb_seconds), pic_none)
     sim_counts, snap = sim_path()
     sim_graph, step_counts = sim_engines(snap)
+    k2_ring = k2_ring_phase()
     k4_ordered_check(snap)
     paper_scripts_and_small_replay()
     host_and_batched_replays()
@@ -4008,15 +4140,17 @@ def main() -> int:
     for name in EP_KERNELS:
         counts[name] += ep_counts[name]
     counts["diffusion_nsweeps"] += sim_counts["diffusion_nsweeps"]
-    counts["diffusion_sweep"] = step_counts["diffusion_sweep"]
+    counts["diffusion_sweep"] = (step_counts["diffusion_sweep"]
+                                 + k2_ring["launches"])
     # K6 on the serving path and on each model family's path of phase 13
     counts["flash_attention"] = (serve_counts["flash_attention"]
                                  + sum(fam_counts.values()))
     print(f"K1 calls by form on each path: {K1_PATH_FORMS}; K2 launches "
-          f"in the step_fn plan: {counts['diffusion_sweep']}; K3 calls by "
+          f"in the step_fn plan and the ring's stage 2: "
+          f"{counts['diffusion_sweep']}; K3 calls by "
           f"form on each path: {K3_PATH_FORMS}, launches {K3_LAUNCHES}; "
           f"K4 calls by form on each path: {K4_PATH_FORMS}")
-    rows = kernel_rows(counts, sim_graph, spill)
+    rows = kernel_rows(counts, sim_graph, spill, k2_ring)
     rows.append(flash_row(counts))
     # phase 15 after the kernel checks; its launches join the rows below
     training_phase()

@@ -45,8 +45,11 @@ KERNEL = CudaKernel("diffusion_nsweeps", "diffusion.cu", {
 })
 
 # -fmad=false: no FMA contraction, so the kernel rounds where the plain
-# version rounds (only the order of the row sums differs)
+# version rounds (only the order of the row sums differs).  Two entry
+# points: the table pass (mask and reciprocity words, once per table) and
+# the sweep.
 SWEEP_KERNEL = CudaKernel("diffusion_sweep", "diffusion_sweep.cu", {
+    "diffusion_sweep_tables_launch": [PTR] * 4 + [INT, INT],
     "diffusion_sweep_launch": [PTR] * 9 + [INT, INT, FLOAT, INT],
 }, extra_flags=("-fmad=false",))
 
@@ -54,17 +57,21 @@ SWEEP_KERNEL = CudaKernel("diffusion_sweep", "diffusion_sweep.cu", {
 # reduction stage and the margin the launch keeps
 SMEM_LIMIT = 232448 - 1024
 
-# K1's forms by P·K, and the largest P·K that takes K1 at all (above it
-# one S = 8 chunk of the streaming path is faster on an H100, or it was not
-# measured): benchmarks_torch/diffusion_crossover.py, table in PERF.md.
+# K1's forms by P·K, and the largest P·K that takes K1 at all:
+# benchmarks_torch/diffusion_crossover.py on one H100, table in PERF.md.
+# One S = 8 chunk of K1's grid form beat the streaming chunk at every size
+# measured, up to P = 2^20, K = 8 (2.97 against 7.36 ms there: K2 itself
+# takes 0.056 ms a sweep, the plain chunk body around it about 0.86), so K1
+# takes everything up to that size; past it, where nothing was measured,
+# the streaming chunk runs.
 WARP_MAX_PK = 256
 BLOCK_MAX_PK = 4096
-FUSED_MAX_PK = 1 << 20
+FUSED_MAX_PK = 1 << 23
 
 K1_FORMS = ("warp", "block", "grid")
 GRID_THREADS = 256      # threads a block of the grid form (csrc GRID_NT)
 
-#: the streaming kernel puts a row on a warp segment, so K <= 32
+#: the streaming kernel keeps a row's mask in one 32-bit word, so K <= 32
 MAX_K = 32
 
 form_launches = {f: 0 for f in K1_FORMS}
@@ -131,9 +138,70 @@ def _mask_u8(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.uint8)
 
 
+def _launch_tables(nbr, rev, mask_u8, bits) -> None:
+    """K2's table pass over contiguous int32 ``nbr``, ``rev`` and uint8
+    ``mask_u8`` into ``bits`` ((2, P) int32: the mask words, then the
+    reciprocity words; plain version ``ref.sweep_tables_ref``)."""
+    P, K = nbr.shape
+    SWEEP_KERNEL.launch("diffusion_sweep_tables_launch", nbr.data_ptr(),
+                        rev.data_ptr(), mask_u8.data_ptr(), bits.data_ptr(),
+                        P, K)
+
+
+class _HeldTables:
+    """The last neighbour tables ``(nbr_idx, nbr_mask, rev)`` a caller
+    passed and the table pass's words for them (``bits``, (2, P) int32).
+    A stage 2 passes the same three tensors to every sweep, so the words
+    are recomputed only when other tensors come, or the same ones with
+    another data pointer, shape or version counter (an in-place write).
+    The tables are held, so that their memory is not reused while they are
+    the key; inference tensors keep no version counter and are never
+    held."""
+
+    def __init__(self, bits=None):
+        self.held, self.key, self.bits = (), None, bits
+
+    @staticmethod
+    def _key(tables):
+        return tuple((t.data_ptr(), t.shape, t._version) for t in tables)
+
+    def same(self, tables) -> bool:
+        return (len(tables) == len(self.held)
+                and all(t is h for t, h in zip(tables, self.held))
+                and self._key(tables) == self.key)
+
+    def hold(self, tables) -> None:
+        if any(t.is_inference() for t in tables):
+            self.held, self.key = (), None
+        else:
+            self.held, self.key = tuple(tables), self._key(tables)
+
+
+_SWEEP_TABLES = _HeldTables()
+
+
+def _sweep(xs, ow, nbr, rv, bits, alpha, single_hop):
+    """One launch of K2's sweep on checked contiguous tensors (``bits``
+    from the table pass over ``nbr``, ``rv`` and their mask)."""
+    P, K = nbr.shape
+    dev = xs.device
+    sigma = torch.empty(P if single_hop else 0, dtype=torch.float32,
+                        device=dev)
+    x_out = torch.empty_like(xs)
+    own_out = torch.empty_like(ow)
+    flow = torch.empty((P, K), dtype=torch.float32, device=dev)
+    SWEEP_KERNEL.launch(
+        "diffusion_sweep_launch", xs.data_ptr(), ow.data_ptr(),
+        nbr.data_ptr(), rv.data_ptr(), bits.data_ptr(), sigma.data_ptr(),
+        x_out.data_ptr(), own_out.data_ptr(), flow.data_ptr(), P, K,
+        float(alpha), int(bool(single_hop)))
+    return x_out, own_out, flow
+
+
 def diffusion_sweep(x, own, nbr_idx, nbr_mask, rev, alpha, single_hop=True):
-    """One diffusion sweep (the streaming kernel); returns ``(x_new,
-    own_new, flow_step)``."""
+    """One diffusion sweep (the streaming kernel K2); returns ``(x_new,
+    own_new, flow_step)``.  The table pass runs when the tables differ from
+    the last call's."""
     if x.device.type == "cpu":
         return diffusion_sweep_ref(x, own, nbr_idx, nbr_mask, rev, alpha,
                                    single_hop)
@@ -150,16 +218,12 @@ def diffusion_sweep(x, own, nbr_idx, nbr_mask, rev, alpha, single_hop=True):
                          f"{tuple(ow.shape)}, nbr {(P, K)}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"diffusion_sweep takes 1 <= K <= {MAX_K}, got {K}")
-    push = torch.empty((P, K), dtype=torch.float32, device=x.device)
-    x_out = torch.empty_like(xs)
-    own_out = torch.empty_like(ow)
-    flow = torch.empty((P, K), dtype=torch.float32, device=x.device)
-    SWEEP_KERNEL.launch(
-        "diffusion_sweep_launch", xs.data_ptr(), ow.data_ptr(),
-        nbr.data_ptr(), rv.data_ptr(), mask.data_ptr(), push.data_ptr(),
-        x_out.data_ptr(), own_out.data_ptr(), flow.data_ptr(), P, K,
-        float(alpha), int(bool(single_hop)))
-    return x_out, own_out, flow
+    held = _SWEEP_TABLES
+    if not held.same((nbr_idx, nbr_mask, rev)):
+        held.bits = torch.empty((2, P), dtype=torch.int32, device=xs.device)
+        _launch_tables(nbr, rv, mask, held.bits)
+        held.hold((nbr_idx, nbr_mask, rev))
+    return _sweep(xs, ow, nbr, rv, held.bits, alpha, single_hop)
 
 
 def fused_nsweeps(x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev,
@@ -234,9 +298,10 @@ def _fused_form(form, x, own, flow, it, res, stall, nbr_idx, nbr_mask, rev,
 class _StreamingChunk:
     """``reference_nsweeps(step_fn=diffusion_sweep)`` for one (P, K,
     n_sweeps, single_hop, tol, max_iters, alpha) on one device, captured as
-    a CUDA graph over static buffers.  A call copies its carry and tables
-    into the buffers, replays the graph and returns copies of the outputs
-    (the buffers are overwritten by the next call)."""
+    a CUDA graph over static buffers.  A call copies its carry into the
+    buffers, and its tables too (then the table pass) unless they are the
+    tensors of the last call, unchanged; it replays the graph and returns
+    copies of the outputs (the buffers are overwritten by the next call)."""
 
     def __init__(self, P, K, device, alpha, kw):
         f32, i32 = torch.float32, torch.int32
@@ -250,10 +315,16 @@ class _StreamingChunk:
                     torch.zeros((P, K), dtype=i32, device=device),
                     torch.zeros((P, K), dtype=torch.bool, device=device),
                     torch.zeros((P, K), dtype=i32, device=device)]
+        # the buffered tables' words (all-zero tables: no slot masked in)
+        self.tables = _HeldTables(torch.zeros((2, P), dtype=i32,
+                                              device=device))
+        bits = self.tables.bits
+
+        def sweep(x, own, nbr_idx, nbr_mask, rev, alpha, single_hop):
+            return _sweep(x, own, nbr_idx, rev, bits, alpha, single_hop)
 
         def body():
-            return reference_nsweeps(*self.ins, alpha, **kw,
-                                     step_fn=diffusion_sweep)
+            return reference_nsweeps(*self.ins, alpha, **kw, step_fn=sweep)
 
         # warm up on a side stream (real launches), as graph capture asks
         side = torch.cuda.Stream(device)
@@ -268,10 +339,18 @@ class _StreamingChunk:
         SWEEP_KERNEL.launches = counted    # capture launches nothing
 
     def __call__(self, *carry_and_tables):
-        for buf, t in zip(self.ins, carry_and_tables):
+        for buf, t in zip(self.ins[:6], carry_and_tables[:6]):
             buf.copy_(t)
+        tables = carry_and_tables[6:]
+        if not self.tables.same(tables):
+            for buf, t in zip(self.ins[6:], tables):
+                buf.copy_(t)
+            nbr, mask, rev = self.ins[6:]
+            _launch_tables(nbr, rev, mask.view(torch.uint8),
+                           self.tables.bits)
+            self.tables.hold(tables)
         self.graph.replay()
-        SWEEP_KERNEL.launches += self.n_sweeps   # one sweep kernel a sweep
+        SWEEP_KERNEL.launches += self.n_sweeps   # one sweep launch a sweep
         return tuple(o.clone() for o in self.outs)
 
 

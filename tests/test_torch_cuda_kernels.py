@@ -16,7 +16,8 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import (POS_SENTINEL,
                                                      chunked_attention)
 from repro_torch.kernels.diffusion.ref import (diffusion_nsweeps_ref,
-                                               diffusion_sweep_ref)
+                                               diffusion_sweep_ref,
+                                               sweep_tables_ref)
 from repro_torch.kernels.histogram import ops as hops
 from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.migrate import ops as mops
@@ -44,6 +45,28 @@ def _ring_graph(P, K, seed):
         mask[i, 2 * h + 1] = False
         mask[(i + h + 1) % P, 2 * h] = False
     return np.where(mask, nbr, -1), mask
+
+
+def _skewed_graph(P, K, seed):
+    """(P, K) table that is not symmetric (P even, K >= 3): the ring's
+    2 H = 2 ((K - 2) // 2) slots with a random quarter of the pairs
+    dropped at both ends (padded: -1, masked out); slot 2 H pairs i with
+    i + P/2, masked in for i < P/2 and masked out (value kept) for the
+    rest, so the first half's reverse slot is masked out; the last slots
+    are one-way edges to random nodes (a quarter padded), whose targets
+    mostly do not list i: ``reverse_slots`` leaves rev = 0 there, and the
+    sweep receives push[j, 0], j's push to another node."""
+    H = (K - 2) // 2
+    nbr, mask = _ring_graph(P, 2 * H, seed) if H else (
+        np.zeros((P, 0), np.int32), np.zeros((P, 0), bool))
+    i = np.arange(P)
+    rng = np.random.default_rng(seed + 1)
+    one_way = (i[:, None] + rng.integers(1, P, (P, K - 2 * H - 1))) % P
+    keep = rng.random(one_way.shape) >= 0.25
+    nbr = np.concatenate([nbr, ((i + P // 2) % P)[:, None],
+                          np.where(keep, one_way, -1)], 1).astype(np.int32)
+    mask = np.concatenate([mask, (i < P // 2)[:, None], keep], 1)
+    return nbr, mask
 
 
 @pytest.fixture
@@ -434,6 +457,104 @@ def test_diffusion_sweep_kernel_rejects_wide_rows(dev):
         dops.diffusion_sweep(x, x, nbr, mask, rev, alpha)
 
 
+def _skewed_case(dev, P, K, seed):
+    nbr, mask = _skewed_graph(P, K, seed)
+    nbr = torch.as_tensor(nbr, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    x = torch.as_tensor(np.random.default_rng(seed).random(P).astype(
+        np.float32) * 10, device=dev)
+    alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
+    return x, nbr, mask, vlb.reverse_slots(nbr, mask), alpha
+
+
+@pytest.mark.parametrize("P,K,skewed", [(64, 5, True), (256, 8, True),
+                                        (96, 32, True), (8192, 8, False),
+                                        (1000, 5, False)])
+def test_sweep_tables_kernel_matches_plain(dev, P, K, skewed):
+    """K2's table pass (mask and reciprocity words) equals its plain
+    version exactly, on skewed and on symmetric tables."""
+    x, nbr, mask, rev, _ = (_skewed_case if skewed else _sweep_case)(
+        dev, P, K, seed=P)
+    bits = torch.empty((2, P), dtype=torch.int32, device=dev)
+    dops._launch_tables(nbr, rev, mask.view(torch.uint8), bits)
+    assert torch.equal(bits, sweep_tables_ref(nbr, mask, rev))
+
+
+@pytest.mark.parametrize("P,K", [(64, 5), (1000, 5), (256, 8), (96, 32),
+                                 (4096, 32)])
+@pytest.mark.parametrize("single_hop", [True, False])
+def test_diffusion_sweep_kernel_on_skewed_tables(dev, P, K, single_hop):
+    """On tables with padded slots, one-way edges (rev = 0: the sweep
+    receives j's push to another node) and reverse slots masked out: x,
+    own and flow within 8 ulp of the largest load of the plain sweep; two
+    calls bit for bit."""
+    x, nbr, mask, rev, alpha = _skewed_case(dev, P, K, seed=P + K)
+    own = x * 0.3
+    got = dops.diffusion_sweep(x, own, nbr, mask, rev, alpha, single_hop)
+    again = dops.diffusion_sweep(x, own, nbr, mask, rev, alpha, single_hop)
+    want = diffusion_sweep_ref(x, own, nbr, mask, rev, alpha, single_hop)
+    scale = x.abs().max()
+    tol = 8 * float(torch.nextafter(scale, scale + 1) - scale)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert a.shape == c.shape
+        assert float((a - c).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("single_hop", [True, False])
+def test_diffusion_sweep_kernel_on_the_bench_ring(dev, single_hop):
+    """The JAX kernel bench's largest shape (the ring at P = 2^20, K = 8,
+    loads from seed 0): two calls bit for bit, within 8 ulp of the largest
+    load of the plain sweep."""
+    P, K = 1 << 20, 8
+    cols = [(np.arange(P) + h) % P for h in range(1, 5)]
+    cols += [(np.arange(P) - h) % P for h in range(1, 5)]
+    nbr = torch.as_tensor(np.stack(cols, 1).astype(np.int32), device=dev)
+    mask = torch.ones_like(nbr, dtype=torch.bool)
+    rev = vlb.reverse_slots(nbr, mask)
+    x = torch.as_tensor(np.random.default_rng(0).random(P).astype(
+        np.float32), device=dev)
+    alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
+    sw = (x, x, nbr, mask, rev, alpha, single_hop)
+    got, again = dops.diffusion_sweep(*sw), dops.diffusion_sweep(*sw)
+    want = diffusion_sweep_ref(*sw)
+    scale = x.abs().max()
+    tol = 8 * float(torch.nextafter(scale, scale + 1) - scale)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= tol
+
+
+def test_streaming_chunk_equals_fused_at_the_simulator_shape(dev):
+    """At the simulator path's shape (P = 8192, K = 8; a periodic 64 x 128
+    grid's Moore neighbourhood), three consecutive S = 8 chunks of the
+    streaming path equal K1's bit for bit in x, own, flow, it and stall:
+    both sum each row in slot order."""
+    P, K = 8192, 8
+    ii, jj = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    nb = [((ii + di) % 64) * 128 + (jj + dj) % 128
+          for di in (-1, 0, 1) for dj in (-1, 0, 1) if (di, dj) != (0, 0)]
+    nbr = torch.as_tensor(np.stack([a.ravel() for a in nb], 1).astype(
+        np.int32), device=dev)
+    mask = torch.ones_like(nbr, dtype=torch.bool)
+    rev = vlb.reverse_slots(nbr, mask)
+    x = torch.as_tensor(np.random.default_rng(3).random(P).astype(
+        np.float32) * 100, device=dev)
+    alpha = float(torch.tensor(1.0 / (K + 1.0), dtype=torch.float32))
+    carry = (x, x, torch.zeros((P, K), device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             vlb.neighborhood_residual(x, nbr, mask),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    kw = dict(n_sweeps=8, single_hop=True, tol=0.02, max_iters=512)
+    fused = stream = carry
+    for _ in range(3):
+        fused = dops.fused_nsweeps(*fused, nbr, mask, rev, alpha, **kw)
+        stream = dops.streaming_nsweeps(*stream, nbr, mask, rev, alpha, **kw)
+        for i in (0, 1, 2, 3, 5):
+            assert torch.equal(stream[i], fused[i])
+    assert int(stream[3]) == 24
+
+
 @pytest.mark.parametrize("P,K", [(4096, 8), (8192, 8), (16384, 4)])
 def test_streaming_chunk_matches_fused_and_plain(dev, P, K):
     """The streaming chunk against the fused kernel and the plain chunk:
@@ -481,6 +602,26 @@ def test_streaming_graph_chunk_equals_eager(dev, P, K):
         assert kernels.launch_counts()["diffusion_sweep"] >= before + 4
         for a, b in zip(graph, eager):
             assert torch.equal(a, b)
+    # new tables after the old ones (the chunk copies them and runs the
+    # table pass again), then the same tensors changed in place
+    _, nbr2, mask2, rev2, _ = _skewed_case(dev, P, K, seed=P + 1)
+    for change in (False, True):
+        if change:
+            mask2[::5] = False
+            rev2.copy_(vlb.reverse_slots(nbr2, mask2))
+        eager = vlb.reference_nsweeps(*eager, nbr2, mask2, rev2, alpha, **kw,
+                                      step_fn=dops.diffusion_sweep)
+        graph = dops.streaming_nsweeps(*graph, nbr2, mask2, rev2, alpha,
+                                       **kw)
+        for a, b in zip(graph, eager):
+            assert torch.equal(a, b)
+        want = diffusion_nsweeps_ref(*carry, nbr2, mask2, rev2, alpha, **kw)
+        got = dops.streaming_nsweeps(*carry, nbr2, mask2, rev2, alpha, **kw)
+        assert int(got[3]) == int(want[3]) and int(got[5]) == int(want[5])
+        scale = x.abs().max()
+        tol = 16 * float(torch.nextafter(scale, scale + 1) - scale)
+        for i in (0, 1, 2):
+            assert float((got[i] - want[i]).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("n,C", [(1, 1), (144, 8), (4096, 8), (3000, 70_000),
