@@ -4,9 +4,14 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 ARTIFACTS = Path(__file__).resolve().parents[1] / "artifacts" / "bench_torch"
+
+#: the JAX benches' PIC problem (runtime, replay-shard and engine benches):
+#: a 200 × 200 grid, 20 000 particles, 10 × 10 chares striped over 8 PEs
+PIC_BASE = dict(L=200, n_particles=20_000, k=2, rho=0.9, cx=10, cy=10,
+                num_pes=8, mapping="striped")
 
 
 def _jsonable(o):
@@ -19,6 +24,72 @@ def save_result(name: str, payload: Dict) -> str:
     path = ARTIFACTS / f"{name}.json"
     path.write_text(json.dumps(payload, indent=1, default=_jsonable))
     return str(path)
+
+
+def write_bench_json(name: str, *, schema: str, generated_by: str,
+                     env: Dict, repeats: Optional[int] = None,
+                     **out) -> str:
+    """The stable-schema payload beside ``save_result``'s:
+    ``artifacts/bench_torch/BENCH_<name>.json`` with ``schema`` (the JAX
+    script's string), ``generated_by``, ``environment`` (``env``, what
+    :func:`environment` gives), the optional ``repeats`` and the bench's
+    own keys,
+    sorted with a trailing newline.  The repository root's ``BENCH_*.json``
+    files belong to the JAX package and are never written here."""
+    payload = dict(schema=schema, generated_by=generated_by,
+                   environment=env, **out)
+    if repeats is not None:
+        payload["repeats"] = repeats
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    path = ARTIFACTS / f"BENCH_{name}.json"
+    path.write_text(json.dumps(payload, indent=1, default=_jsonable,
+                               sort_keys=True) + "\n")
+    return str(path)
+
+
+def finish(name: str, out: Dict, *, bench: str, schema: str, device,
+           repeats: int, check, out_path=None, **extra) -> Dict:
+    """A bench's ending: ``out`` as ``artifacts/bench_torch/<name>.json``
+    and, with ``extra`` keys, as ``BENCH_<bench>.json`` (``schema``, the
+    environment of ``device``), also as ``out_path`` where given; then
+    ``check(out)`` asserts the gates."""
+    path = save_result(name, out)
+    bench_path = write_bench_json(
+        bench, schema=schema, generated_by=f"benchmarks_torch/{name}.py",
+        env=environment(device), repeats=repeats, **extra, **out)
+    print(f"\nsaved {path}\nsaved {bench_path}")
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(out, indent=1))
+    check(out)
+    return out
+
+
+def bench_main(run, doc: str, repeats: int, argv=None):
+    """The benches' command line: ``--device``, ``--repeats``, ``--out``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--repeats", type=int, default=repeats)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    a = ap.parse_args(argv)
+    return run(a.device, repeats=a.repeats, out_path=a.out)
+
+
+def median_run(fn, repeats: int = 3):
+    """(result of the median-wall run, its wall seconds) over ``repeats``
+    runs of ``fn()``: the JAX scripts' ``timeit_median`` statistic."""
+    import time
+
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        res = fn()
+        runs.append((time.perf_counter() - t0, res))
+    runs.sort(key=lambda r: r[0])
+    wall, res = runs[len(runs) // 2]
+    return res, wall
 
 
 def table(headers: List[str], rows: List[List]) -> str:

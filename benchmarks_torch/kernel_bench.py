@@ -305,5 +305,13 @@ def main(argv=None) -> int:
     return 0
 
 
+def run(device="cuda"):
+    """``main`` with its defaults on ``device``, for the orchestrator
+    (``benchmarks_torch/run.py``): raises where ``main`` would exit 1."""
+    if main(["--device", str(device)]):
+        raise RuntimeError("kernel_bench failed (a check or the migrate "
+                           "gate; see its output)")
+
+
 if __name__ == "__main__":
     sys.exit(main())

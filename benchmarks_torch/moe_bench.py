@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -41,7 +40,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from benchmarks_torch.common import environment, save_result, table  # noqa: E402
+from benchmarks_torch.common import (  # noqa: E402
+    environment, median_run, save_result, table)
 from repro_torch.kernels import resolve_device  # noqa: E402
 from repro_torch.runtime.cost import RuntimeCostModel  # noqa: E402
 from repro_torch.runtime.triggers import PredictiveTrigger  # noqa: E402
@@ -88,18 +88,6 @@ def workloads(steps: int, device):
     return {"synthetic": synth, "trace": trace}
 
 
-def _median_run(fn, repeats):
-    """(result of the median-wall run, its wall seconds)."""
-    runs = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        res = fn()
-        runs.append((time.perf_counter() - t0, res))
-    runs.sort(key=lambda r: r[0])
-    wall, res = runs[len(runs) // 2]
-    return res, wall
-
-
 def tokens_per_sec(workload, res):
     """Modeled training throughput of one replay: routed tokens over the
     summed step seconds (slowest rank + executed weight traffic)."""
@@ -116,7 +104,7 @@ def tokens_per_sec(workload, res):
 
 
 def replay_one(workload, steps, policy, *, device, repeats=REPEATS):
-    res, wall = _median_run(lambda: epr.run_ep_replay(
+    res, wall = median_run(lambda: epr.run_ep_replay(
         workload, steps=steps, lb_every=10, device=device, **policy),
         repeats)
     toks, modeled = tokens_per_sec(workload, res)
@@ -206,7 +194,7 @@ def bench_scale(out, *, num_experts=SCALE["num_experts"],
     w = epr.RoutingWorkload(num_experts=num_experts, num_ranks=num_ranks,
                             top_k=top_k, tokens_per_step=4096, alpha=0.5,
                             hot_amp=2.0, trace_len=48, seed=1)
-    res, wall = _median_run(lambda: epr.run_ep_replay(
+    res, wall = median_run(lambda: epr.run_ep_replay(
         w, steps=steps, lb_every=8, strategy="diff-comm", trigger="every",
         device=dev), repeats)
     assert np.isfinite(res.max_avg).all()

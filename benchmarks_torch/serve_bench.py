@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -35,7 +34,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from benchmarks_torch.common import save_result, table  # noqa: E402
+from benchmarks_torch.common import (  # noqa: E402
+    median_run, save_result, table)
 from repro_torch.kernels import resolve_device  # noqa: E402
 from repro_torch.runtime.cost import RuntimeCostModel  # noqa: E402
 from repro_torch.runtime.triggers import PredictiveTrigger  # noqa: E402
@@ -63,20 +63,8 @@ def policies():
     }
 
 
-def _median_run(fn, repeats):
-    """(result of the median-wall run, its wall seconds)."""
-    runs = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        res = fn()
-        runs.append((time.perf_counter() - t0, res))
-    runs.sort(key=lambda r: r[0])
-    wall, res = runs[len(runs) // 2]
-    return res, wall
-
-
 def replay_one(workload, steps, policy, *, device, repeats=REPEATS):
-    res, wall = _median_run(lambda: sr.run_serve_replay(
+    res, wall = median_run(lambda: sr.run_serve_replay(
         workload, steps=steps, lb_every=10, device=device, **policy),
         repeats)
     return dict(
@@ -142,7 +130,7 @@ def bench_scale(out, *, num_sessions=SCALE["num_sessions"],
     dev = resolve_device(device)
     w = sr.ServeWorkload(num_sessions=num_sessions,
                          num_replicas=num_replicas, seed=seed)
-    res, wall = _median_run(lambda: sr.run_serve_replay(
+    res, wall = median_run(lambda: sr.run_serve_replay(
         w, steps=steps, lb_every=10, strategy="diff-comm", trigger="every",
         device=dev), repeats)
     assert np.isfinite(res.max_avg).all()

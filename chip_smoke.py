@@ -185,10 +185,28 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      relocated in place, the multiset kept, decisions equal to the CPU's);
      (e) the data pipeline's rebalance over 8 ranks equal to the CPU's.
 
+ 16. the port's benches and examples, with the launch counts set to 0 just
+     before and read just after (K1, K3, K4, K5 and K6 forward and
+     backward must each have run): the sections of
+     ``benchmarks_torch/runtime_bench.py``, ``obs_bench.py``,
+     ``replay_shard_bench.py`` and ``engine_bench.py`` at the JAX
+     scripts' sizes, once each (repeats 1), with their deterministic gates
+     asserted (threshold and predictive beat the fixed cadence on modeled
+     seconds, particles conserved, the sharded replays bit for bit, the
+     resilience gates, the engine's loop and lane parity) and the speed
+     and overhead gates (the engine's 5x and 4x, telemetry's 5 % and 15 %)
+     printed with their values and pass or fail; then the five
+     ``examples_torch`` scripts through ``main(argv)``: the quickstart on
+     the card against the CPU (equal assignments), ``pic_prk_run`` and
+     ``serve_lm`` with their defaults, ``stencil_lb_demo``, and
+     ``train_lm --full-width --steps 20`` (smollm-135m at its published
+     width, K6's forward and backward launched).
+
 It prints the card's name and power limit, one JSON line of the sharded
 phases' numbers, one of the model families', one of expert balancing,
-one of training, one JSON line of per-kernel numbers (K6's backward
-beside K6, and inside its row), and as its last line
+one of training, one of the benches and examples, one JSON line of
+per-kernel numbers (K6's backward beside K6, and inside its row), and as
+its last line
 ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where ``torch.cuda.is_available()`` is False.
@@ -383,6 +401,20 @@ TRAIN_DATA = dict(num_ranks=8, num_shards=128, seq_len=2048, seed=0,
                   threshold=1.05)
 TRAINING: dict = {}     # phase 15's numbers (one JSON line)
 TRAIN_LAUNCHES: dict = {}   # launches on phase 15's paths, by path
+# phase 16: the port's runtime, obs, replay-shard and engine benches, each
+# section at the JAX script's size (keyword overrides by section: a
+# rehearsal shrinks them) run once, and the five examples through
+# main(argv) (train_lm: smollm-135m at full width, 20 steps)
+BENCH16 = dict(runtime=dict(scenarios={}, pic={}),
+               obs=dict(sim={}, serve={}),
+               replay=dict(scenarios={}, pic={}, resilience={}),
+               engine=dict(series={}, batch={}, scenarios={}, pic={}))
+EXAMPLES16 = dict(quickstart=[], pic_prk_run=[], stencil_lb_demo=[],
+                  serve_lm=[], train_lm=["--full-width", "--steps", "20"])
+PHASE16_KERNELS = ("diffusion_nsweeps", "histogram", "scatter_dest",
+                   "pic_push", "flash_attention", "flash_attention_bwd")
+BENCHES: dict = {}      # phase 16's numbers (one JSON line)
+BENCH_LAUNCHES: dict = {}   # launches on phase 16's run, by kernel
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -3333,6 +3365,181 @@ def training_phase():
     _reset_peak()
 
 
+# ------------------------------------------------- benches and examples --
+
+
+def _example(name):
+    """An ``examples_torch`` script as a module (they are not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _gate_rows(gates, asserted: bool):
+    """``{name: {holds, message}}``; asserted gates must hold."""
+    for name, (holds, msg) in gates.items():
+        if asserted:
+            check(holds, f"phase 16: {msg}")
+        print(f"  {'PASS' if holds else 'FAIL'}  {name}"
+              + ("" if asserted or holds else f": {msg}"))
+    return {name: dict(holds=bool(holds), message=msg)
+            for name, (holds, msg) in gates.items()}
+
+
+def _bench_part(name, fn):
+    from repro_torch import kernels
+
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    launches = {k: after[k] - before[k] for k in PHASE16_KERNELS}
+    BENCHES.setdefault("seconds", {})[name] = wall
+    BENCHES.setdefault("launches", {})[name] = launches
+    print(f"phase 16 {name}: {wall:.1f} s, launches {launches}")
+    return launches
+
+
+def benches_phase():
+    """Phase 16: the four benches' sections (their deterministic gates
+    asserted, the speed and overhead gates printed with their values) and
+    the five examples, with the launch counts set to 0 just before and
+    read just after."""
+    from benchmarks_torch import (engine_bench, obs_bench,
+                                  replay_shard_bench, runtime_bench)
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    rt, ob, rs, eb = {}, {}, {}, {}
+
+    def runtime():
+        kw = BENCH16["runtime"]
+        runtime_bench.bench_scenarios(rt, device=DEV, repeats=1,
+                                      **kw["scenarios"])
+        runtime_bench.bench_pic(rt, device=DEV, repeats=1, **kw["pic"])
+
+    def obs():
+        kw = BENCH16["obs"]
+        obs_bench.bench_sim(ob, device=DEV, repeats=1, **kw["sim"])
+        obs_bench.bench_serve(ob, device=DEV, repeats=1, **kw["serve"])
+
+    def replay():
+        kw = BENCH16["replay"]
+        replay_shard_bench.bench_scenarios(rs, device=DEV, repeats=1,
+                                           **kw["scenarios"])
+        replay_shard_bench.bench_pic(rs, device=DEV, repeats=1, **kw["pic"])
+        replay_shard_bench.bench_resilience(rs, device=DEV,
+                                            **kw["resilience"])
+
+    def engine():
+        kw = BENCH16["engine"]
+        engine_bench.bench_series(eb, device=DEV, repeats=1, **kw["series"])
+        engine_bench.bench_batch(eb, device=DEV, repeats=1, **kw["batch"])
+        engine_bench.bench_scenarios(eb, device=DEV, repeats=1,
+                                     **kw["scenarios"])
+        engine_bench.bench_pic(eb, device=DEV, repeats=1, **kw["pic"])
+
+    for name, fn in (("runtime", runtime), ("obs", obs), ("replay", replay),
+                     ("engine", engine)):
+        _bench_part(name, fn)
+    print("phase 16 gates (deterministic: asserted)")
+    BENCHES["runtime"] = dict(
+        gates=_gate_rows(runtime_bench.gates(rt), True),
+        modeled_seconds={n: {p: r["modeled_seconds"] for p, r in by.items()}
+                         for n, by in rt["scenarios"].items()},
+        fires={n: {p: r["rebalances"] for p, r in by.items()}
+               for n, by in rt["scenarios"].items()},
+        pic=rt["pic"])
+    BENCHES["replay"] = dict(
+        gates=_gate_rows(replay_shard_bench.gates(rs), True),
+        resilience=rs["resilience"],
+        walls={n: [r["single_wall_seconds"], r["sharded_wall_seconds"]]
+               for n, r in rs["scenarios"].items()},
+        pic_walls=[rs["pic"]["single_wall_seconds"],
+                   rs["pic"]["sharded_wall_seconds"]])
+    eg = engine_bench.gates(eb)
+    parity = {k: v for k, v in eg.items() if "parity" in k}
+    print("phase 16 gates (speed and overhead, repeats 1: printed)")
+    BENCHES["engine"] = dict(
+        parity=_gate_rows(parity, True),
+        speed=_gate_rows({k: v for k, v in eg.items() if k not in parity},
+                         False),
+        series=eb["series"], batch={k: v for k, v in eb["batch"].items()
+                                    if k != "scenarios"},
+        scenarios=eb["scenarios"], pic=eb["pic"])
+    BENCHES["obs"] = dict(gates=_gate_rows(obs_bench.gates(ob), False),
+                          **{k: dict(seconds=v["seconds"],
+                                     overhead=v["overhead"])
+                             for k, v in ob.items()})
+    BENCHES["examples"] = {}
+    ex = _bench_part("quickstart", lambda: BENCHES["examples"].update(
+        quickstart=_quickstart()))
+    for name in ("pic_prk_run", "stencil_lb_demo", "serve_lm", "train_lm"):
+        ex = _bench_part(name, lambda name=name: BENCHES["examples"].update(
+            {name: _example_summary(name, _example(name).main(
+                EXAMPLES16[name] + ["--device", DEV]))}))
+    if DEV == "cuda":
+        # the training example's attention: K6 forward and backward
+        check(ex["flash_attention"] > 0 and ex["flash_attention_bwd"] > 0,
+              f"phase 16: train_lm launched no K6 forward or backward: {ex}")
+    got = kernels.launch_counts()
+    BENCH_LAUNCHES.update({k: got[k] for k in PHASE16_KERNELS})
+    if DEV == "cuda":
+        missing = [k for k, n in BENCH_LAUNCHES.items() if not n]
+        check(not missing, f"phase 16 launched no {missing}")
+    print(f"phase 16 launches: {BENCH_LAUNCHES}")
+
+
+def _quickstart():
+    """The quickstart on the card and on the CPU: equal assignments."""
+    import numpy as np
+
+    mod = _example("quickstart")
+    got = mod.main(["--device", DEV])
+    want = mod.main(["--device", "cpu"])
+    check(np.array_equal(np.asarray(got.assignment),
+                         np.asarray(want.assignment)),
+          "phase 16: the quickstart's plan on the card differs from the "
+          "CPU's")
+    return dict(moved=int((np.asarray(got.assignment)
+                           != np.asarray(want.assignment)).sum()),
+                diffusion_iters=got.info["diffusion_iters"])
+
+
+def _example_summary(name, res):
+    import numpy as np
+
+    if name == "pic_prk_run":
+        s = res.summary()
+        check(np.isfinite(res.max_avg).all(), "phase 16: pic_prk_run "
+              "non-finite max/avg")
+        return dict(mean_max_avg=s["mean_max_avg"],
+                    lb_steps=int(res.lb_steps.sum()),
+                    wall_seconds=s["wall_seconds"])
+    if name == "stencil_lb_demo":
+        check(all(np.isfinite(r.max_avg).all() for *_, r in res),
+              "phase 16: stencil_lb_demo non-finite max/avg")
+        check(all(p == ("host" if st == "greedy-refine" else "scan")
+                  for _, st, p, _ in res), "phase 16: stencil_lb_demo paths")
+        return {f"{n} {st}": [float(r.max_avg.mean()), p]
+                for n, st, p, r in res}
+    if name == "serve_lm":
+        check(len(res) == 8 and all(len(r.out) == 16 for r in res),
+              "phase 16: serve_lm did not serve every request")
+        return dict(requests=len(res), tokens=sum(len(r.out) for r in res))
+    losses = res["losses"]
+    check(np.isfinite(losses).all(), "phase 16: train_lm non-finite loss")
+    return dict(steps=len(losses), first_loss=losses[0],
+                final_loss=losses[-1], seconds=res["seconds"],
+                step_ms_median=1e3 * float(np.median(res["step_seconds"][1:]
+                                                     or [0.0])))
+
+
 # ------------------------------------------------------ sharded paths --
 
 
@@ -4152,9 +4359,12 @@ def main() -> int:
           f"K4 calls by form on each path: {K4_PATH_FORMS}")
     rows = kernel_rows(counts, sim_graph, spill, k2_ring)
     rows.append(flash_row(counts))
-    # phase 15 after the kernel checks; its launches join the rows below
+    # phases 15 and 16 after the kernel checks; their launches join the
+    # rows below
     training_phase()
-    # K6 on phase 15's training paths too; its backward only there
+    benches_phase()
+    # K6 on phase 15's training paths too; its backward only there and in
+    # phase 16
     train_k6 = {p: n["flash_attention"] for p, n in TRAIN_LAUNCHES.items()}
     rows[-1]["launches"] += sum(train_k6.values())
     rows[-1]["launches_by_path"] = {
@@ -4187,10 +4397,23 @@ def main() -> int:
         if r["name"] in sharded_k:
             r["sharded_pic"] = dict(sharded_k[r["name"]],
                                     launches=sharded_counts[r["name"]])
+    # phase 16's launches (the benches and the examples)
+    for r in rows:
+        n = BENCH_LAUNCHES.get(r["name"], 0)
+        if n:
+            r["launches"] += n
+            r.setdefault("launches_by_path", {})[
+                "benches and examples"] = n
+    by_name = {r["name"]: r for r in rows}
+    by_name["flash_attention"]["backward"].update(
+        launches=by_name["flash_attention_bwd"]["launches"],
+        launches_by_path=by_name["flash_attention_bwd"].get(
+            "launches_by_path", {}))
     print(json.dumps({"sharded": SHARDED}))
     print(json.dumps({"families": FAMILIES}))
     print(json.dumps({"expert_balancing": EPB}))
     print(json.dumps({"training": TRAINING}))
+    print(json.dumps({"benches": BENCHES}, default=float))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Architectures declare parameters as ``ParamSpec`` trees (nested dicts and
 lists of shape + initializer).  :func:`init_params` materializes one on a
-device and :func:`count_params` counts it without allocating.  The JAX
+device, :func:`shape_dtype_tree` gives its shapes and types without
+weights and :func:`count_params` counts it without allocating.  The JAX
 package's sharding trees have no counterpart on one card.
 """
 from __future__ import annotations
@@ -61,6 +62,18 @@ def init_params(tree, seed: int = 0, device="cuda"):
         raise ValueError(spec.init)
 
     return tree_map(make, tree)
+
+
+def shape_dtype_tree(tree, device="meta"):
+    """The parameter tree without its weights (counterpart of
+    ``repro.models.params.shape_dtype_tree``): each leaf an uninitialized
+    tensor of its spec's shape and type on ``device``.  On ``meta`` (the
+    default) nothing is allocated; under
+    ``torch._subclasses.fake_tensor.FakeTensorMode`` any device gives
+    fake tensors, which is how the dry run (``launch/dryrun.py``) builds
+    a model it never allocates."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=getattr(
+        torch, s.dtype), device=device), tree)
 
 
 def count_params(tree) -> int:

@@ -31,11 +31,24 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "repro_torch.distributed.grad_compress",
             "repro_torch.launch.train", "repro_torch.launch.mesh"} <= set(
                 mods)
+    # the benches, the orchestrator and the examples too
+    mods += ["benchmarks_torch." + f.stem for f in sorted(
+        (ROOT / "benchmarks_torch").glob("*.py"))]
+    assert {"benchmarks_torch.run", "benchmarks_torch.engine_bench",
+            "benchmarks_torch.runtime_bench", "benchmarks_torch.obs_bench",
+            "benchmarks_torch.replay_shard_bench",
+            "benchmarks_torch.roofline", "repro_torch.launch.dryrun"} <= set(
+                mods)
+    examples = sorted(str(f) for f in (ROOT / "examples_torch").glob("*.py"))
+    assert len(examples) == 5
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         f"for m in {mods!r} + ['repro_torch', 'chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        f"for i, f in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -52,7 +65,9 @@ def test_sources_have_no_jax_or_repro_imports():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b"
                      r"|import repro\.|from repro\.)", re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", *(ROOT / "benchmarks_torch").glob("*.py")]
+    files += [ROOT / "chip_smoke.py", *(ROOT / "benchmarks_torch").glob("*.py"),
+              *(ROOT / "examples_torch").glob("*.py")]
+    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 5
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -622,3 +637,102 @@ def test_chip_smoke_training_phase_rehearses_on_cpu(monkeypatch):
     assert tr["ep"]["fires"] == [2, 4, 6] and sum(tr["ep"]["moved_experts"])
     assert tr["data"]["moved_shards"] > 0
     assert not any(sum(n.values()) for n in chip_smoke.TRAIN_LAUNCHES.values())
+
+
+def test_benches_and_examples_default_to_cuda():
+    """The runtime, obs, replay-shard and engine benches (their sections
+    and ``run``), the kernel bench's ``run``, the orchestrator and the
+    five examples run on the card unless asked for the CPU; without one
+    they raise (the orchestrator: exits 1 naming the entry).  The dry run
+    traces on the CPU and takes no device."""
+    import importlib.util
+    import inspect
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks_torch import (engine_bench, kernel_bench, obs_bench,
+                                  replay_shard_bench, run, runtime_bench)
+    from repro_torch.launch import dryrun
+
+    assert "device" not in inspect.signature(dryrun.run_cell).parameters
+    fns = [kernel_bench.run]
+    for mod in (engine_bench, obs_bench, replay_shard_bench, runtime_bench):
+        fns += [getattr(mod, n) for n in dir(mod)
+                if (n == "run" or n.startswith("bench_"))
+                and getattr(mod, n).__module__ == mod.__name__]
+    assert len(fns) == 1 + 5 + 3 + 4 + 3
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    mains = {}
+    for f in sorted((ROOT / "examples_torch").glob("*.py")):
+        spec = importlib.util.spec_from_file_location(f"ex_{f.stem}", f)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mains[f.stem] = mod.main
+    assert set(mains) == {"quickstart", "pic_prk_run", "stencil_lb_demo",
+                          "serve_lm", "train_lm"}
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    for name, main in mains.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--smoke"] if name == "train_lm" else [])
+    with pytest.raises(RuntimeError, match="cuda"):
+        runtime_bench.bench_pic({}, steps=2, n_particles=800, repeats=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        obs_bench.bench_serve({}, sessions=16, replicas=2, ticks=2,
+                              repeats=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        replay_shard_bench.bench_resilience({}, steps=6)
+    with pytest.raises(RuntimeError, match="cuda"):
+        engine_bench.bench_series({}, steps=2, repeats=1)
+    with pytest.raises(SystemExit) as e:
+        run.main(["table1"])
+    assert e.value.code == 1
+
+
+def test_chip_smoke_benches_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 16 (the runtime, obs, replay-shard and engine
+    benches' sections with their deterministic gates asserted, then the
+    five examples: the quickstart against the CPU, the PIC, stencil,
+    serving and training examples) runs end to end on the CPU's plain
+    versions at small sizes."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    gated = ["adversarial-hotspot", "bimodal-churn"]
+    monkeypatch.setattr(chip_smoke, "BENCH16", dict(
+        runtime=dict(scenarios=dict(steps=40, names=gated),
+                     pic=dict(steps=12, n_particles=2000)),
+        obs=dict(sim=dict(P=16, K=4, grid=16, steps=10),
+                 serve=dict(sessions=64, replicas=8, ticks=10)),
+        replay=dict(scenarios=dict(steps=20, names=["stencil-wave",
+                                                    "pic-geometric"]),
+                    pic=dict(steps=12, n_particles=2000),
+                    resilience=dict(steps=45, pic_steps=24,
+                                    n_particles=2000)),
+        engine=dict(series=dict(P=16, K=4, steps=20, grid=16),
+                    batch=dict(batch=3, steps=8), scenarios=dict(steps=8),
+                    pic=dict(n_particles=2000, steps=8))))
+    monkeypatch.setattr(chip_smoke, "EXAMPLES16", dict(
+        quickstart=[], pic_prk_run=["--particles", "2000", "--grid", "100",
+                                    "--steps", "12"],
+        stencil_lb_demo=[], serve_lm=["--requests", "8", "--max-new", "16"],
+        train_lm=["--smoke", "--steps", "3"]))
+    monkeypatch.setattr(chip_smoke, "BENCHES", {})
+    monkeypatch.setattr(chip_smoke, "BENCH_LAUNCHES", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        chip_smoke.benches_phase()
+    finally:
+        torch.set_num_threads(threads)
+    b = chip_smoke.BENCHES
+    assert all(g["holds"] for g in b["runtime"]["gates"].values())
+    assert all(g["holds"] for g in b["replay"]["gates"].values())
+    assert set(b["engine"]["parity"]) == {"series parity", "batch parity"}
+    assert len(b["obs"]["gates"]) == 4
+    assert set(b["examples"]) == set(chip_smoke.EXAMPLES16)
+    assert b["examples"]["train_lm"]["steps"] == 3
+    assert not any(chip_smoke.BENCH_LAUNCHES.values())   # plain versions
