@@ -202,9 +202,23 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      ``train_lm --full-width --steps 20`` (smollm-135m at its published
      width, K6's forward and backward launched).
 
+ 17. the sharded paths over a ``distributed.mesh.ProcessMesh`` (one
+     process a shard over ``torch.distributed``; the kernels built once
+     here before the ranks start): (a) one NCCL rank, its own process on
+     the card, plans the simulator path's first fired snapshot through
+     ``ShardedLBEngine.plan_fn`` and replays its series, both equal to
+     the in-process ``ShardMesh(1)`` bit for bit; (b) 4 ranks on the one
+     card over the named host-staged gloo transport replay the series
+     (the simulator path's configuration) and the PIC configuration of 1.
+     at the tight slab capacity of the in-process 4-shard run, every
+     rank equal to the in-process ``ShardMesh(4)`` on the card in every
+     field (SHA-256 of each); each rank's K3/K4/K5 launches counted on
+     its own runs, every spawn under a time limit.
+
 It prints the card's name and power limit, one JSON line of the sharded
 phases' numbers, one of the model families', one of expert balancing,
-one of training, one of the benches and examples, one JSON line of
+one of training, one of the benches and examples, one of the ranks
+(phase 17: walls, transports, launches by rank), one JSON line of
 per-kernel numbers (K6's backward beside K6, and inside its row), and as
 its last line
 ``{"ok": true, "device": {...}}``.  Any
@@ -415,6 +429,21 @@ PHASE16_KERNELS = ("diffusion_nsweeps", "histogram", "scatter_dest",
                    "pic_push", "flash_attention", "flash_attention_bwd")
 BENCHES: dict = {}      # phase 16's numbers (one JSON line)
 BENCH_LAUNCHES: dict = {}   # launches on phase 16's run, by kernel
+# phase 17: the process mesh (one rank a shard over torch.distributed).
+# (a) one NCCL rank plans the simulator path's first fired snapshot and
+# replays its series; (b) RANKS_WORLD ranks on the one card, over the
+# host-staged gloo transport, replay the series and the PIC configuration
+# (at the tight slab capacity of the in-process run over as many shards);
+# each held to the in-process ShardMesh of its shard count.  Time limits
+# a spawn (seconds), intra-op threads a rank, and the kernels each run
+# must launch on every rank
+RANKS_WORLD = 4
+RANKS_PIC = dict(PIC)
+RANKS_TIMEOUT = dict(one=180, many=300)
+RANKS_THREADS = 2
+RANKS_KERNELS = dict(series=("histogram",),
+                     pic=("histogram", "pic_push", "scatter_dest"))
+RANKS: dict = {}        # phase 17's numbers (one JSON line)
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -3963,6 +3992,226 @@ def sharded_kernel_checks():
     return out
 
 
+# --------------------------------------------------------- process mesh --
+
+
+def _digests(res) -> dict:
+    """SHA-256 of every field of a result dataclass but measured times and
+    telemetry (dtype and shape included): equal digests, equal fields."""
+    import dataclasses
+
+    import numpy as np
+
+    out = {}
+    for f in dataclasses.fields(res):
+        v = getattr(res, f.name)
+        if "seconds" in f.name or f.name == "telemetry" or v is None:
+            continue
+        a = np.asarray(v)
+        out[f.name] = f"{a.dtype}{a.shape}:{_sha(a)}"
+    return out
+
+
+def _rank_sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_series(mesh, scenario, sim):
+    """The simulator path's replay over the group's mesh: its digests,
+    wall seconds and launch counts."""
+    from repro_torch import kernels
+    from repro_torch.sim import scenarios, simulator
+
+    problem, evolve = scenarios.get("stencil-wave").instantiate(
+        device=mesh.device, **scenario)
+    _rank_sync(mesh.device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulator.run_series_sharded(problem, evolve, **sim)
+    _rank_sync(mesh.device)
+    wall = time.perf_counter() - t0
+    return dict(digests=_digests(res), wall_seconds=wall,
+                plan_seconds=res.plan_seconds,
+                fired=[int(t) for t in res.lb_fired.nonzero()[0]],
+                launches=kernels.launch_counts())
+
+
+def _rank_plan_and_series(mesh, scenario, sim, step):
+    """Phase 17 (a) on its rank: ``ShardedLBEngine.plan_fn`` on the
+    snapshot at ``step`` (the mesh resolved from the group), then the
+    series replay."""
+    import numpy as np
+    from repro_torch.distributed import lb_shard
+    from repro_torch.sim import scenarios
+
+    problem, evolve = scenarios.get("stencil-wave").instantiate(
+        device=mesh.device, **scenario)
+    snap = evolve(problem, step)
+    _rank_sync(mesh.device)
+    t0 = time.perf_counter()
+    a, stats = lb_shard.ShardedLBEngine(
+        k=sim["strategy_kwargs"]["k"], device=mesh.device).plan_fn(snap)
+    _rank_sync(mesh.device)
+    plan_s = time.perf_counter() - t0
+    return dict(assignment=_sha(a.cpu().numpy()),
+                plan_wall_seconds=plan_s, transport=mesh.transport,
+                device=str(mesh.device), series=_rank_series(
+                    mesh, scenario, sim),
+                plan_iters=int(stats.diffusion_iters),
+                stats_sha=_sha(np.stack([np.asarray(v.cpu(), np.float64)
+                                         for v in stats])))
+
+
+def _rank_replays(mesh, scenario, sim, pic, capacity):
+    """Phase 17 (b) on its rank: the series replay, then the PIC replay
+    over the group's mesh at ``capacity`` slots a shard."""
+    from repro_torch import kernels
+    from repro_torch.pic import driver
+
+    out = dict(rank=mesh.rank, transport=mesh.transport,
+               device=str(mesh.device),
+               series=_rank_series(mesh, scenario, sim))
+    _rank_sync(mesh.device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = driver.run(driver.PICConfig(**pic, sharded_replay=True,
+                                      replay_capacity=capacity,
+                                      device=mesh.device))
+    _rank_sync(mesh.device)
+    out["pic"] = dict(digests=_digests(res),
+                      wall_seconds=time.perf_counter() - t0,
+                      loop_seconds=res.wall_seconds,
+                      exchanges=int(res.lb_steps.sum()),
+                      launches=kernels.launch_counts())
+    return out
+
+
+def _held(rank_digests, want, what):
+    for f, d in want.items():
+        check(rank_digests.get(f) == d, f"{what}: {f} differs from the "
+              "in-process mesh")
+    check(set(rank_digests) == set(want), f"{what}: other fields")
+
+
+def ranks_phase(step: int):
+    """Phase 17: the port's sharded paths over a ``ProcessMesh``.  (a) one
+    NCCL rank (its own process on the card): ``ShardedLBEngine.plan_fn``
+    on the simulator path's snapshot at ``step`` and the series replay,
+    both equal to the in-process ``ShardMesh(1)`` bit for bit; (b)
+    ``RANKS_WORLD`` ranks on the one card over the named host-staged
+    gloo transport: the series replay and the PIC replay (tight
+    capacity), every rank equal to the in-process ``ShardMesh`` of as
+    many shards in every field.  Each spawn has a time limit; a rank
+    that fails or runs past it fails the script.  Returns the ranks'
+    launches by kernel (summed over ranks and runs)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import lb_shard
+    from repro_torch.distributed.mesh import ShardMesh
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.pic import driver
+    from repro_torch.sim import scenarios, simulator
+
+    one_t, many_t = (("nccl", "gloo-host") if DEV == "cuda"
+                     else ("gloo", "gloo"))
+    threads = RANKS_THREADS if DEV == "cuda" else 1
+    if DEV == "cuda":
+        torch.cuda.empty_cache()        # the ranks' contexts share the card
+    k = SIM["strategy_kwargs"]["k"]
+    t_phase = time.perf_counter()
+    # -- (a) one NCCL rank against ShardMesh(1) --------------------------
+    t0 = time.perf_counter()
+    (one,) = run_ranks(_rank_plan_and_series, 1,
+                       args=(SIM_SCENARIO, SIM, step), device=DEV,
+                       transport=one_t, timeout=RANKS_TIMEOUT["one"],
+                       threads=threads)
+    wall_one = time.perf_counter() - t0
+    problem, evolve = scenarios.get("stencil-wave").instantiate(
+        device=DEV, **SIM_SCENARIO)
+    a, stats = lb_shard.ShardedLBEngine(
+        mesh=ShardMesh(1, DEV), k=k).plan_fn(evolve(problem, step))
+    check(one["assignment"] == _sha(a.cpu().numpy()),
+          "phase 17 (a): the rank's plan differs from ShardMesh(1)'s")
+    check(one["stats_sha"] == _sha(np.stack(
+        [np.asarray(v.cpu(), np.float64) for v in stats])),
+        "phase 17 (a): the rank's plan stats differ from ShardMesh(1)'s")
+    ref1 = simulator.run_series_sharded(problem, evolve,
+                                        mesh=ShardMesh(1, DEV), **SIM)
+    _held(one["series"]["digests"], _digests(ref1), "phase 17 (a) series")
+    check(one["series"]["fired"] == np.flatnonzero(ref1.lb_fired).tolist()
+          and len(one["series"]["fired"]) > 0,
+          "phase 17 (a): fire steps differ, or none")
+    # -- (b) RANKS_WORLD ranks on the one card -------------------------
+    W = RANKS_WORLD
+    refW = simulator.run_series_sharded(problem, evolve, num_shards=W,
+                                        **SIM)
+    pic_ref = driver.run(driver.PICConfig(**RANKS_PIC, sharded_replay=True,
+                                          replay_shards=W, device=DEV))
+    cap = int(pic_ref.shard_counts.max())
+    pic_want = _digests(pic_ref)
+    t0 = time.perf_counter()
+    many = run_ranks(_rank_replays, W,
+                     args=(SIM_SCENARIO, SIM, RANKS_PIC, cap), device=DEV,
+                     transport=many_t, timeout=RANKS_TIMEOUT["many"],
+                     threads=threads)
+    wall_many = time.perf_counter() - t0
+    series_want = _digests(refW)
+    for r, o in enumerate(many):
+        check(o["rank"] == r and o["transport"] == many_t,
+              f"phase 17 (b): rank {r} ran {o['transport']}")
+        _held(o["series"]["digests"], series_want,
+              f"phase 17 (b) rank {r} series")
+        _held(o["pic"]["digests"], pic_want, f"phase 17 (b) rank {r} PIC")
+        check(o["pic"]["exchanges"] > 0, "phase 17 (b): no PIC exchange")
+        for run, names in RANKS_KERNELS.items():
+            for name in names:
+                check(o[run]["launches"][name] > 0,
+                      f"phase 17 (b): rank {r} launched no {name} on the "
+                      f"{run} run")
+    launches = {}
+    for run in [one["series"]] + [o[x] for o in many
+                                  for x in ("series", "pic")]:
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    RANKS.update(
+        card=SMI, phase_seconds=time.perf_counter() - t_phase,
+        one=dict(transport=one["transport"], device=one["device"],
+                 spawn_seconds=wall_one,
+                 plan_seconds=one["plan_wall_seconds"],
+                 plan_iters=one["plan_iters"],
+                 series_seconds=one["series"]["wall_seconds"],
+                 series_plan_seconds=one["series"]["plan_seconds"],
+                 fired=one["series"]["fired"],
+                 launches=one["series"]["launches"]),
+        many=dict(world_size=W, transport=many_t, spawn_seconds=wall_many,
+                  pic_capacity=cap, pic_exchanges=many[0]["pic"]["exchanges"],
+                  series_seconds=[o["series"]["wall_seconds"] for o in many],
+                  series_plan_seconds=[o["series"]["plan_seconds"]
+                                       for o in many],
+                  pic_seconds=[o["pic"]["wall_seconds"] for o in many],
+                  pic_loop_seconds=[o["pic"]["loop_seconds"] for o in many],
+                  in_process_pic_loop_seconds=pic_ref.wall_seconds,
+                  in_process_series_loop_seconds=refW.wall_seconds,
+                  launches_by_rank=[
+                      {run: {n: o[run]["launches"][n] for n in names}
+                       for run, names in RANKS_KERNELS.items()}
+                      for o in many]),
+        launches=launches)
+    print(f"phase 17 (a): one {one['transport']} rank on {one['device']}: "
+          f"plan {one['plan_wall_seconds']:.3f} s ({one['plan_iters']} "
+          f"sweeps), series {one['series']['wall_seconds']:.3f} s, equal "
+          f"to ShardMesh(1); spawn {wall_one:.1f} s")
+    print(f"phase 17 (b): {W} {many_t} ranks: series "
+          f"{RANKS['many']['series_seconds']} s, PIC (capacity {cap}) "
+          f"{RANKS['many']['pic_seconds']} s, every rank equal to "
+          f"ShardMesh({W}); spawn {wall_many:.1f} s; phase "
+          f"{RANKS['phase_seconds']:.1f} s")
+    return launches
+
+
 # -------------------------------------------------------------- kernels --
 
 
@@ -4404,6 +4653,13 @@ def main() -> int:
             r["launches"] += n
             r.setdefault("launches_by_path", {})[
                 "benches and examples"] = n
+    # phase 17's launches (the ranks' runs, summed over the ranks)
+    ranks = ranks_phase(int(RESULTS["sim"].lb_fired.nonzero()[0][0]))
+    for r in rows:
+        n = ranks.get(r["name"], 0)
+        if n:
+            r["launches"] += n
+            r.setdefault("launches_by_path", {})["ranks"] = n
     by_name = {r["name"]: r for r in rows}
     by_name["flash_attention"]["backward"].update(
         launches=by_name["flash_attention_bwd"]["launches"],
@@ -4414,6 +4670,7 @@ def main() -> int:
     print(json.dumps({"expert_balancing": EPB}))
     print(json.dumps({"training": TRAINING}))
     print(json.dumps({"benches": BENCHES}, default=float))
+    print(json.dumps({"ranks": RANKS}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

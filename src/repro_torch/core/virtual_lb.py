@@ -86,8 +86,7 @@ def neighborhood_residual(x, nbr_idx, nbr_mask):
 
 
 def sweep_chunk_body(sweep, nbr_idx, nbr_mask, rev, alpha, single_hop,
-                     tol, max_iters, *, residual_fn=None, sum_fn=None,
-                     mean_abs_fn=None):
+                     tol, max_iters, *, gather_fn=None, residual_fn=None):
     """``carry -> carry`` applying one masked early-exit ``sweep`` (the
     :func:`reference_sweep` signature) to
     ``carry = (x, own, flow, it, res, stall)``.  The activity predicate is
@@ -95,26 +94,29 @@ def sweep_chunk_body(sweep, nbr_idx, nbr_mask, rev, alpha, single_hop,
     passes through unchanged, so S masked sweeps equal S steps of a
     per-sweep loop.
 
-    The three reductions default to the single-device forms; the sharded
-    planner (``distributed.lb_shard``) passes its own, which reduce over
-    every shard's rows, so the early-exit and stall decisions are made on
+    The sharded planner (``distributed.lb_shard``) runs the sweep on
+    shard blocks and passes ``gather_fn`` (the (local, m) blocks of the
+    new loads and of their movement → every shard's (P,) rows, as the
+    mesh's ``all_gather_many``) and ``residual_fn`` (on the gathered (P,)
+    loads): both vectors go out in one gather, and
+    the three reductions take the single-device expressions on the
+    gathered vectors, so the early-exit and stall decisions are made on
     the same quantities."""
     if residual_fn is None:
         residual_fn = lambda x2: neighborhood_residual(  # noqa: E731
             x2, nbr_idx, nbr_mask)
-    if sum_fn is None:
-        sum_fn = lambda v: v.sum()                       # noqa: E731
-    if mean_abs_fn is None:
-        mean_abs_fn = lambda x2: x2.abs().mean()         # noqa: E731
 
     def body(carry):
         x, own, flow, it, res, stall = carry
         active = (it < max_iters) & (res > tol) & (stall < 3)
         x2, own2, df = sweep(x, own, nbr_idx, nbr_mask, rev, alpha,
                              single_hop)
-        moved = sum_fn((x2 - x).abs())
-        stalled = moved <= 1e-6 * (mean_abs_fn(x2) + 1e-30)
-        res2 = residual_fn(x2)
+        x_all, step = x2, (x2 - x).abs()
+        if gather_fn is not None:
+            x_all, step = gather_fn(x_all, step)
+        moved = step.sum()
+        stalled = moved <= 1e-6 * (x_all.abs().mean() + 1e-30)
+        res2 = residual_fn(x_all)
         return (torch.where(active, x2, x), torch.where(active, own2, own),
                 torch.where(active, flow + df, flow),
                 torch.where(active, it + 1, it),

@@ -3,7 +3,8 @@
 The paper's balancer is distributed by construction: each of the P nodes
 exchanges load only with its stage-1 neighbors.  Here the P balancer nodes
 are row-sharded over the D shards of a ``distributed.mesh.ShardMesh`` (the
-shards are the leading axis of (D, P/D) tensors on one device):
+shards are the leading axis of (D, P/D) tensors on one device) or of a
+``ProcessMesh`` (one rank a shard, each holding its (1, P/D) block):
 
   * **stage 2 (virtual diffusion)** — the hot loop.  Per-node state
     (``x``, ``own``, the (P/D, K) flows) lives in the shard blocks; each
@@ -38,13 +39,15 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import comm_graph, hierarchical
 from repro_torch.core import engine as core_engine
 from repro_torch.core import neighbor_selection as ns
 from repro_torch.core import object_selection as osel
 from repro_torch.core import virtual_lb as vlb
-from repro_torch.distributed.mesh import ShardMesh, num_devices
+from repro_torch.distributed.mesh import (ShardMesh, in_process_group,
+                                          num_devices, resolve_mesh)
 from repro_torch.kernels import resolve_device
 
 
@@ -67,15 +70,17 @@ def _row_sum(t: torch.Tensor) -> torch.Tensor:
 def _ring_gather_values(mesh: ShardMesh, vec_local, owner, idx_local):
     """``vec[global]`` from a row-sharded flat vector by the ring.
 
-    ``vec_local`` is the (D, m) shard blocks; ``owner`` / ``idx_local``
-    ((D, ...) integer) name the shard and in-shard position of every
-    wanted entry.  The blocks rotate D-1 hops; each shard takes the
-    entries it needs as the owning block passes.  Pure data movement."""
+    ``vec_local`` is the (local, m) shard blocks; ``owner`` /
+    ``idx_local`` ((local, ...) integer) name the shard and in-shard
+    position of every wanted entry.  The blocks rotate D-1 hops; each
+    shard takes the entries it needs as the owning block passes.  Pure
+    data movement."""
     D = mesh.num_shards
     shape = owner.shape
-    owner = owner.reshape(D, -1)
-    safe = idx_local.reshape(D, -1).clamp(0, vec_local.shape[1] - 1).long()
-    me = torch.arange(D, device=owner.device)[:, None]
+    owner = owner.reshape(shape[0], -1)
+    safe = idx_local.reshape(shape[0], -1).clamp(
+        0, vec_local.shape[1] - 1).long()
+    me = mesh.shard_index(owner.device)
     out = torch.zeros(owner.shape, dtype=vec_local.dtype,
                       device=vec_local.device)
     buf = vec_local
@@ -87,10 +92,9 @@ def _ring_gather_values(mesh: ShardMesh, vec_local, owner, idx_local):
 
 
 def _sharded_sweep_fn(mesh: ShardMesh, rpd: int):
-    """One diffusion sweep over the (D, rpd) row blocks — the sharded
+    """One diffusion sweep over the (local, rpd) row blocks — the sharded
     twin of ``virtual_lb.reference_sweep`` (neighbor loads and push-backs
     arrive by the ring).  Signature of ``sweep_chunk_body``'s sweep."""
-    D = mesh.num_shards
 
     def sweep(x, own, nbr_idx, nbr_mask, rev, alpha, single_hop):
         safe_nbr = torch.where(nbr_mask, nbr_idx, 0)
@@ -111,8 +115,7 @@ def _sharded_sweep_fn(mesh: ShardMesh, rpd: int):
         flat_local = (safe_nbr % rpd) * K + torch.where(nbr_mask, rev, 0)
         recv = torch.where(
             nbr_mask,
-            _ring_gather_values(mesh, push.reshape(D, -1), owner,
-                                flat_local),
+            _ring_gather_values(mesh, push.flatten(1), owner, flat_local),
             0.0)
         sent = _row_sum(push)
         return x - sent + _row_sum(recv), own - sent, push - recv
@@ -120,16 +123,17 @@ def _sharded_sweep_fn(mesh: ShardMesh, rpd: int):
     return sweep
 
 
-def _diffuse(x0, K: int, chunk_body, residual, *, n_sweeps: int,
+def _diffuse(x0, K: int, chunk_body, res0, *, n_sweeps: int,
              max_iters: int, tol: float):
-    """The stage-2 fixed-point loop over the (D, rpd) row blocks: chunks
-    of ``n_sweeps`` masked sweeps, one device read a chunk (as
-    ``virtual_lb.virtual_balance``)."""
+    """The stage-2 fixed-point loop over the (local, rpd) row blocks:
+    chunks of ``n_sweeps`` masked sweeps, one device read a chunk (as
+    ``virtual_lb.virtual_balance``); the read is of gathered values, alike
+    on every rank."""
     D, rpd = x0.shape
     dev = x0.device
     carry = (x0, x0, torch.zeros((D, rpd, K), dtype=torch.float32,
                                  device=dev),
-             torch.zeros((), dtype=torch.int32, device=dev), residual(x0),
+             torch.zeros((), dtype=torch.int32, device=dev), res0,
              torch.zeros((), dtype=torch.int32, device=dev))
     while True:
         _, _, _, it, res, stall = carry
@@ -164,9 +168,10 @@ def plan_step_sharded(problem: comm_graph.LBProblem, *, mesh: ShardMesh,
     """One three-stage plan over the mesh (the JAX package's
     ``replay_shard._plan_step_sharded``; also ``ShardedLBEngine``'s).
 
-    Stage 2 runs sharded over the (D, P/D) row blocks with the ring halo
-    exchanges; stage 1, 3 and the handshake run once on the replicated
-    problem with the single-device expressions.  The loop scalars
+    Stage 2 runs sharded over the mesh's row blocks (all D of them in
+    one process, or this rank's one) with the ring halo exchanges; stage
+    1, 3 and the handshake run on the replicated problem (on every rank)
+    with the single-device expressions.  The loop scalars
     (residual, movement, mean |x|) **gather then reduce**: the ring moved
     exact copies, so reducing the gathered (P,) vectors with the
     single-device expressions keeps every early-exit decision the
@@ -178,9 +183,8 @@ def plan_step_sharded(problem: comm_graph.LBProblem, *, mesh: ShardMesh,
 
     if alive is not None:
         problem = resilience.degrade_problem(problem, alive, speed)
-    D = mesh.num_shards
     P = problem.num_nodes
-    rpd = P // D
+    rpd = P // mesh.num_shards
     # -- stage 1: preference assembly and handshake (replicated) --------
     if variant == "comm":
         pref = ns.comm_preference(comm_graph.node_comm_matrix(problem))
@@ -194,22 +198,21 @@ def plan_step_sharded(problem: comm_graph.LBProblem, *, mesh: ShardMesh,
 
     # -- stage 2: sharded virtual diffusion (the hot loop) --------------
     K = nres.nbr_idx.shape[1]
-    x0 = comm_graph.node_loads(problem).to(torch.float32).reshape(D, rpd)
+    x0 = mesh.shard(comm_graph.node_loads(problem).to(torch.float32))
     gather = mesh.all_gather
 
-    def residual(x_loc):
-        return vlb.neighborhood_residual(gather(x_loc), nres.nbr_idx,
-                                         nres.nbr_mask)
+    def residual(x_all):
+        return vlb.neighborhood_residual(x_all, nres.nbr_idx, nres.nbr_mask)
 
     body = vlb.sweep_chunk_body(
-        _sharded_sweep_fn(mesh, rpd), nres.nbr_idx.reshape(D, rpd, K),
-        nres.nbr_mask.reshape(D, rpd, K), rev.reshape(D, rpd, K),
-        _alpha(K), single_hop, tol, max_iters, residual_fn=residual,
-        sum_fn=lambda v: gather(v).sum(),
-        mean_abs_fn=lambda x2: gather(x2).abs().mean())
+        _sharded_sweep_fn(mesh, rpd), mesh.shard(nres.nbr_idx),
+        mesh.shard(nres.nbr_mask), mesh.shard(rev),
+        _alpha(K), single_hop, tol, max_iters,
+        gather_fn=mesh.all_gather_many, residual_fn=residual)
     _x, _own, flows_loc, iters, res_fin, _stall = _diffuse(
-        x0, K, body, residual, n_sweeps=max(1, min(sweep_chunk, max_iters)),
-        max_iters=max_iters, tol=tol)
+        x0, K, body, residual(gather(x0)),
+        n_sweeps=max(1, min(sweep_chunk, max_iters)), max_iters=max_iters,
+        tol=tol)
 
     # -- stage 3: selection on the gathered flows (replicated) ----------
     sres = osel.select_objects(problem, nres.nbr_idx, nres.nbr_mask,
@@ -222,12 +225,14 @@ def plan_step_sharded(problem: comm_graph.LBProblem, *, mesh: ShardMesh,
 
 
 class ShardedLBEngine:
-    """The three-stage planner over a ``ShardMesh``.
+    """The three-stage planner over a ``ShardMesh`` (or ``ProcessMesh``).
 
     Mirrors ``LBEngine`` (``plan_fn``, ``plan``, ``threads_per_node`` with
     ``plan_hier_fn``) with the P balancer nodes sharded over the mesh;
     needs ``P % num_shards == 0``.  ``mesh`` or ``num_shards`` (on
-    ``device``) picks the mesh; neither takes one shard a real device."""
+    ``device``) picks the mesh; neither takes one shard a real device
+    (``distributed.mesh.resolve_mesh``: inside a process group, the
+    group's mesh)."""
 
     def __init__(self, *, mesh: Optional[ShardMesh] = None,
                  num_shards: Optional[int] = None, variant: str = "comm",
@@ -237,11 +242,10 @@ class ShardedLBEngine:
                  threads_per_node: Optional[int] = None, device="cuda"):
         if variant not in ("comm", "coord"):
             raise ValueError(f"unknown variant {variant!r}")
-        if mesh is None:
-            mesh = ShardMesh(num_devices(device) if num_shards is None
-                             else num_shards, device)
-        elif num_shards is not None:
+        if mesh is not None and num_shards is not None:
             raise ValueError("pass either mesh or num_shards, not both")
+        if mesh is None:
+            mesh = resolve_mesh(None, num_shards, (), device)
         self.mesh = mesh
         self.num_shards = mesh.num_shards
         self.device = mesh.device
@@ -328,6 +332,14 @@ _DEFAULTS = dict(num_shards=None, variant="comm", k=4, tol=0.02,
                  sweep_chunk=8, threads_per_node=None, device="cuda")
 
 
+def _group() -> Optional[tuple]:
+    """The process group this process is in, as (world size, rank,
+    backend); None outside one."""
+    if not in_process_group():
+        return None
+    return dist.get_world_size(), dist.get_rank(), dist.get_backend()
+
+
 def get_sharded_engine(*, mesh: Optional[ShardMesh] = None,
                        **cfg) -> ShardedLBEngine:
     """Sharded-engine cache, keyed canonically like
@@ -341,7 +353,9 @@ def get_sharded_engine(*, mesh: Optional[ShardMesh] = None,
             f"{sorted(unknown)}")
     c = {**_DEFAULTS, **cfg}
     c["device"] = resolve_device(c["device"])
-    key = (None if c["num_shards"] is None else int(c["num_shards"]),
+    # an engine made inside a process group holds the group's mesh
+    key = (_group(),
+           None if c["num_shards"] is None else int(c["num_shards"]),
            str(c["variant"]), int(c["k"]), float(c["tol"]),
            int(c["max_iters"]), int(c["max_rounds"]),
            bool(c["single_hop"]), int(c["sweep_chunk"]),
@@ -359,8 +373,19 @@ def get_sharded_engine(*, mesh: Optional[ShardMesh] = None,
 
 
 def best_shards(num_nodes: int, device="cuda") -> int:
-    """The largest shard count up to the real devices (one here) that
-    divides ``num_nodes``."""
+    """The largest shard count up to the real devices (one) that divides
+    ``num_nodes``.  Inside a process group of W ranks the mesh is the
+    group's, one shard a rank, so this is W, and a ``num_nodes`` that W
+    does not divide raises."""
+    if in_process_group():
+        W = num_devices(device)
+        if num_nodes % W:
+            raise ValueError(
+                f"{num_nodes} balancer nodes do not divide over the {W} "
+                "ranks of this process group (the sharded planner holds "
+                "one shard a rank): plan with the single-device strategy, "
+                f"or run a group whose size divides {num_nodes}")
+        return W
     D = min(num_devices(device), int(num_nodes))
     while num_nodes % D:
         D -= 1

@@ -2,9 +2,12 @@
 
 The JAX package runs each replay's whole step loop inside one
 ``shard_map`` over a 1-D ``"lb"`` mesh.  Here the mesh is a
-``distributed.mesh.ShardMesh``: the D shards are the leading axis of the
-per-shard tensors on one device, and the loop is host-driven as the
-port's single-device loops are.
+``distributed.mesh.ShardMesh`` (the D shards the leading axis of the
+per-shard tensors on one device) or, inside a ``torch.distributed``
+group, a ``ProcessMesh`` (one rank a shard, each running the loop on its
+own block; the replicated state, and so every host branch, is alike on
+every rank).  The loop is host-driven as the port's single-device loops
+are.
 
   * :func:`run_series_sharded` — the sharded twin of
     ``sim.simulator.run_series``'s device-resident loop.  Each fired
@@ -362,15 +365,16 @@ def run_series_sharded(initial: comm_graph.LBProblem, evolve, *,
 # -------------------------------------------------------- PIC replay ----
 
 
-def _pad_slabs(arrays, n: int, D: int, capacity: int, dev):
-    """(n,) arrays → (D, capacity) slabs on ``dev`` with n/D live items at
-    each shard's prefix (shard d holds items ``[d·n/D, (d+1)·n/D)``)."""
-    per = n // D
+def _pad_slabs(arrays, mesh, capacity: int, dev):
+    """(n,) arrays → the mesh's (local, capacity) slabs on ``dev`` with
+    n/D live items at each shard's prefix (shard d holds items
+    ``[d·n/D, (d+1)·n/D)``)."""
     out = []
     for a in arrays:
-        a = torch.as_tensor(a, device=dev)
-        slab = torch.zeros((D, capacity), dtype=a.dtype, device=dev)
-        slab[:, :per] = a.reshape(D, per)
+        block = mesh.shard(torch.as_tensor(a, device=dev))
+        slab = torch.zeros((block.shape[0], capacity), dtype=block.dtype,
+                           device=dev)
+        slab[:, :block.shape[1]] = block
         out.append(slab)
     return out
 
@@ -463,10 +467,11 @@ def run_pic_sharded(cfg, cost):
 
     x, y, vx, vy, q, chare_id, perm = _pad_slabs(
         (p.x, p.y, p.vx, p.vy, p.q, chare0,
-         torch.arange(n, dtype=torch.int32, device=dev)), n, D, capacity,
+         torch.arange(n, dtype=torch.int32, device=dev)), mesh, capacity,
         dev)
-    count = torch.full((D,), n // D, dtype=torch.int32, device=dev)
-    me = torch.arange(D, device=dev)[:, None]
+    n_loc = x.shape[0]                  # shards held here: D, or 1 a rank
+    count = torch.full((n_loc,), n // D, dtype=torch.int32, device=dev)
+    local_row = torch.arange(n_loc, device=dev)[:, None]
     slots = torch.arange(capacity, device=dev)[None, :]
     tstate = trig.init_state(dev)
     obs_state = obs_telemetry.init_state(tel, P, dev) if tel else None
@@ -478,7 +483,7 @@ def run_pic_sharded(cfg, cost):
     t_start = time.perf_counter()
     for t in range(cfg.steps):
         # K5 over every shard's slab (padding included)
-        x, y, vx, vy = (a.reshape(D, capacity) for a in pic_push(
+        x, y, vx, vy = (a.reshape(n_loc, capacity) for a in pic_push(
             grid_q, x.reshape(-1), y.reshape(-1), vx.reshape(-1),
             vy.reshape(-1), q.reshape(-1), L=L))
         new_chare = ch.chare_of_device(x, y, L, cx, cy)
@@ -489,12 +494,13 @@ def run_pic_sharded(cfg, cost):
         crossed = assignment[chare_id.long()] != assignment[new_chare.long()]
         ext = mesh.psum((moved & crossed).sum(1)).to(torch.float32) * bpp
         intra = mesh.psum((moved & ~crossed).sum(1)).to(torch.float32) * bpp
-        # K4: the per-shard chare histograms in one launch (shard d's
-        # chares are buckets d·C .. d·C + C-1), summed over the shards
+        # K4: the local shards' chare histograms in one launch (local
+        # row d's chares are buckets d·C .. d·C + C-1), summed over the
+        # shards (integer-valued partials: exact)
         loads = mesh.psum(histogram(
-            (me * n_chares + new_chare).reshape(-1),
+            (local_row * n_chares + new_chare).reshape(-1),
             live.to(torch.float32).reshape(-1),
-            C=D * n_chares).reshape(D, n_chares))
+            C=n_loc * n_chares).reshape(n_loc, n_chares))
         pe_loads = comm_graph.segment_sum(loads, assignment, P)
         pe_max = pe_loads.max()
         ma = pe_max / (pe_loads.mean() + 1e-30)
@@ -586,8 +592,10 @@ def run_pic_sharded(cfg, cost):
     _sync(dev)
     wall = time.perf_counter() - t_start
 
-    counts_ts = (torch.stack(counts_ts).cpu().numpy() if counts_ts
-                 else np.zeros((0, D), np.int32))
+    # every shard's slot counts a step, (T, D): one gather after the loop
+    counts_ts = (mesh.all_gather(torch.stack(counts_ts, 1)).reshape(
+        D, -1).T.contiguous().cpu().numpy() if counts_ts
+        else np.zeros((0, D), np.int32))
     # spill clamps inflow inside the exchange; strict fails loud
     if not spill and (counts_ts > capacity).any():
         raise ValueError(
@@ -607,11 +615,11 @@ def run_pic_sharded(cfg, cost):
                           for s_ in lb_s_t])
               / pic_driver._lb_amort(cfg, trig))
     # the per-shard valid prefixes concatenated are the single-device slot
-    # layout; undo the exchanges back to particle-id order
-    cnt = count.cpu().tolist()
+    # layout; undo the exchanges back to particle-id order (on every rank)
+    cnt = counts_ts[-1].tolist() if cfg.steps else [n // D] * D
     keep = torch.cat([torch.arange(d * capacity, d * capacity + cnt[d],
                                    device=dev) for d in range(D)])
-    xs, ys_, order = (a.reshape(-1)[keep] for a in (x, y, perm))
+    xs, ys_, order = (mesh.all_gather(a)[keep] for a in (x, y, perm))
     fx, fy = torch.empty_like(xs), torch.empty_like(ys_)
     fx[order.long()] = xs
     fy[order.long()] = ys_

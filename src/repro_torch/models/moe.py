@@ -34,6 +34,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import ProcessMesh
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.migrate import ops as mops
 from repro_torch.models.config import ModelConfig
@@ -233,7 +234,12 @@ def moe_a2a(params, cfg: ModelConfig, x: torch.Tensor,
     """Expert-parallel MoE over the D shards of ``mesh``: shard d holds the
     d-th block of the sequence of every row (the JAX package's
     sequence-over-"model" boundary layout); ``moe_dense`` where E or S does
-    not divide over D."""
+    not divide over D.  The in-process ``ShardMesh`` only: over the ranks
+    of a ``ProcessMesh`` it raises."""
+    if isinstance(mesh, ProcessMesh):
+        raise NotImplementedError(
+            "moe_a2a over the ranks of a ProcessMesh is not ported; use a "
+            "ShardMesh")
     D = mesh.num_shards
     B, S, Dm = x.shape
     if cfg.moe.num_experts % D or S % D:

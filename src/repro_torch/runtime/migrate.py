@@ -13,9 +13,10 @@ Every method gives the identical ``order``.
 deferring moves (:func:`spill_admissions` solves for the admitted flow).
 The mesh-sharded exchange (:func:`migrate_sharded`, its per-shard body
 :func:`ring_exchange`) runs on a ``distributed.mesh.ShardMesh``: the D
-shards are the leading axis of (D, m) slabs on one device.  Each shard
-owns a contiguous node range; the blocks rotate D-1 ring hops and every
-shard scatters the items it owns into its (capacity,) slab as they pass,
+shards are the leading axis of (D, m) slabs on one device, or, on a
+``ProcessMesh``, each rank holds its (1, m) slab.  Each shard owns a
+contiguous node range; the blocks rotate D-1 ring hops and every shard
+scatters the items it owns into its (capacity,) slab as they pass,
 at positions from the all-gathered (D, P) count matrix and the stable
 within-bucket rank of ``kernels.migrate.bucket_ranks`` (K3 on a card),
 so the concatenated per-shard valid prefixes are the single-device
@@ -238,11 +239,12 @@ def _excl_rows(a: torch.Tensor) -> torch.Tensor:
         a.dtype)])
 
 
-def _new_slabs(D: int, capacity: int, like: torch.Tensor) -> torch.Tensor:
-    """(D, capacity + 1, ...) zero slabs like the (D, m, ...) ``like``; slot ``capacity`` is the trash
-    slot that takes every write the exchange does not keep (the
-    counterpart of a ``mode="drop"`` scatter at ``pos = capacity``)."""
-    return torch.zeros((D, capacity + 1) + tuple(like.shape[2:]),
+def _new_slabs(capacity: int, like: torch.Tensor) -> torch.Tensor:
+    """(local, capacity + 1, ...) zero slabs like the (local, m, ...)
+    ``like``; slot ``capacity`` is the trash slot that takes every write
+    the exchange does not keep (the counterpart of a ``mode="drop"``
+    scatter at ``pos = capacity``)."""
+    return torch.zeros((like.shape[0], capacity + 1) + tuple(like.shape[2:]),
                        dtype=like.dtype, device=like.device)
 
 
@@ -263,26 +265,27 @@ def ring_exchange(owner_loc, arr_loc: Tuple, *, num_nodes: int, mesh,
     ``repro.runtime.migrate.ring_exchange``, which runs under
     ``shard_map``).
 
-    ``owner_loc`` is the (D, m) slab of new owner ids, ``arr_loc`` the
-    (D, m, ...) payload slabs.  Shard ``d`` owns nodes
+    ``owner_loc`` is the (local, m) slab of new owner ids, ``arr_loc``
+    the (local, m, ...) payload slabs (local: D on a ``ShardMesh``, 1 on
+    a ``ProcessMesh``).  Shard ``d`` owns nodes
     ``[d*rpd, (d+1)*rpd)``.  The blocks rotate D-1 ring hops; at hop
     ``s`` shard ``me`` sees the block of shard ``(me+s) % D`` and
     scatters the items it owns into its (capacity,) output at the global
     bucket position: the base of the item's node within the shard, the
     items of earlier source shards in that bucket (from the all-gathered
     (D, P) counts), and the stable within-bucket rank from
-    ``kernels.migrate.bucket_ranks`` — one call a hop over all D blocks
-    (C = ``num_nodes``; the buckets a shard accepts belong to it alone,
-    so the ranks are per shard).
+    ``kernels.migrate.bucket_ranks`` — one call a hop over the local
+    blocks (C = ``num_nodes``; the buckets a shard accepts belong to it
+    alone, so the ranks are per shard).
 
-    ``count_loc`` ((D,) i32, optional) marks only each shard's first
+    ``count_loc`` ((local,) i32, optional) marks only each shard's first
     ``count_loc[d]`` slots live.  ``mode="strict"`` assumes the plan fits
     (the caller checks the returned counts; positions past ``capacity``
     go to the trash slot); ``mode="spill"`` clamps each shard's inflow to
     ``capacity`` (:func:`_ring_exchange_spill`).
 
-    Returns ``(out_owner (D, capacity), outs, count_me (D,))`` — plus
-    ``deferred`` (0-d i32) in spill mode."""
+    Returns ``(out_owner (local, capacity), outs, count_me (local,))`` —
+    plus ``deferred`` (0-d i32, every shard's) in spill mode."""
     if mode not in ("strict", "spill"):
         raise ValueError(f"unknown ring_exchange mode {mode!r}")
     D = mesh.num_shards
@@ -291,35 +294,36 @@ def ring_exchange(owner_loc, arr_loc: Tuple, *, num_nodes: int, mesh,
     capacity = int(capacity)
     owner_loc = owner_loc.to(torch.int32)
     dev = owner_loc.device
-    m = owner_loc.shape[1]
-    me = torch.arange(D, device=dev)[:, None]
+    n_loc, m = owner_loc.shape
+    me = mesh.shard_index(dev)
     slots = torch.arange(m, device=dev)[None, :]
     live = (torch.ones_like(owner_loc, dtype=torch.bool) if count_loc is None
             else slots < count_loc.to(dev)[:, None])
     # padding slots carry stale owner ids: bucket P counts nowhere
     owner_loc = torch.where(live, owner_loc, P)
-    counts = segment_count(
-        torch.where(live, me * P + owner_loc, D * P).reshape(-1),
-        D * P).reshape(D, P)     # all-gathered (D, P)
+    row = torch.arange(n_loc, device=dev)[:, None]
+    counts = mesh.all_gather(segment_count(
+        torch.where(live, row * P + owner_loc, n_loc * P).reshape(-1),
+        n_loc * P).reshape(n_loc, 1, P))            # all-gathered (D, P)
     if mode == "spill":
         return _ring_exchange_spill(
             owner_loc, arr_loc, live=live, counts=counts, num_nodes=P,
             mesh=mesh, capacity=capacity)
     bucket = counts.sum(0)                          # (P,) global sizes
-    my_sizes = bucket.reshape(D, rpd)
-    my_base = _excl_rows(my_sizes.T).T[:, :rpd]     # (D, rpd)
+    my_sizes = bucket.reshape(D, rpd)[me[:, 0]]     # (local, rpd)
+    my_base = _excl_rows(my_sizes.T).T[:, :rpd]     # (local, rpd)
     before_src = _excl_rows(counts)                 # (D+1, P)
-    out_owner = _new_slabs(D, capacity, owner_loc)
-    outs = [_new_slabs(D, capacity, a) for a in arr_loc]
+    out_owner = _new_slabs(capacity, owner_loc)
+    outs = [_new_slabs(capacity, a) for a in arr_loc]
     buf = (owner_loc,) + tuple(arr_loc)
     for s in range(D):
-        src = (me + s) % D                          # (D, 1)
+        src = (me + s) % D                          # (local, 1)
         pe = buf[0]
         accept = torch.div(pe, rpd, rounding_mode="floor") == me
         rank, _ = mig_ops.bucket_ranks(
             torch.where(accept, pe, P).reshape(-1), C=P)
-        rank = rank.reshape(D, m)
-        before = before_src[src[:, 0]]              # (D, P)
+        rank = rank.reshape(n_loc, m)
+        before = before_src[src[:, 0]]              # (local, P)
         r = (pe - me * rpd).clamp(0, rpd - 1).long()
         pos = (my_base.gather(1, r) + before.gather(
             1, pe.clamp(0, P - 1).long()) + rank)
@@ -349,7 +353,7 @@ def _ring_exchange_spill(owner_loc, arr_loc, *, live, counts,
     P = int(num_nodes)
     rpd = P // D
     dev = owner_loc.device
-    me = torch.arange(D, device=dev)[:, None]
+    me = mesh.shard_index(dev)                      # (local, 1)
     flow = counts.reshape(D, D, rpd).sum(-1)        # (D, D) wanted flow
     occ = counts.sum(1)                             # (D,) live counts
     A = spill_admissions(flow, occ, capacity)       # (D, D) admitted
@@ -359,16 +363,16 @@ def _ring_exchange_spill(owner_loc, arr_loc, *, live, counts,
     rank, _ = mig_ops.bucket_ranks(
         torch.where(fid < D, me * D + fid, D * D).reshape(-1), C=D * D)
     rank = rank.reshape(fid.shape).to(torch.int32)
-    quota = A.gather(1, dshard.clamp(0, D - 1).long())
+    quota = A[me[:, 0]].gather(1, dshard.clamp(0, D - 1).long())
     admitted = (fid < D) & (rank < quota)
     keep = live & ~admitted
-    kept_me = keep.sum(1)                           # (D,)
+    kept_me = keep.sum(1)                           # (local,)
     # kept items (stays and deferred movers, desired owner kept) compact
     # to the slab prefix in slab order
     kpos = torch.where(keep, torch.cumsum(keep.to(torch.int32), 1) - 1,
                        capacity)
-    out_owner = _new_slabs(D, capacity, owner_loc)
-    outs = [_new_slabs(D, capacity, a) for a in arr_loc]
+    out_owner = _new_slabs(capacity, owner_loc)
+    outs = [_new_slabs(capacity, a) for a in arr_loc]
     _scatter_slabs(out_owner, kpos, owner_loc)
     for o, v in zip(outs, arr_loc):
         _scatter_slabs(o, kpos, v)
@@ -376,17 +380,17 @@ def _ring_exchange_spill(owner_loc, arr_loc, *, live, counts,
     buf = (owner_loc, admitted.to(torch.int32), rank) + tuple(arr_loc)
     for s in range(1, D):
         buf = tuple(mesh.ring_shift(b) for b in buf)
-        src = ((me + s) % D)[:, 0]                  # (D,)
+        src = ((me + s) % D)[:, 0]                  # (local,)
         pe_b, adm_b, rank_b = buf[0], buf[1], buf[2]
         accept = (adm_b == 1) & (torch.clamp(torch.div(
             pe_b, rpd, rounding_mode="floor"), max=D) == me)
-        base = kept_me + A_before[src, me[:, 0]]    # (D,)
+        base = kept_me + A_before[src, me[:, 0]]    # (local,)
         pos = torch.where(accept, base[:, None] + rank_b, capacity)
         pos = torch.where(pos < capacity, pos, capacity)
         _scatter_slabs(out_owner, pos, pe_b)
         for o, v in zip(outs, buf[3:]):
             _scatter_slabs(o, pos, v)
-    count_me = (kept_me + A.sum(0)).to(torch.int32)
+    count_me = (kept_me + A.sum(0)[me[:, 0]]).to(torch.int32)
     eye = torch.eye(D, dtype=torch.bool, device=dev)
     deferred = (torch.where(eye, 0, flow).sum() - A.sum()).to(torch.int32)
     return (out_owner[:, :capacity], tuple(o[:, :capacity] for o in outs),
@@ -405,7 +409,9 @@ def planned_capacity(owner_new, *, num_nodes: int, num_shards: int) -> int:
 def migrate_sharded(owner_new, arrays: Sequence, *, num_nodes: int,
                     mesh=None, capacity: Optional[int] = None,
                     on_overflow: str = "strict"):
-    """Ring all-to-all payload exchange over a ``ShardMesh``.
+    """Ring all-to-all payload exchange over a ``ShardMesh`` (or a
+    ``ProcessMesh``, every rank passing the same global buffers and
+    receiving the same global result).
 
     ``owner_new`` / ``arrays`` are the global (n,) buffers, row-sharded
     over the mesh (n and ``num_nodes`` must divide the shard count).
@@ -452,9 +458,10 @@ def migrate_sharded(owner_new, arrays: Sequence, *, num_nodes: int,
                         tuple(mesh.shard(a) for a in arrays),
                         num_nodes=int(num_nodes), mesh=mesh,
                         capacity=int(capacity), mode=on_overflow)
-    owner_out = out[0].reshape(-1)
-    outs = tuple(o.reshape(-1, *o.shape[2:]) for o in out[1])
-    counts = out[2]
+    # every shard's slabs and counts, on every shard
+    owner_out = mesh.all_gather(out[0])
+    outs = tuple(mesh.all_gather(o) for o in out[1])
+    counts = mesh.all_gather(out[2][:, None])
     if spill:
         return owner_out, outs, counts, int(out[3])
     if (counts > int(capacity)).any():

@@ -228,7 +228,7 @@ def _pic_geometric(*, device, L: int = 1000, cx: int = 12, cy: int = 12,
         # geometric column density, advected east with wraparound
         shifted = torch.remainder(col - speed * _step(t, device), L)
         dens = torch.pow(rho32, shifted)
-        return dens / dens.sum() * n_particles
+        return dens / comm_graph.ordered_sum(dens) * n_particles
 
     def evolve(p: comm_graph.LBProblem, t) -> comm_graph.LBProblem:
         loads = loads_at(t)

@@ -39,6 +39,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "benchmarks_torch.replay_shard_bench",
             "benchmarks_torch.roofline", "repro_torch.launch.dryrun"} <= set(
                 mods)
+    # what a spawned rank of the process-mesh tests imports
+    mods += ["tests.process_mesh_ranks"]
     examples = sorted(str(f) for f in (ROOT / "examples_torch").glob("*.py"))
     assert len(examples) == 5
     code = (
@@ -66,7 +68,8 @@ def test_sources_have_no_jax_or_repro_imports():
                      r"|import repro\.|from repro\.)", re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", *(ROOT / "benchmarks_torch").glob("*.py"),
-              *(ROOT / "examples_torch").glob("*.py")]
+              *(ROOT / "examples_torch").glob("*.py"),
+              ROOT / "tests" / "process_mesh_ranks.py"]
     assert len(list((ROOT / "examples_torch").glob("*.py"))) == 5
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -736,3 +739,60 @@ def test_chip_smoke_benches_phase_rehearses_on_cpu(monkeypatch):
     assert set(b["examples"]) == set(chip_smoke.EXAMPLES16)
     assert b["examples"]["train_lm"]["steps"] == 3
     assert not any(chip_smoke.BENCH_LAUNCHES.values())   # plain versions
+
+
+def test_process_mesh_entry_points_default_to_cuda(tmp_path):
+    """The process mesh, the helper that starts its group and the rank
+    spawner run on the card unless asked for the CPU; without one they
+    raise before a group starts."""
+    import inspect
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import mesh
+    from repro_torch.launch import mesh as lmesh
+
+    for fn in (mesh.ProcessMesh, lmesh.init_process_mesh, lmesh.run_ranks):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="torch.distributed group"):
+        mesh.ProcessMesh(device="cpu")          # no group: no mesh
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behavior")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lmesh.init_process_mesh(rank=0, world_size=1,
+                                store=str(tmp_path / "store"))
+    assert not dist.is_initialized()
+
+
+def test_chip_smoke_ranks_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 17 runs end to end on the CPU's plain versions
+    at small sizes, its ranks over gloo at world size 1: (a) the plan and
+    the series through one rank equal ShardMesh(1)'s, (b) the series and
+    the PIC replay through the ranks equal the in-process mesh's."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "RANKS_WORLD", 1)
+    monkeypatch.setattr(chip_smoke, "RANKS_KERNELS", {})   # CPU: none
+    monkeypatch.setattr(chip_smoke, "SIM_SCENARIO", dict(
+        grid=16, num_nodes=8, mapping="tiled"))
+    monkeypatch.setattr(chip_smoke, "SIM", dict(
+        steps=24, lb_every=10, strategy="diff-comm",
+        strategy_kwargs={"k": 4}))
+    monkeypatch.setattr(chip_smoke, "RANKS_PIC", dict(
+        L=100, n_particles=4000, steps=21, cx=8, cy=8, num_pes=4, rho=0.9,
+        mode="GEOMETRIC", lb_every=10, strategy="diff-comm",
+        strategy_kwargs={"k": 2}))
+    monkeypatch.setattr(chip_smoke, "RANKS", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.ranks_phase(10)
+    finally:
+        torch.set_num_threads(threads)
+    r = chip_smoke.RANKS
+    assert r["one"]["transport"] == "gloo" and r["one"]["fired"] == [10, 20]
+    assert r["many"]["world_size"] == 1 and r["many"]["pic_exchanges"] > 0
+    assert not any(launches.values())                # plain versions
