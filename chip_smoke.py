@@ -215,10 +215,30 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      field (SHA-256 of each); each rank's K3/K4/K5 launches counted on
      its own runs, every spawn under a time limit.
 
+ 18. the model side of the mesh (``distributed.mesh`` with named axes,
+     ``distributed.sharding``, ``models.moe.moe_a2a`` by ``cfg.ep_axes``,
+     the train step over a mesh): (a) one NCCL rank, mesh (model 1):
+     deepseek-v3's MoE layer at its published width (256 experts top-8,
+     d_expert 2048, a shared expert, d_model 7168, bf16, capacity 1.25) on
+     2 x 512 activations from seed 0, bit for bit the in-process a2a of
+     the same axes, K3 launched; (b) 4 ranks on the card over gloo-host,
+     mesh (model 4), each making only its 64 experts (``params.
+     init_rows``): routing ids, slots, keeps and router statistics exact
+     against the in-process a2a of (model 4), output and aux within 1e-3
+     of the largest magnitude (whether bit for bit is printed), each
+     rank's exchange ms, layer wall and peak memory; (c) the same ranks as
+     (data 2, model 2): a step of the reduced deepseek-v3 (f32, MLA, MTP,
+     the a2a at 1.25) against the in-process step of those axes, and a
+     "dp" step of the reduced smollm-135m against the single-process step
+     (loss 1e-5, grad norm 1e-4, parameters within 2.5 lr, router counts
+     exact), every rank's whole leaves equal (SHA-256), K3 and K6 forward
+     and backward launched on every rank.
+
 It prints the card's name and power limit, one JSON line of the sharded
 phases' numbers, one of the model families', one of expert balancing,
 one of training, one of the benches and examples, one of the ranks
-(phase 17: walls, transports, launches by rank), one JSON line of
+(phase 17: walls, transports, launches by rank), one of the model mesh
+(phase 18), one JSON line of
 per-kernel numbers (K6's backward beside K6, and inside its row), and as
 its last line
 ``{"ok": true, "device": {...}}``.  Any
@@ -444,6 +464,26 @@ RANKS_THREADS = 2
 RANKS_KERNELS = dict(series=("histogram",),
                      pic=("histogram", "pic_push", "scatter_dest"))
 RANKS: dict = {}        # phase 17's numbers (one JSON line)
+# phase 18: the model side of the mesh.  (a) one NCCL rank, mesh (model
+# 1): deepseek-v3's MoE layer at its published width (256 experts top-8,
+# d_expert 2048, one shared expert, d_model 7168, bf16, the config's
+# capacity factor 1.25) on MESH_X activations from seed 0, bit for bit the
+# in-process a2a of the same axes; (b) MESH_WORLD ranks on the one card over
+# gloo-host, mesh (model 4), each rank making only its EP block of the
+# experts, against the in-process a2a of (model 4); (c) the same ranks as
+# (data 2, model 2): a step of the reduced deepseek-v3 (f32, MLA, MTP, the
+# a2a at 1.25) against the in-process step of those axes, and a "dp" step
+# of the reduced smollm-135m against the single-process step
+MESH_FULL = True             # the published config; a rehearsal: reduced
+MESH_X = (2, 512)
+MESH_WORLD = 4
+MESH_STEP = dict(batch=4, seq=16, seed=0)
+MESH_TIMEOUT = dict(one=300, many=420)
+MESH_THREADS = 2
+MESH_KERNELS = dict(a2a=("scatter_dest",),
+                    step=("scatter_dest", "flash_attention",
+                          "flash_attention_bwd"))
+MESH: dict = {}         # phase 18's numbers (one JSON line)
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -4212,6 +4252,414 @@ def ranks_phase(step: int):
     return launches
 
 
+# ------------------------------------------------------ the model mesh --
+
+
+def _mesh_conf():
+    """Phase 18's sizes, passed to its ranks (which import this module
+    afresh)."""
+    return dict(full=MESH_FULL, x=tuple(MESH_X), step=dict(MESH_STEP))
+
+
+def _mesh_layer_cfg(conf):
+    """deepseek-v3's MoE layer config: published (bf16) or, in a
+    rehearsal, reduced."""
+    import dataclasses
+
+    cfg = _train_cfg("deepseek-v3-671b", conf["full"])
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl="a2a"))
+
+
+def _mesh_layer(cfg, mesh, dev, x_shape):
+    """The MoE layer's weights in bf16, every leaf drawn one row at a time
+    (``params.init_rows``, leaf j's row r from seed 1_000_000·j + r): the
+    expert stacks only this shard's EP block on a ``ProcessMesh`` (the
+    bits those rows have in the whole stack), else whole; and the
+    activations (B, S, d_model) from seed 0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import init_rows
+
+    E = cfg.moe.num_experts
+    plan = moe_mod.ep_plan(cfg, mesh, x_shape[1])
+    check(plan is not None, "phase 18: the a2a does not apply to the mesh")
+    ep_axes, ep = plan
+    params = {}
+    for j, (name, spec) in enumerate(moe_mod.moe_specs(cfg).items()):
+        spec = dataclasses.replace(spec, dtype="bfloat16")
+        rows = range(spec.shape[0])
+        if name in ("wi", "wg", "wo") and isinstance(mesh, ProcessMesh):
+            i = mesh.group_rank(ep_axes, mesh.rank)
+            rows = range(i * E // ep, (i + 1) * E // ep)
+        params[name] = init_rows(spec, 1_000_000 * j, rows, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(tuple(x_shape) + (cfg.d_model,), generator=gen,
+                    dtype=torch.float32, device=dev).to(torch.bfloat16)
+    return params, x
+
+
+def _mesh_a2a(cfg, mesh, dev, x_shape):
+    """The layer's a2a over ``mesh`` on this process's shards, twice (the
+    first call in the process, then a warm one, which must repeat it bit
+    for bit): its routing, statistics and output on the CPU, each call's
+    wall seconds and the launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import moe as moe_mod
+
+    dev = torch.device(dev)
+    params, x = _mesh_layer(cfg, mesh, dev, x_shape)
+    _rank_sync(dev)
+    kernels.reset_launch_counts()
+    walls, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs.append(moe_mod.a2a_with_routing(params, cfg, x, mesh=mesh))
+        _rank_sync(dev)
+        walls.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    (y, aux, st, routing), again = outs
+    check(torch.equal(y, again[0]) and torch.equal(aux, again[1])
+          and torch.equal(routing.slot, again[3].slot),
+          "phase 18: a second call of the layer differs from the first")
+    out = dict(y=y.cpu(), aux=aux.cpu(), counts=st.counts.cpu(),
+               coact=st.coact.cpu(), ids=routing.ids.cpu(),
+               slot=routing.slot.cpu(), keep=routing.keep.cpu(),
+               wall_seconds=walls[1], first_seconds=walls[0],
+               launches=launches,
+               experts=int(params["wi"].shape[0]),
+               expert_bytes=sum(params[k].numel() * params[k].element_size()
+                                for k in ("wi", "wg", "wo")))
+    del params, x, y, outs, again
+    return out
+
+
+def _mesh_step_batch(cfg, dev, shape):
+    import numpy as np
+    import torch
+
+    B, S = shape["batch"], shape["seq"]
+    tok = np.random.default_rng(shape["seed"]).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    lbl = np.concatenate([tok[:, 1:], np.full((B, 1), -1, np.int32)], 1)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+            for k, v in (("tokens", tok), ("labels", lbl), ("positions", pos))}
+
+
+def _mesh_step_cfg(arch):
+    """The reduced ``arch`` in f32 (deepseek with the a2a at its 1.25)."""
+    import dataclasses
+
+    cfg = _train_cfg(arch, False, compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="a2a"))
+    else:
+        cfg = dataclasses.replace(cfg, sharding_profile="dp")
+    return cfg
+
+
+def _mesh_step(arch, mesh, dev, shape):
+    """One train step of the reduced ``arch`` over ``mesh`` (None: one
+    device) from seed 0's weights (the CPU's draw on every device), under
+    deterministic algorithms: this process's trees after the step, the
+    whole trees gathered back, the metrics, and the launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_leaves, tree_to
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    cfg = _mesh_step_cfg(arch)
+    params = tree_to(init_params(transformer.model_specs(cfg), 0, "cpu"),
+                     dev)
+    batch = _mesh_step_batch(cfg, dev, shape)
+    place = None
+    if mesh is not None:
+        place = sharding.train_placements(params, mesh, cfg)
+        params = sharding.local_tree(params, place, mesh)
+        bplace = sharding.data_placements(batch, mesh, cfg.sharding_profile)
+        batch = {k: sharding.local_block(v, bplace[k], mesh).contiguous()
+                 for k, v in batch.items()}
+    step = ts_mod.make_train_step(
+        cfg, opt_mod.OptConfig(warmup_steps=1, total_steps=10),
+        collect_router_stats=cfg.moe is not None, mesh=mesh)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _rank_sync(torch.device(dev))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, _, m = step(params, opt_mod.init(params, device=dev), batch)
+        _rank_sync(torch.device(dev))
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    whole = new if mesh is None else sharding.gather_tree(new, place, mesh)
+    split = []
+    if place is not None:
+        sharding.tree_map(lambda _, p: split.append(bool(p.axes())), new,
+                          place)
+    return dict(metrics={k: v.cpu() for k, v in m.items()},
+                whole=[t.cpu() for t in tree_leaves(whole)],
+                replicated_sha=[_sha(t.cpu().numpy()) for t, sp in zip(
+                    tree_leaves(new), split) if not sp],
+                wall_seconds=wall, launches=launches)
+
+
+def _rank_mesh_one(world, conf):
+    """Phase 18 (a) on its rank: the layer over ``ProcessMesh(model 1)``."""
+    import torch
+    from repro_torch.distributed.mesh import ProcessMesh
+
+    mesh = ProcessMesh(world.device, axes=dict(model=1))
+    if world.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(world.device)
+    out = _mesh_a2a(_mesh_layer_cfg(conf), mesh, world.device, conf["x"])
+    out.update(transport=mesh.transport, device=str(mesh.device),
+               peak_gib=_mesh_peak_gib(world.device))
+    return out
+
+
+def _mesh_peak_gib(dev):
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+
+
+def _rank_mesh_many(world, conf):
+    """Phase 18 (b) and (c) on its rank: the layer over ``ProcessMesh(model
+    W)`` with this rank's EP block, the exchange timed alone on a
+    dispatch buffer's shape; then the steps over (data 2, model W/2)."""
+    import torch
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import moe as moe_mod
+
+    W = world.num_shards
+    dev = world.device
+    cfg = _mesh_layer_cfg(conf)
+    mesh = ProcessMesh(dev, axes=dict(model=W))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = dict(rank=world.rank, transport=world.transport, device=str(dev))
+    out["a2a"] = _mesh_a2a(cfg, mesh, dev, conf["x"])
+    out["a2a"]["peak_gib"] = _mesh_peak_gib(dev)
+    # the exchange alone: a2a_with_routing's dispatch buffer, (1, W,
+    # E/W, cap, d_model) bf16, median of 5 after one warm-up
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    T_loc = conf["x"][0] * conf["x"][1] // W
+    cap = max(1, int(cfg.moe.capacity_factor * k * T_loc) // E)
+    buf = torch.ones((1, W, E // W, cap, cfg.d_model), dtype=torch.bfloat16,
+                     device=dev)
+    ms = []
+    for i in range(6):
+        _rank_sync(dev)
+        t0 = time.perf_counter()
+        got = mesh.all_to_all(buf)
+        _rank_sync(dev)
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    check(torch.equal(got, buf), "phase 18 (b): the exchange changed bytes")
+    out["a2a"].update(exchange_ms=sorted(ms)[len(ms) // 2],
+                      exchange_bytes=buf.numel() * buf.element_size())
+    del buf, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    grid = ProcessMesh(dev, axes=dict(data=2, model=W // 2))
+    out["deepseek"] = _mesh_step("deepseek-v3-671b", grid, dev, conf["step"])
+    out["smollm_dp"] = _mesh_step("smollm-135m", grid, dev, conf["step"])
+    check(moe_mod.ambient_mesh() is None, "phase 18: a mesh left ambient")
+    return out
+
+
+def _mesh_held(got, want, what, exact_y):
+    """A rank's a2a against the in-process one's shard ``want``: routing
+    and statistics exact; output and aux bit for bit (``exact_y``) or
+    within 1e-3 of the largest magnitude.  Returns whether they were bit
+    for bit."""
+    import torch
+
+    for k in ("ids", "slot", "keep", "counts", "coact"):
+        check(torch.equal(got[k], want[k]), f"{what}: {k} differ from the "
+              "in-process mesh")
+    same = (torch.equal(got["y"], want["y"])
+            and torch.equal(got["aux"], want["aux"]))
+    if exact_y:
+        check(same, f"{what}: output or aux differ from the in-process mesh")
+    else:
+        scale = float(want["y"].float().abs().max())
+        err = float((got["y"].float() - want["y"].float()).abs().max())
+        check(err <= 1e-3 * scale, f"{what}: output off by {err} ({scale})")
+        aux_err = abs(float(got["aux"]) - float(want["aux"]))
+        check(aux_err <= 1e-3 * abs(float(want["aux"])),
+              f"{what}: aux off by {aux_err}")
+    return same
+
+
+def _mesh_step_held(got, want, what):
+    """A rank's step against a whole-tree step: loss 1e-5 relative, grad
+    norm 1e-4, parameters within 2.5 lr, router counts exact."""
+    gm, wm = got["metrics"], want["metrics"]
+    check(abs(float(gm["loss"]) - float(wm["loss"]))
+          <= 1e-5 * abs(float(wm["loss"])), f"{what}: loss "
+          f"{float(gm['loss'])} vs {float(wm['loss'])}")
+    check(abs(float(gm["grad_norm"]) - float(wm["grad_norm"]))
+          <= 1e-4 * abs(float(wm["grad_norm"])), f"{what}: grad norm")
+    if "router_counts" in wm:
+        check(bool((gm["router_counts"] == wm["router_counts"]).all()),
+              f"{what}: router counts")
+    lr = float(wm["lr"])
+    check(len(got["whole"]) == len(want["whole"]), f"{what}: leaves")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got["whole"], want["whole"]))
+    check(err <= 2.5 * lr, f"{what}: parameters off by {err} (lr {lr})")
+    return err
+
+
+def model_mesh_phase():
+    """Phase 18: the model side of the mesh on the card.  (a) one NCCL
+    rank, mesh (model 1): deepseek-v3's MoE layer at its published width
+    bit for bit the in-process a2a of the same axes, K3 launched; (b)
+    ``MESH_WORLD`` ranks on the card over gloo-host, mesh (model W), each
+    making only its EP block: routing, slots, keeps and statistics exact
+    against the in-process a2a of (model W), output and aux within 1e-3 of
+    the largest magnitude; (c) the same ranks as (data 2, model W/2): a
+    step of the reduced deepseek-v3 against the in-process step of those
+    axes and a "dp" step of the reduced smollm-135m against the
+    single-process step, every rank's whole leaves equal.  Returns the
+    ranks' launches by kernel (summed over ranks and runs)."""
+    import torch
+    from repro_torch.distributed.mesh import ShardMesh
+    from repro_torch.launch.mesh import run_ranks
+
+    one_t, many_t = (("nccl", "gloo-host") if DEV == "cuda"
+                     else ("gloo", "gloo"))
+    threads = MESH_THREADS if DEV == "cuda" else 1
+    dev = torch.device(DEV)
+    W = MESH_WORLD
+    conf = _mesh_conf()
+    cfg = _mesh_layer_cfg(conf)
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    # -- (a) one NCCL rank against the in-process mesh (model 1) ----------
+    ref1 = _mesh_a2a(cfg, ShardMesh(device=DEV, axes=dict(model=1)), DEV,
+                     conf["x"])
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (one,) = run_ranks(_rank_mesh_one, 1, args=(conf,), device=DEV,
+                       transport=one_t,
+                       timeout=MESH_TIMEOUT["one"], threads=threads)
+    spawn_one = time.perf_counter() - t0
+    _mesh_held(one, ref1, "phase 18 (a)", exact_y=True)
+    for name in MESH_KERNELS["a2a"]:
+        check(DEV != "cuda" or one["launches"][name] > 0,
+              f"phase 18 (a): no {name} launch")
+    # -- (b) W ranks, mesh (model W); (c) (data 2, model W/2) -------------
+    refW = _mesh_a2a(cfg, ShardMesh(device=DEV, axes=dict(model=W)), DEV,
+                     conf["x"])
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    grid = ShardMesh(device=DEV, axes=dict(data=2, model=W // 2))
+    want_ds = _mesh_step("deepseek-v3-671b", grid, DEV, conf["step"])
+    want_sm = _mesh_step("smollm-135m", None, DEV, conf["step"])
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    many = run_ranks(_rank_mesh_many, W, args=(conf,), device=DEV,
+                     transport=many_t,
+                     timeout=MESH_TIMEOUT["many"], threads=threads)
+    spawn_many = time.perf_counter() - t0
+    bits, errs = [], dict(deepseek=[], smollm_dp=[])
+    for r, o in enumerate(many):
+        check(o["rank"] == r and o["transport"] == many_t,
+              f"phase 18 (b): rank {r} ran {o['transport']}")
+        a = o["a2a"]
+        check(a["experts"] == cfg.moe.num_experts // W,
+              f"phase 18 (b): rank {r} made {a['experts']} experts")
+        want = dict(refW, ids=refW["ids"][r:r + 1],
+                    slot=refW["slot"][r:r + 1], keep=refW["keep"][r:r + 1])
+        bits.append(_mesh_held(a, want, f"phase 18 (b) rank {r}",
+                               exact_y=False))
+        errs["deepseek"].append(_mesh_step_held(
+            o["deepseek"], want_ds, f"phase 18 (c) rank {r} deepseek"))
+        errs["smollm_dp"].append(_mesh_step_held(
+            o["smollm_dp"], want_sm, f"phase 18 (c) rank {r} smollm dp"))
+        for run in ("deepseek", "smollm_dp"):
+            check(o[run]["replicated_sha"]
+                  == many[0][run]["replicated_sha"],
+                  f"phase 18 (c): rank {r}'s whole leaves differ from rank "
+                  f"0's ({run})")
+            for name in MESH_KERNELS["step"] if DEV == "cuda" else ():
+                check(o[run]["launches"][name] > 0 or (
+                    name == "scatter_dest" and run == "smollm_dp"),
+                    f"phase 18 (c): rank {r} launched no {name} ({run})")
+        for name in MESH_KERNELS["a2a"] if DEV == "cuda" else ():
+            check(a["launches"][name] > 0, f"phase 18 (b): rank {r} "
+                  f"launched no {name}")
+    launches = {}
+    for run in [one] + [o[x] for o in many
+                        for x in ("a2a", "deepseek", "smollm_dp")]:
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    MESH.update(
+        card=SMI, phase_seconds=time.perf_counter() - t_phase,
+        layer=dict(arch=cfg.name, experts=cfg.moe.num_experts,
+                   top_k=cfg.moe.top_k, d_model=cfg.d_model,
+                   d_expert=cfg.moe.d_expert, dtype="bfloat16",
+                   capacity_factor=cfg.moe.capacity_factor,
+                   tokens=conf["x"][0] * conf["x"][1]),
+        one=dict(transport=one["transport"], device=one["device"],
+                 spawn_seconds=spawn_one, layer_seconds=one["wall_seconds"],
+                 first_layer_seconds=one["first_seconds"],
+                 in_process_layer_seconds=ref1["wall_seconds"],
+                 peak_gib=one["peak_gib"], bit_for_bit=True,
+                 dropped_pairs=int((~one["keep"]).sum()),
+                 launches=one["launches"]),
+        many=dict(world_size=W, transport=many_t, spawn_seconds=spawn_many,
+                  in_process_layer_seconds=refW["wall_seconds"],
+                  layer_seconds=[o["a2a"]["wall_seconds"] for o in many],
+                  first_layer_seconds=[o["a2a"]["first_seconds"]
+                                       for o in many],
+                  exchange_ms=[o["a2a"]["exchange_ms"] for o in many],
+                  exchange_bytes=many[0]["a2a"]["exchange_bytes"],
+                  peak_gib=[o["a2a"]["peak_gib"] for o in many],
+                  expert_gb_a_rank=many[0]["a2a"]["expert_bytes"] / 1e9,
+                  bit_for_bit=bits,
+                  dropped_pairs=int((~refW["keep"]).sum())),
+        steps=dict(
+            deepseek_loss=float(want_ds["metrics"]["loss"]),
+            deepseek_param_err=errs["deepseek"],
+            smollm_dp_loss=float(want_sm["metrics"]["loss"]),
+            smollm_dp_param_err=errs["smollm_dp"],
+            step_seconds=dict(
+                deepseek=[o["deepseek"]["wall_seconds"] for o in many],
+                smollm_dp=[o["smollm_dp"]["wall_seconds"] for o in many])),
+        launches=launches)
+    print(f"phase 18 (a): one {one['transport']} rank, mesh (model 1): "
+          f"deepseek-v3's MoE layer bit for bit the in-process a2a, layer "
+          f"{one['wall_seconds']:.3f} s (first call "
+          f"{one['first_seconds']:.3f} s), peak {one['peak_gib']} GiB; spawn "
+          f"{spawn_one:.1f} s")
+    print(f"phase 18 (b): {W} {many_t} ranks, mesh (model {W}): routing "
+          f"exact, bit for bit {bits}; exchange ms "
+          f"{MESH['many']['exchange_ms']}, layer s "
+          f"{MESH['many']['layer_seconds']}; (c) steps equal the in-process "
+          f"ones; spawn {spawn_many:.1f} s; phase "
+          f"{MESH['phase_seconds']:.1f} s")
+    return launches
+
+
 # -------------------------------------------------------------- kernels --
 
 
@@ -4660,6 +5108,13 @@ def main() -> int:
         if n:
             r["launches"] += n
             r.setdefault("launches_by_path", {})["ranks"] = n
+    # phase 18's launches (the model mesh's ranks, summed over the ranks)
+    mesh_launches = model_mesh_phase()
+    for r in rows:
+        n = mesh_launches.get(r["name"], 0)
+        if n:
+            r["launches"] += n
+            r.setdefault("launches_by_path", {})["model mesh"] = n
     by_name = {r["name"]: r for r in rows}
     by_name["flash_attention"]["backward"].update(
         launches=by_name["flash_attention_bwd"]["launches"],
@@ -4671,6 +5126,7 @@ def main() -> int:
     print(json.dumps({"training": TRAINING}))
     print(json.dumps({"benches": BENCHES}, default=float))
     print(json.dumps({"ranks": RANKS}))
+    print(json.dumps({"model_mesh": MESH}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,24 +2,24 @@
 
 The JAX package builds ``jax.make_mesh`` device meshes: 16 × 16 (data,
 model) for one pod, 2 × 16 × 16 (pod, data, model) for two.  The port has
-two meshes (``distributed.mesh``):
+two meshes with those named axes (``distributed.mesh``):
 
   * a ``ShardMesh``: the shards of every axis as one leading tensor axis
-    on one device (each an EP rank of ``moe_a2a``) — :func:`make_host_mesh`
-    and :func:`make_production_mesh`;
+    on one device — :func:`make_host_mesh` and
+    :func:`make_production_mesh`;
   * a ``ProcessMesh``: one process a shard over ``torch.distributed`` —
     :func:`init_process_mesh` joins this process to its group (as
-    ``torchrun`` starts it, or with an explicit rank and file store), and
-    :func:`run_ranks` spawns the ranks of a group on this host and
-    collects what each returns.
+    ``torchrun`` starts it, or with an explicit rank and file store) over
+    the axes it is given, and :func:`run_ranks` spawns the ranks of a
+    group on this host and collects what each returns (a rank that wants
+    named axes builds ``ProcessMesh(mesh.device, axes=...)`` from the
+    group it was given).
 
-The JAX package's partition rules (``distributed/sharding.py``,
-``params.pspec_tree``) and its JAX-version shim (``distributed/compat.py``)
-have no counterpart.
+The JAX package's partition rules are ``distributed.sharding``; its
+JAX-version shim (``distributed/compat.py``) has no counterpart.
 """
 from __future__ import annotations
 
-import math
 import multiprocessing
 import os
 import pickle
@@ -40,17 +40,19 @@ from repro_torch.kernels import resolve_device
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> ShardMesh:
-    """256 shards (16 × 16), or 512 (2 × 16 × 16) for two pods."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    return ShardMesh(math.prod(shape), device)
+    """(data 16, model 16), or (pod 2, data 16, model 16) for two pods."""
+    axes = dict(data=16, model=16)
+    if multi_pod:
+        axes = dict(pod=2, **axes)
+    return ShardMesh(device=device, axes=axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
                    device="cuda") -> ShardMesh:
-    """A small mesh for tests and examples: ``data · model`` shards."""
+    """A small (data, model) mesh for tests and examples."""
     if data < 1 or model < 1:
         raise ValueError(f"mesh extents must be >= 1, got {data} x {model}")
-    return ShardMesh(data * model, device)
+    return ShardMesh(device=device, axes=dict(data=data, model=model))
 
 
 # --------------------------------------------------------- process mesh --
@@ -76,9 +78,12 @@ def _rank_device(device, transport: str, local_rank: int) -> torch.device:
 def init_process_mesh(device="cuda", transport: Optional[str] = None, *,
                       rank: Optional[int] = None,
                       world_size: Optional[int] = None,
-                      store: Optional[str] = None) -> ProcessMesh:
+                      store: Optional[str] = None,
+                      axes=None) -> ProcessMesh:
     """Join this process to its ``torch.distributed`` group and return the
-    group's ``ProcessMesh`` (this rank's shard on its device).
+    group's ``ProcessMesh`` (this rank's shard on its device) over
+    ``axes`` (``{name: size}``, their product the world size; default one
+    axis ``"model"``).
 
     ``rank`` / ``world_size`` default to ``RANK`` / ``WORLD_SIZE`` as
     ``torchrun`` sets them (``LOCAL_RANK`` picks the card).  ``store`` is
@@ -94,6 +99,7 @@ def init_process_mesh(device="cuda", transport: Optional[str] = None, *,
     world_size = int(os.environ["WORLD_SIZE"] if world_size is None
                      else world_size)
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    dmesh.named_axes(world_size, axes)          # raises before the group
     if transport is None:
         transport = "nccl" if torch.device(device).type == "cuda" else "gloo"
     if transport not in dmesh.TRANSPORTS:
@@ -109,7 +115,7 @@ def init_process_mesh(device="cuda", transport: Optional[str] = None, *,
     dist.init_process_group(
         backend, init_method=(f"file://{store}" if store else "env://"),
         rank=rank, world_size=world_size)
-    return ProcessMesh(dev)
+    return ProcessMesh(dev, axes=axes)
 
 
 def close_process_mesh() -> None:

@@ -23,18 +23,21 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import POS_SENTINEL
 from repro_torch.kernels.flash_attention.ref import mask as _mask  # noqa: F401
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_spec
+from repro_torch.models.layers import (MODEL, apply_rope, rms_norm,
+                                       rms_norm_spec)
 from repro_torch.models.params import ParamSpec
 
 
 def gqa_specs(cfg: ModelConfig) -> Dict:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    p = dict(wq=ParamSpec((D, H * hd)), wk=ParamSpec((D, KV * hd)),
-             wv=ParamSpec((D, KV * hd)), wo=ParamSpec((H * hd, D)))
+    p = dict(wq=ParamSpec((D, H * hd), ("data", MODEL)),
+             wk=ParamSpec((D, KV * hd), ("data", MODEL)),
+             wv=ParamSpec((D, KV * hd), ("data", MODEL)),
+             wo=ParamSpec((H * hd, D), (MODEL, "data")))
     if cfg.qkv_bias:
-        p.update(bq=ParamSpec((H * hd,), init="zeros"),
-                 bk=ParamSpec((KV * hd,), init="zeros"),
-                 bv=ParamSpec((KV * hd,), init="zeros"))
+        p.update(bq=ParamSpec((H * hd,), (MODEL,), init="zeros"),
+                 bk=ParamSpec((KV * hd,), (MODEL,), init="zeros"),
+                 bv=ParamSpec((KV * hd,), (MODEL,), init="zeros"))
     return p
 
 
@@ -43,14 +46,15 @@ def mla_specs(cfg: ModelConfig) -> Dict:
     D, H = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
     return dict(
-        wq_a=ParamSpec((D, m.q_lora_rank)),
+        wq_a=ParamSpec((D, m.q_lora_rank), ("data", None)),
         q_norm=rms_norm_spec(m.q_lora_rank),
-        wq_b=ParamSpec((m.q_lora_rank, H * qk)),
-        wkv_a=ParamSpec((D, m.kv_lora_rank + m.qk_rope_dim)),
+        wq_b=ParamSpec((m.q_lora_rank, H * qk), (None, MODEL)),
+        wkv_a=ParamSpec((D, m.kv_lora_rank + m.qk_rope_dim),
+                        ("data", None)),
         kv_norm=rms_norm_spec(m.kv_lora_rank),
-        wk_b=ParamSpec((m.kv_lora_rank, H * m.qk_nope_dim)),
-        wv_b=ParamSpec((m.kv_lora_rank, H * m.v_head_dim)),
-        wo=ParamSpec((H * m.v_head_dim, D)),
+        wk_b=ParamSpec((m.kv_lora_rank, H * m.qk_nope_dim), (None, MODEL)),
+        wv_b=ParamSpec((m.kv_lora_rank, H * m.v_head_dim), (None, MODEL)),
+        wo=ParamSpec((H * m.v_head_dim, D), (MODEL, "data")),
     )
 
 

@@ -2,8 +2,9 @@
 parameter specs (counterpart of ``repro.models.layers``).
 
 The JAX package's sharding helpers (``shard``, the profiles,
-``translate``) are no-ops without a device mesh and have no counterpart
-on one card.
+``translate``) constrain activations under GSPMD and have no counterpart;
+the specs carry the JAX partition axes (``distributed.sharding`` reads
+them).
 """
 from __future__ import annotations
 
@@ -11,6 +12,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
+
+BATCH = ("pod", "data")
+MODEL = "model"
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -23,7 +27,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
 
 
 def rms_norm_spec(d: int) -> ParamSpec:
-    return ParamSpec((d,), init="ones")
+    return ParamSpec((d,), (None,), init="ones")
 
 
 # ----------------------------------------------------------------- RoPE ----
@@ -55,9 +59,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp_specs(d_model: int, d_ff: int) -> dict:
-    return dict(wi=ParamSpec((d_model, d_ff)),
-                wg=ParamSpec((d_model, d_ff)),
-                wo=ParamSpec((d_ff, d_model)))
+    return dict(wi=ParamSpec((d_model, d_ff), ((None,), MODEL)),
+                wg=ParamSpec((d_model, d_ff), ((None,), MODEL)),
+                wo=ParamSpec((d_ff, d_model), (MODEL, (None,))))
 
 
 def mlp(params: dict, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -68,4 +72,4 @@ def mlp(params: dict, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def embed_specs(vocab: int, d_model: int) -> ParamSpec:
-    return ParamSpec((vocab, d_model), scale=0.02)
+    return ParamSpec((vocab, d_model), (MODEL, "data"), scale=0.02)

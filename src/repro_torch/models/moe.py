@@ -8,19 +8,25 @@ tokens against the (E, D, F) stack), so the stacked weights are read in
 place: folding them into one (D, E*F) matrix would copy them (22.5 GB at
 deepseek-v3's width).
 
-The expert-parallel ``a2a`` path (:func:`moe_a2a`) runs over a
-``distributed.mesh.ShardMesh`` of D EP shards held as the leading tensor
-axis on one device, the counterpart of the JAX package's ``shard_map``
-over its "model" axis: each shard routes its own tokens (a D-th of the
-sequence), buckets them per expert with a per-(expert, source) capacity
-(the in-bucket slot from K3's stable rank, ``kernels.migrate.ops.
-bucket_ranks``, on a card), dispatches into an (E, cap, D) buffer whose
-dropped slots go to a scratch row, exchanges by a transpose of the shard
-axis (the all-to-all), runs the experts batched and combines by the
-router's weights.  :func:`moe_ffn` takes it where a mesh is given (or
-ambient, :func:`use_mesh`) and ``impl`` is "a2a" or "auto"; otherwise
-``moe_dense``.  Its gradient is autograd of these tensor operations, as
-the JAX package's is autodiff of its einsums.
+The expert-parallel ``a2a`` path (:func:`moe_a2a`) is the counterpart of
+the JAX package's ``shard_map`` over its mesh: the tokens are split by
+(block of rows over the batch axes ``("pod", "data")``, block of the
+sequence over ``"model"``), one token shard a mesh shard, and the experts
+over the EP axes ``cfg.ep_axes`` present in the mesh.  Each shard routes
+its own tokens, buckets them per expert with a per-(expert, source)
+capacity (the in-bucket slot from K3's stable rank, ``kernels.migrate.
+ops.bucket_ranks``, on a card), dispatches into an (E, cap, D) buffer
+whose dropped slots go to a scratch row, exchanges it with the members of
+its EP group (``distributed.autodiff.all_to_all``), runs its experts
+batched, sends the results back and combines them by the router's
+weights.  The mesh is a ``distributed.mesh.ShardMesh`` (every shard in
+this process, the token shards a leading tensor axis) or a
+``ProcessMesh`` (this rank's shard: its rows of the batch, of which it
+takes its sequence block and gathers the layer's output back,
+``distributed.autodiff.enter``/``leave``).  :func:`moe_ffn` takes it
+where a mesh is given (or ambient, :func:`use_mesh`) and ``impl`` is
+"a2a" or "auto"; otherwise ``moe_dense``.  Its gradient is autograd of
+these operations, as the JAX package's is autodiff of its einsums.
 
 ``pair_stats`` gives the per-expert token counts and the co-activation
 matrix the expert-placement balancer reads; both are small integers held
@@ -29,15 +35,17 @@ in f32, exact.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import autodiff
 from repro_torch.distributed.mesh import ProcessMesh
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.migrate import ops as mops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import BATCH, MODEL
 from repro_torch.models.params import ParamSpec
 
 IMPLS = ("auto", "dense", "a2a")
@@ -72,13 +80,19 @@ def pair_stats(ids: torch.Tensor, num_experts: int) -> RouterStats:
 def moe_specs(cfg: ModelConfig) -> Dict:
     m = cfg.moe
     D, Fe, E = cfg.d_model, m.d_expert, m.num_experts
-    p = dict(router=ParamSpec((D, E), scale=0.006),
-             wi=ParamSpec((E, D, Fe)), wg=ParamSpec((E, D, Fe)),
-             wo=ParamSpec((E, Fe, D)))
+    ep = tuple(cfg.ep_axes)
+    # experts stacked on a leading E dim over the EP axes; FSDP over "data"
+    # where "data" is not an EP axis
+    fsdp = "data" if ep == ("model",) else None
+    p = dict(router=ParamSpec((D, E), ((None,), None), scale=0.006),
+             wi=ParamSpec((E, D, Fe), (ep, fsdp, None)),
+             wg=ParamSpec((E, D, Fe), (ep, fsdp, None)),
+             wo=ParamSpec((E, Fe, D), (ep, None, fsdp)))
     if m.num_shared:
         S = m.num_shared * Fe
-        p.update(shared_wi=ParamSpec((D, S)), shared_wg=ParamSpec((D, S)),
-                 shared_wo=ParamSpec((S, D)))
+        p.update(shared_wi=ParamSpec((D, S), ("data", MODEL)),
+                 shared_wg=ParamSpec((D, S), ("data", MODEL)),
+                 shared_wo=ParamSpec((S, D), (MODEL, "data")))
     return p
 
 
@@ -143,17 +157,27 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor,
 
 _AMBIENT: list = []
 
+#: where the EP block of a MoE config under the "dp" profile is queued
+DP_BOUNDARY_ITEM = ("the MoE boundary under the \"dp\" profile is not "
+                    "ported (ROADMAP queue 1, item 6b's next slice)")
+
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Make ``mesh`` (a ``ShardMesh``) the ambient EP mesh of
-    :func:`moe_ffn` inside the block, as ``jax.sharding.set_mesh`` makes a
-    mesh ambient for the JAX package's MoE layers."""
+    """Make ``mesh`` the ambient mesh of :func:`moe_ffn` (and of
+    ``transformer.loss_fn``) inside the block, as
+    ``jax.sharding.set_mesh`` makes a mesh ambient for the JAX package's
+    MoE layers."""
     _AMBIENT.append(mesh)
     try:
         yield mesh
     finally:
         _AMBIENT.pop()
+
+
+def ambient_mesh():
+    """The innermost :func:`use_mesh` mesh, or None."""
+    return _AMBIENT[-1] if _AMBIENT else None
 
 
 def dispatch_slots(flat_e: torch.Tensor, num_experts: int, cap: int):
@@ -172,30 +196,43 @@ def dispatch_slots(flat_e: torch.Tensor, num_experts: int, cap: int):
     return slot, slot < cap
 
 
+class Routing(NamedTuple):
+    """The a2a's routing on this process's token shards: ``ids`` (n,
+    T_loc, k) i32, and each (token, k) pair's ``slot`` and ``keep`` (n,
+    T_loc·k) in its (expert, source shard) bucket."""
+
+    ids: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+
+
 def _a2a_local(x_loc: torch.Tensor, router, wi, wg, wo, *,
-               cfg: ModelConfig, collect_stats: bool = False):
-    """The EP body over all D shards at once: ``x_loc`` (D, T_loc, D_model)
-    holds each shard's local tokens.  Returns ``(y (D, T_loc, D_model),
-    aux)`` (aux the mean of the shards' router losses), plus the routing
-    statistics summed over the shards with ``collect_stats``."""
+               cfg: ModelConfig, mesh, ep_axes: Tuple[str, ...]):
+    """The EP body over this process's token shards (every shard of a
+    ``ShardMesh``, one of a ``ProcessMesh``): ``x_loc`` (n, T_loc, D_model)
+    holds each shard's tokens, ``wi``/``wg``/``wo`` (n, E_loc, ...) each
+    shard's block of the experts over ``ep_axes``.  Returns ``(y (n,
+    T_loc, D_model), aux (n,) each shard's router loss, Routing)``."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     n_sh, T_loc, Dm = x_loc.shape
+    ep = mesh.size(ep_axes)
+    E_loc = E // ep
     dt = x_loc.dtype
     dev = x_loc.device
     # per-(expert, source) capacity
     cap = max(1, int(m.capacity_factor * k * T_loc) // E)
 
     logits = x_loc.to(torch.float32) @ router.to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)                  # (D, T_loc, E)
+    probs = torch.softmax(logits, dim=-1)                  # (n, T_loc, E)
     w, ids = _top_k(probs.reshape(-1, E), k)
     w, ids = w.reshape(n_sh, T_loc, k), ids.reshape(n_sh, T_loc, k)
     w = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)).to(dt)
-    me = probs.mean(dim=1)                                 # (D, E)
+    me = probs.mean(dim=1)                                 # (n, E)
     ce = F.one_hot(ids.long(), E).sum(dim=(1, 2)).to(torch.float32) / (
         T_loc * k)
     aux = E * torch.sum(me * ce, dim=-1) + 1e-3 * torch.mean(
-        torch.logsumexp(logits, dim=-1) ** 2, dim=-1)      # (D,)
+        torch.logsumexp(logits, dim=-1) ** 2, dim=-1)      # (n,)
 
     flat_e = ids.reshape(n_sh, T_loc * k)
     slot, keep = dispatch_slots(flat_e, E, cap)
@@ -208,50 +245,135 @@ def _a2a_local(x_loc: torch.Tensor, router, wi, wg, wo, *,
     disp = torch.zeros((n_sh, E * cap + 1, Dm), dtype=dt, device=dev)
     disp = disp.scatter(1, buf_idx[..., None].expand(-1, -1, Dm),
                         x_rep)[:, :E * cap]
-    # the all-to-all: expert e's rows from every source shard, (E, D·cap, Dm)
-    recv = disp.reshape(n_sh, E, cap, Dm).transpose(0, 1).reshape(
-        E, n_sh * cap, Dm)
+    # the exchange: block j (experts of EP member j) to member j; this
+    # shard's experts' rows from every member, (E_loc, ep·cap, Dm)
+    recv = autodiff.all_to_all(mesh, disp.reshape(n_sh, ep, E_loc, cap, Dm),
+                               ep_axes)
+    recv = recv.permute(0, 2, 1, 3, 4).reshape(n_sh, E_loc, ep * cap, Dm)
     h = F.silu(torch.matmul(recv, wg.to(dt))) * torch.matmul(recv,
                                                               wi.to(dt))
-    out = torch.matmul(h, wo.to(dt))                       # (E, D·cap, Dm)
+    out = torch.matmul(h, wo.to(dt))                 # (n, E_loc, ep·cap, Dm)
     # the return trip, then each kept pair's result weighted and summed
-    back = out.reshape(E, n_sh, cap, Dm).transpose(0, 1).reshape(
-        n_sh, E * cap, Dm)
+    back = autodiff.all_to_all(mesh, out.reshape(
+        n_sh, E_loc, ep, cap, Dm).permute(0, 2, 1, 3, 4), ep_axes)
+    back = back.reshape(n_sh, E * cap, Dm)
     gathered = back.gather(1, torch.where(keep, row, 0)[..., None].expand(
         -1, -1, Dm))
     gathered = torch.where(keep[..., None], gathered,
                            torch.zeros((), dtype=dt, device=dev))
     y = torch.sum(gathered.reshape(n_sh, T_loc, k, Dm) * w[..., None],
                   dim=2)
-    aux = aux.mean()
-    if collect_stats:
-        return y, aux, pair_stats(ids.reshape(-1, k), E)
-    return y, aux
+    return y, aux, Routing(ids, slot, keep)
+
+
+def ep_plan(cfg: ModelConfig, mesh, seq_len: int):
+    """``(ep_axes, ep)`` of the a2a over ``mesh`` — the EP axes
+    ``cfg.ep_axes`` the mesh has and their size — or None where the JAX
+    package takes ``moe_dense``: no ``"model"`` axis, no EP axis, or E or
+    the sequence not dividing over them."""
+    if MODEL not in mesh.axes:
+        return None
+    ep_axes = mesh.group_axes(cfg.ep_axes)
+    ep = mesh.size(ep_axes)
+    if (not ep_axes or cfg.moe.num_experts % ep
+            or seq_len % mesh.axes[MODEL]):
+        return None
+    return ep_axes, ep
+
+
+def _expert_blocks(params, cfg: ModelConfig, mesh, ep_axes, ep):
+    """Each local shard's block of the expert stacks, (n, E_loc, ...).
+    On a ``ProcessMesh`` a stack is this rank's block (E_loc experts) or
+    the whole stack, of which the block is cut; on a ``ShardMesh`` the
+    whole stack, cut into every shard's block (a view where the EP group
+    is the whole mesh)."""
+    E = cfg.moe.num_experts
+    E_loc = E // ep
+    out = []
+    for name in ("wi", "wg", "wo"):
+        w = params[name]
+        if w.shape[0] not in (E, E_loc):
+            raise ValueError(f"expert stack {name} has {w.shape[0]} "
+                             f"experts: neither {E} nor the {E_loc} of an "
+                             f"EP block over {ep_axes}")
+        blocks = w.reshape(-1, E_loc, *w.shape[1:])
+        if isinstance(mesh, ProcessMesh):
+            i = mesh.group_rank(ep_axes, mesh.rank) if w.shape[0] == E else 0
+            out.append(blocks[i:i + 1])
+        elif ep == mesh.num_shards:
+            out.append(blocks)
+        else:
+            idx = [mesh.group_rank(ep_axes, s)
+                   for s in range(mesh.num_shards)]
+            out.append(blocks[torch.tensor(idx, device=w.device)])
+    return out
+
+
+def a2a_with_routing(params, cfg: ModelConfig, x: torch.Tensor, *, mesh):
+    """:func:`moe_a2a` with the routing: ``(y, aux, RouterStats, Routing)``,
+    or None where the JAX package takes ``moe_dense`` (:func:`ep_plan`).
+
+    On a ``ShardMesh`` ``x`` (B, S, D) is the whole batch; on a
+    ``ProcessMesh`` this rank's rows of it (its block over the batch
+    axes, replicated over ``"model"``).  ``aux`` is the mean of the token
+    shards' router losses in shard order (the JAX package's ``pmean``);
+    the statistics are summed over the token shards."""
+    if cfg.sharding_profile == "dp":
+        raise NotImplementedError(DP_BOUNDARY_ITEM)
+    plan = ep_plan(cfg, mesh, x.shape[1])
+    if plan is None:
+        return None
+    ep_axes, ep = plan
+    B, S, Dm = x.shape
+    M = mesh.axes[MODEL]
+    k = cfg.moe.top_k
+    wi, wg, wo = _expert_blocks(params, cfg, mesh, ep_axes, ep)
+    if isinstance(mesh, ProcessMesh):
+        # this rank's sequence block of its rows, then the sequence
+        # gathered back: the boundary of the sequence-split region
+        x_loc = autodiff.enter(mesh, x, MODEL, dim=1).reshape(1, -1, Dm)
+        y, aux, routing = _a2a_local(x_loc, params["router"], wi, wg, wo,
+                                     cfg=cfg, mesh=mesh, ep_axes=ep_axes)
+        y = autodiff.leave(mesh, y.reshape(B, S // M, Dm), MODEL, dim=1)
+        aux = autodiff.leave(mesh, aux).mean()
+        st = pair_stats(routing.ids.reshape(-1, k), cfg.moe.num_experts)
+        st = RouterStats(*(mesh.psum(t.unsqueeze(0)) for t in st))
+    else:
+        nb = mesh.size(BATCH)
+        if B % nb:
+            raise ValueError(f"batch {B} does not divide over the "
+                             f"{nb} shards of {BATCH}")
+        x_loc = x.reshape(nb, B // nb, M, S // M, Dm).permute(
+            0, 2, 1, 3, 4).reshape(mesh.num_shards, -1, Dm)
+        y, aux, routing = _a2a_local(x_loc, params["router"], wi, wg, wo,
+                                     cfg=cfg, mesh=mesh, ep_axes=ep_axes)
+        y = y.reshape(nb, M, B // nb, S // M, Dm).permute(
+            0, 2, 1, 3, 4).reshape(B, S, Dm)
+        aux = aux.mean()
+        st = pair_stats(routing.ids.reshape(-1, k), cfg.moe.num_experts)
+    if cfg.moe.num_shared:
+        y = y + _shared(params, x, x.dtype)
+    return y, aux, st, routing
 
 
 def moe_a2a(params, cfg: ModelConfig, x: torch.Tensor,
             collect_stats: bool = False, *, mesh):
-    """Expert-parallel MoE over the D shards of ``mesh``: shard d holds the
-    d-th block of the sequence of every row (the JAX package's
-    sequence-over-"model" boundary layout); ``moe_dense`` where E or S does
-    not divide over D.  The in-process ``ShardMesh`` only: over the ranks
-    of a ``ProcessMesh`` it raises."""
-    if isinstance(mesh, ProcessMesh):
-        raise NotImplementedError(
-            "moe_a2a over the ranks of a ProcessMesh is not ported; use a "
-            "ShardMesh")
-    D = mesh.num_shards
-    B, S, Dm = x.shape
-    if cfg.moe.num_experts % D or S % D:
+    """Expert-parallel MoE over ``mesh`` (see :func:`a2a_with_routing`):
+    ``(y, aux)`` or ``(y, aux, RouterStats)``; ``moe_dense`` where the
+    JAX package takes it (:func:`ep_plan`; on a ``ShardMesh`` only).  A
+    MoE config under the ``"dp"`` profile raises
+    ``NotImplementedError``."""
+    out = a2a_with_routing(params, cfg, x, mesh=mesh)
+    if out is None:
+        if isinstance(mesh, ProcessMesh):
+            raise ValueError(
+                f"moe_dense over a ProcessMesh is not ported: E "
+                f"{cfg.moe.num_experts} must divide over the EP axes "
+                f"{cfg.ep_axes} and the sequence {x.shape[1]} over "
+                f"{MODEL!r} of {mesh.axes}")
         return moe_dense(params, cfg, x, collect_stats)
-    x_loc = x.reshape(B, D, S // D, Dm).transpose(0, 1).reshape(
-        D, B * (S // D), Dm)
-    out = _a2a_local(x_loc, params["router"], params["wi"], params["wg"],
-                     params["wo"], cfg=cfg, collect_stats=collect_stats)
-    y = out[0].reshape(D, B, S // D, Dm).transpose(0, 1).reshape(B, S, Dm)
-    if cfg.moe.num_shared:
-        y = y + _shared(params, x, x.dtype)
-    return (y,) + tuple(out[1:])
+    y, aux, st, _ = out
+    return (y, aux, st) if collect_stats else (y, aux)
 
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
@@ -262,8 +384,8 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
     impl = impl or cfg.moe.impl
     if impl not in IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}; one of {IMPLS}")
-    if mesh is None and _AMBIENT:
-        mesh = _AMBIENT[-1]
+    if mesh is None:
+        mesh = ambient_mesh()
     if mesh is not None and impl != "dense":
         return moe_a2a(params, cfg, x, collect_stats, mesh=mesh)
     return moe_dense(params, cfg, x, collect_stats)

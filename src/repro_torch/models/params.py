@@ -1,10 +1,12 @@
 """Parameter declaration (counterpart of ``repro.models.params``).
 
 Architectures declare parameters as ``ParamSpec`` trees (nested dicts and
-lists of shape + initializer).  :func:`init_params` materializes one on a
-device, :func:`shape_dtype_tree` gives its shapes and types without
-weights and :func:`count_params` counts it without allocating.  The JAX
-package's sharding trees have no counterpart on one card.
+lists of shape + partition axes + initializer).  :func:`init_params`
+materializes one on a device, :func:`shape_dtype_tree` gives its shapes
+and types without weights and :func:`count_params` counts it without
+allocating.  ``ParamSpec.spec`` is the JAX leaf's ``PartitionSpec`` axes
+(a layer of a scanned group without the group's leading replicated
+axis); ``distributed.sharding`` turns it into a placement on a mesh.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    spec: Tuple[Any, ...]       # PartitionSpec axes, one entry a dim
     init: str = "normal"        # normal | zeros | ones
     scale: float = 0.02
     dtype: str = "float32"
@@ -62,6 +65,26 @@ def init_params(tree, seed: int = 0, device="cuda"):
         raise ValueError(spec.init)
 
     return tree_map(make, tree)
+
+
+def init_rows(spec: ParamSpec, seed: int, rows: range,
+              device="cuda") -> torch.Tensor:
+    """Rows ``rows`` (along dim 0) of a ``normal`` leaf drawn one row at a
+    time, row r from its own generator seeded with ``seed + r`` (on
+    ``device``): a shard that holds rows [a, b) of the leaf (an expert
+    parallel block of an expert stack) draws only those, with the bits
+    they have in the whole leaf drawn this way (``range(shape[0])``)."""
+    if spec.init != "normal":
+        raise ValueError(f"init_rows draws normal leaves, not {spec.init}")
+    dev = resolve_device(device)
+    out = torch.empty((len(rows),) + tuple(spec.shape[1:]),
+                      dtype=getattr(torch, spec.dtype), device=dev)
+    for i, r in enumerate(rows):
+        gen = torch.Generator(device=dev).manual_seed(int(seed) + int(r))
+        w = torch.randn(spec.shape[1:], generator=gen, dtype=torch.float32,
+                        device=dev)
+        out[i] = w * spec.scale
+    return out
 
 
 def shape_dtype_tree(tree, device="meta"):

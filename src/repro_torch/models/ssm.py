@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MODEL
 from repro_torch.models.params import ParamSpec
 
 f32 = torch.float32
@@ -42,13 +43,15 @@ def mamba_specs(cfg: ModelConfig) -> Dict:
     D, H, hd, N = cfg.d_model, cfg.num_heads, cfg.hd, cfg.ssm_state
     inner = H * hd
     return dict(
-        wx=ParamSpec((D, inner)), wz=ParamSpec((D, inner)),
-        wB=ParamSpec((D, H * N)), wC=ParamSpec((D, H * N)),
-        wdt=ParamSpec((D, H)),
-        dt_bias=ParamSpec((H,), init="zeros"),
-        A_log=ParamSpec((H, N), init="zeros"),
-        Ddiag=ParamSpec((H,), init="ones"),
-        wo=ParamSpec((inner, D)),
+        wx=ParamSpec((D, inner), ("data", MODEL)),
+        wz=ParamSpec((D, inner), ("data", MODEL)),
+        wB=ParamSpec((D, H * N), ("data", MODEL)),
+        wC=ParamSpec((D, H * N), ("data", MODEL)),
+        wdt=ParamSpec((D, H), ("data", MODEL)),
+        dt_bias=ParamSpec((H,), (MODEL,), init="zeros"),
+        A_log=ParamSpec((H, N), (MODEL, None), init="zeros"),
+        Ddiag=ParamSpec((H,), (MODEL,), init="ones"),
+        wo=ParamSpec((inner, D), (MODEL, "data")),
     )
 
 
@@ -134,13 +137,16 @@ def mlstm_specs(cfg: ModelConfig) -> Dict:
     D, H, hd = cfg.d_model, cfg.num_heads, cfg.hd
     inner = H * hd
     return dict(
-        wq=ParamSpec((D, inner)), wk=ParamSpec((D, inner)),
-        wv=ParamSpec((D, inner)),
-        wi=ParamSpec((D, H)), wf=ParamSpec((D, H)),
-        bi=ParamSpec((H,), init="zeros"), bf=ParamSpec((H,), init="ones"),
-        ogate=ParamSpec((D, inner)),
-        norm=ParamSpec((hd,), init="ones"),
-        wo=ParamSpec((inner, D)),
+        wq=ParamSpec((D, inner), ("data", MODEL)),
+        wk=ParamSpec((D, inner), ("data", MODEL)),
+        wv=ParamSpec((D, inner), ("data", MODEL)),
+        wi=ParamSpec((D, H), ("data", MODEL)),
+        wf=ParamSpec((D, H), ("data", MODEL)),
+        bi=ParamSpec((H,), (MODEL,), init="zeros"),
+        bf=ParamSpec((H,), (MODEL,), init="ones"),
+        ogate=ParamSpec((D, inner), ("data", MODEL)),
+        norm=ParamSpec((hd,), (None,), init="ones"),
+        wo=ParamSpec((inner, D), (MODEL, "data")),
     )
 
 
@@ -264,11 +270,12 @@ def slstm_specs(cfg: ModelConfig) -> Dict:
     inner = H * hd
     p = {}
     for g in GATES:
-        p[f"w{g}"] = ParamSpec((D, inner))
-        p[f"r{g}"] = ParamSpec((H, hd, hd), scale=0.01)
-        p[f"b{g}"] = ParamSpec((inner,), init="ones" if g == "f" else "zeros")
-    p["norm"] = ParamSpec((hd,), init="ones")
-    p["wo"] = ParamSpec((inner, D))
+        p[f"w{g}"] = ParamSpec((D, inner), ("data", MODEL))
+        p[f"r{g}"] = ParamSpec((H, hd, hd), (MODEL, None, None), scale=0.01)
+        p[f"b{g}"] = ParamSpec((inner,), (MODEL,),
+                               init="ones" if g == "f" else "zeros")
+    p["norm"] = ParamSpec((hd,), (None,), init="ones")
+    p["wo"] = ParamSpec((inner, D), (MODEL, "data"))
     return p
 
 

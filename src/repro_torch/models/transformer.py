@@ -33,19 +33,22 @@ counterpart in eager PyTorch; it takes the "full" path.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import autodiff, sharding
+from repro_torch.distributed.mesh import ProcessMesh
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed_specs, mlp, mlp_specs, rms_norm,
-                                       rms_norm_spec)
+from repro_torch.models.layers import (MODEL, embed_specs, mlp, mlp_specs,
+                                       rms_norm, rms_norm_spec)
 from repro_torch.models.params import ParamSpec, tree_map
 
 REMATS = ("none", "full", "dots")
@@ -75,7 +78,7 @@ def _block_specs(cfg: ModelConfig, kind: str) -> Dict:
     elif kind in HYMBA_KINDS:
         p["attn"] = attn.gqa_specs(cfg)
         p["mamba"] = ssm.mamba_specs(cfg)
-        p["beta"] = ParamSpec((2,), init="ones")
+        p["beta"] = ParamSpec((2,), (None,), init="ones")
         p["norm2"] = rms_norm_spec(D)
         p["mlp"] = mlp_specs(D, cfg.d_ff)
     elif kind == "mlstm":
@@ -98,14 +101,16 @@ def model_specs(cfg: ModelConfig) -> Dict:
                    final_norm=rms_norm_spec(cfg.d_model),
                    layers=[_block_specs(cfg, k) for k in cfg.all_layers()])
     if not cfg.tie_embeddings:
-        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                 ("data", MODEL))
     if cfg.mtp:
         p["mtp"] = dict(block=_block_specs(cfg, "attn"),
-                        proj=ParamSpec((2 * cfg.d_model, cfg.d_model)),
+                        proj=ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                       ("data", None)),
                         norm=rms_norm_spec(cfg.d_model))
     if cfg.param_dtype != "float32":
-        p = tree_map(lambda s: ParamSpec(s.shape, s.init, s.scale,
-                                         cfg.param_dtype), p)
+        p = tree_map(lambda s: dataclasses.replace(s, dtype=cfg.param_dtype),
+                     p)
     return p
 
 
@@ -347,7 +352,14 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
     ``0.3 · mtp`` for an MTP config.  Returns ``(loss, metrics)`` with
     ``ce``, ``aux``, ``tokens`` and ``mtp``, and with
     ``collect_router_stats`` the detached ``router_counts`` (E,) and
-    ``router_coact`` (E, E)."""
+    ``router_coact`` (E, E).
+
+    Under an ambient ``ProcessMesh`` (``moe.use_mesh``) ``batch`` is this
+    rank's block and the loss the whole batch's: the CE, z and MTP sums
+    are added over the batch axes of ``cfg.sharding_profile`` and divided
+    by the global count of valid labels (a gathered integer), as the JAX
+    package's ``jit`` over a mesh computes them; every rank returns the
+    same loss and metrics."""
     h, _, aux = forward(params, cfg, batch, with_aux=True, remat=remat,
                         collect_router_stats=collect_router_stats)
     rstats = None
@@ -376,7 +388,8 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
             nll, zl = _chunk_ce(hx, lx, w)
         tot = tot + nll
         ztot = ztot + zl
-    cnt = (labels >= 0).sum().to(torch.int32)
+    cnt = _batch_sum(cfg, (labels >= 0).sum().to(torch.int32))
+    tot, ztot = _batch_sum(cfg, tot), _batch_sum(cfg, ztot)
     denom = torch.clamp(cnt, min=1).to(f32)
     ce = tot / denom
     loss = ce + z_weight * ztot / denom
@@ -410,7 +423,19 @@ def _mtp_loss(params: Dict, cfg: ModelConfig, batch: Dict,
                        batch["positions"], None)
     logits = logits_head(params, cfg, x).to(torch.float32)
     nll, _, valid = _ce_terms(logits, lbl2, dt)
-    return nll.sum() / torch.clamp(valid.sum(), min=1).to(torch.float32)
+    return _batch_sum(cfg, nll.sum()) / torch.clamp(
+        _batch_sum(cfg, valid.sum()), min=1).to(torch.float32)
+
+
+def _batch_sum(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """A scalar summed over the batch axes of the ambient ``ProcessMesh``
+    (gathered and added in rank order, the same bits on every rank; its
+    gradient reaches this rank's term once), else ``t``."""
+    mesh = moe_mod.ambient_mesh()
+    if not isinstance(mesh, ProcessMesh):
+        return t
+    axes = sharding.batch_axes(mesh, cfg.sharding_profile)
+    return autodiff.leave(mesh, t.reshape(1), axes).sum(0).to(t.dtype)
 
 
 # ------------------------------------------------------------ decode step --

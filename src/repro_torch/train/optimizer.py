@@ -6,8 +6,10 @@ not ``torch.optim``, so the arithmetic and its order are the JAX
 package's: the global norm over the leaves in tree order, then each
 leaf's clipped AdamW update, all in f32 whatever the parameters' type.
 With ``master_fp32`` the optimizer carries an f32 master copy of
-low-precision (bf16) parameters.  The JAX package's moments mirror the
-parameters' sharding; on one card there is none.
+low-precision (bf16) parameters.  The moments mirror the parameters'
+placement: over a ``ProcessMesh`` each rank updates its blocks, and the
+global norm adds each leaf's squares over the shards it is split over
+(:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.mesh import ProcessMesh
 from repro_torch.kernels import resolve_device
 from repro_torch.models.params import tree_leaves, tree_map
 
@@ -70,23 +74,50 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over the leaves (tree order) of their f32 squares."""
+def global_norm(tree, mesh=None, placements=None) -> torch.Tensor:
+    """sqrt of the sum over the leaves (tree order) of their f32 squares.
+
+    Over a ``ProcessMesh`` the leaves are this rank's blocks, placed by
+    ``placements`` (``distributed.sharding``): each rank's per-leaf sums
+    are gathered, a leaf split over some axes adds the sums of the shards
+    that hold its blocks (those at coordinate 0 on every other axis) and
+    a whole leaf counts once, in a fixed order, so every rank gets the
+    same bits."""
+    if not isinstance(mesh, ProcessMesh):
+        total = None
+        for leaf in tree_leaves(tree):
+            sq = torch.sum(torch.square(leaf.to(torch.float32)))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    pairs = []
+    sharding.tree_map(lambda g, p: pairs.append((g, p)), tree, placements)
+    places = [p for _, p in pairs]
+    sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
+                      for g, _ in pairs])
+    every = mesh.all_gather(sq.reshape(1, 1, -1))          # (D, leaves)
+    owner = torch.tensor(
+        [[all(c == 0 for a, c in mesh.coords(s).items()
+              if a not in p.axes()) for p in places]
+         for s in range(mesh.num_shards)],
+        dtype=torch.float32, device=every.device)
+    per_leaf = (every * owner).sum(0)
     total = None
-    for leaf in tree_leaves(tree):
-        sq = torch.sum(torch.square(leaf.to(torch.float32)))
-        total = sq if total is None else total + sq
+    for s in per_leaf:
+        total = s if total is None else total + s
     return torch.sqrt(total)
 
 
 def apply(cfg: OptConfig, params, grads, state: OptState, *,
-          decay_mask=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+          decay_mask=None, mesh=None,
+          placements=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  ``decay_mask`` is a tree of bools like ``params``
     (None: decay every tensor with ndim >= 2, the usual no-decay rule for
-    norms and biases).  Returns ``(params, state, {grad_norm, lr})``; the
-    inputs are not modified."""
+    norms and biases).  Over a ``ProcessMesh`` the trees are this rank's
+    blocks under ``placements`` and the clip takes the global norm.
+    Returns ``(params, state, {grad_norm, lr})``; the inputs are not
+    modified."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, placements)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = schedule(cfg, step)

@@ -796,3 +796,31 @@ def test_chip_smoke_ranks_phase_rehearses_on_cpu(monkeypatch):
     assert r["one"]["transport"] == "gloo" and r["one"]["fired"] == [10, 20]
     assert r["many"]["world_size"] == 1 and r["many"]["pic_exchanges"] > 0
     assert not any(launches.values())                # plain versions
+
+
+def test_chip_smoke_model_mesh_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 18 runs end to end on the CPU's plain versions
+    with the reduced deepseek-v3's MoE layer, its ranks over gloo: (a) one
+    rank, mesh (model 1), bit for bit the in-process a2a; (b) 4 ranks,
+    mesh (model 4), each with its EP block, routing exact; (c) the steps
+    over (data 2, model 2) against the in-process and one-device steps."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "MESH_FULL", False)
+    monkeypatch.setattr(chip_smoke, "MESH_X", (2, 16))
+    monkeypatch.setattr(chip_smoke, "MESH", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.model_mesh_phase()
+    finally:
+        torch.set_num_threads(threads)
+    m = chip_smoke.MESH
+    assert m["one"]["transport"] == "gloo" and m["one"]["bit_for_bit"]
+    assert m["many"]["world_size"] == 4 and len(m["many"]["exchange_ms"]) == 4
+    assert m["many"]["dropped_pairs"] > 0          # capacity 1.25 drops
+    assert len(m["steps"]["deepseek_param_err"]) == 4
+    assert not any(launches.values())                # plain versions

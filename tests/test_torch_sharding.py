@@ -1,0 +1,238 @@
+"""The port's partition rules (``distributed.sharding``) against the JAX
+package's (``repro.distributed.sharding``) on the CPU.
+
+For every architecture's published and reduced configuration, on the
+meshes ``(data 2, model 4)``, ``(data 16, model 16)`` and ``(pod 2, data
+16, model 16)``, under the ``"2d"`` and ``"dp"`` profiles: every
+parameter's placement equals the JAX rules' ``PartitionSpec`` leaf by
+leaf, and so do the batch's, the caches' and the optimizer state's.  The
+JAX rules are called as they are, with a stand-in mesh carrying
+``axis_names`` and ``devices.shape`` (their ``_filter`` reads no more)
+and ``NamedSharding`` replaced by its ``PartitionSpec`` for the test: the
+test process has one device.  The JAX package's stacked ``unit`` leaves
+carry a leading replicated group axis; the port's per-layer leaf is the
+JAX leaf without it, mapped onto the port's layers as ``repro_torch.
+interop`` maps weights.
+"""
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as j_get_arch
+from repro.distributed import sharding as j_sharding
+from repro.models import transformer as jt
+from repro_torch.configs import get_arch, list_archs
+from repro_torch.distributed import sharding
+from repro_torch.distributed.mesh import ShardMesh
+from repro_torch.models import transformer
+from repro_torch.models.params import ParamSpec
+
+MESHES = {"2x4": dict(data=2, model=4), "16x16": dict(data=16, model=16),
+          "2x16x16": dict(pod=2, data=16, model=16)}
+PROFILES = ("2d", "dp")
+ARCHS = list_archs()
+
+
+@pytest.fixture
+def jrules(monkeypatch):
+    """The JAX rules with ``NamedSharding(mesh, spec)`` giving ``spec``."""
+    monkeypatch.setattr(j_sharding, "NamedSharding", lambda mesh, spec: spec)
+    return j_sharding
+
+
+def _jmesh(axes):
+    return types.SimpleNamespace(axis_names=tuple(axes),
+                                 devices=np.empty(tuple(axes.values())))
+
+
+def _cfgs(arch, size):
+    j, t = j_get_arch(arch), get_arch(arch)
+    return (j.config, t.config) if size == "published" else (j.reduced,
+                                                             t.reduced)
+
+
+def _port_layout(tree, cfg, unstack):
+    """A JAX-layout tree on the port's layout: its layers prefix, the unit
+    repeated over the groups (each leaf ``unstack``ed), suffix."""
+    def walk(t, fn):
+        if isinstance(t, dict):
+            return {k: walk(v, fn) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, fn) for v in t]
+        return fn(t)
+
+    layers = list(tree["prefix"])
+    for _ in range(cfg.num_groups):
+        layers += [walk(u, unstack) for u in tree["unit"]]
+    out = {k: v for k, v in tree.items()
+           if k not in ("unit", "prefix", "suffix")}
+    out["layers"] = layers + list(tree["suffix"])
+    return out
+
+
+def _pairs(port, want, path=""):
+    """(path, port leaf, JAX leaf) of two trees of one structure."""
+    if isinstance(want, dict):
+        assert set(port) == set(want), (path, set(port) ^ set(want))
+        for k in want:
+            yield from _pairs(port[k], want[k], f"{path}/{k}")
+    elif isinstance(want, list):
+        assert len(port) == len(want), path
+        for i, (a, b) in enumerate(zip(port, want)):
+            yield from _pairs(a, b, f"{path}/{i}")
+    else:
+        yield path, port, want
+
+
+def _unstack_p(p):
+    assert tuple(p)[0] is None
+    return jax.sharding.PartitionSpec(*tuple(p)[1:])
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("size", ["published", "reduced"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_placements_equal_the_jax_rules(jrules, arch, size, mesh,
+                                              profile):
+    jcfg, tcfg = _cfgs(arch, size)
+    jspecs = jt.model_specs(jcfg)
+    tspecs = transformer.model_specs(tcfg)
+    want = _port_layout(jrules.param_shardings(jspecs, _jmesh(MESHES[mesh]),
+                                               profile), jcfg, _unstack_p)
+    got = sharding.param_placements(tspecs, MESHES[mesh], profile)
+    n = 0
+    for path, a, b in _pairs(got, want):
+        assert isinstance(a, sharding.Placement), path
+        assert a == tuple(b), (path, a, b)
+        n += 1
+    assert n == len(list(_pairs(tspecs, _port_layout(
+        jspecs, jcfg, lambda s: s))))
+
+
+@pytest.mark.parametrize("size", ["published", "reduced"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_specs_carry_the_jax_partition_axes(arch, size):
+    jcfg, tcfg = _cfgs(arch, size)
+    want = _port_layout(jt.model_specs(jcfg), jcfg, lambda s: dataclasses.
+                        replace(s, shape=s.shape[1:], spec=s.spec[1:]))
+    for path, a, b in _pairs(transformer.model_specs(tcfg), want):
+        assert isinstance(a, ParamSpec), path
+        assert a.spec == tuple(b.spec), (path, a.spec, b.spec)
+        assert a.shape == tuple(b.shape), path
+        assert (a.init, a.scale) == (b.init, b.scale), path
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_batch_data_and_opt_placements_equal_the_jax_rules(jrules, mesh,
+                                                           profile):
+    axes = MESHES[mesh]
+    jm = _jmesh(axes)
+    assert sharding.batch_axes(axes) == jrules.batch_axes(jm)
+    for B in (512, 256, 32, 2, 1):
+        shapes = dict(tokens=(B, 64), labels=(B, 64), positions=(B, 64),
+                      embeds=(B, 8, 16), scalar=())
+        want = jrules.data_shardings(
+            {k: jax.ShapeDtypeStruct(v, jnp.int32) for k, v in
+             shapes.items()}, jm, profile)
+        got = sharding.data_placements(shapes, axes, profile)
+        for k in shapes:
+            assert got[k] == tuple(want[k]), (B, k, got[k], want[k])
+    jcfg, tcfg = _cfgs("smollm-135m", "published")
+    jp = jrules.param_shardings(jt.model_specs(jcfg), jm, profile)
+    tp = sharding.param_placements(transformer.model_specs(tcfg), axes,
+                                   profile)
+    for master in (False, True):
+        want = jrules.opt_shardings(jp, jm, master=master)
+        got = sharding.opt_placements(tp, master=master)
+        assert got.step == tuple(want.step) == ()
+        assert got.mu is tp and got.nu is tp
+        assert (got.master is None) == (want.master is None)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_placements_equal_the_jax_rules(jrules, arch, mesh, profile):
+    jcfg, tcfg = _cfgs(arch, "published")
+    B, T = 32, 64
+    jcache = jax.eval_shape(lambda: jt.init_cache(jcfg, B, T, jnp.bfloat16))
+    want = jrules.cache_shardings(jcache, _jmesh(MESHES[mesh]), profile)
+    want = _port_layout(want, jcfg, _unstack_p)["layers"]
+    got = sharding.cache_placements(
+        transformer.init_cache(tcfg, B, T, torch.bfloat16, device="meta"),
+        MESHES[mesh], profile)
+    pairs = list(_pairs(got, want))
+    assert pairs
+    for path, a, b in pairs:
+        assert a == tuple(b), (path, a, b)
+
+
+@pytest.mark.parametrize("placement", [
+    (("data", "model"), None), ("model", "data"), (None, ("pod", "data")),
+    ("model", None), (None, None)])
+def test_local_blocks_make_up_the_tensor(placement):
+    """Every shard's block, put back at its place, makes up the tensor;
+    ``local_block`` of a ``ShardMesh`` (every shard in this process) is
+    the tensor; ``gather_tree`` there is the identity."""
+    axes = dict(pod=2, data=2, model=2)
+    mesh = ShardMesh(device="cpu", axes=axes)
+    p = sharding.Placement(placement)
+    x = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    out = torch.full_like(x, -1.0)
+    seen = torch.zeros_like(x)
+    for s in range(mesh.num_shards):
+        blk = sharding.local_block(x, p, mesh, shard=s)
+        c = mesh.coords(s)
+        idx = []
+        for dim, a in enumerate(p):
+            names = () if a is None else ((a,) if isinstance(a, str) else a)
+            G, i = 1, 0
+            for n in names:
+                G, i = G * axes[n], i * axes[n] + c[n]
+            m = x.shape[dim] // G
+            idx.append(slice(i * m, (i + 1) * m))
+        assert blk.shape == x[tuple(idx)].shape
+        out[tuple(idx)] = blk
+        seen[tuple(idx)] += 1
+    assert torch.equal(out, x)
+    assert int(seen.min()) == int(seen.max()) == mesh.num_shards // (
+        1 if not p.axes() else int(np.prod([axes[a] for a in p.axes()])))
+    assert sharding.local_block(x, p, mesh) is x
+    tree = dict(a=[x])
+    assert sharding.gather_tree(tree, dict(a=[p]), mesh) is tree
+
+
+def test_train_placements_split_only_the_expert_stacks():
+    """The sharded step's placements: the expert stacks over the EP axes
+    on dim 0 (as the a2a takes them), where E divides; all else whole."""
+    cfg = get_arch("deepseek-v3-671b").reduced
+    specs = transformer.model_specs(cfg)
+    place = sharding.train_placements(specs, dict(data=2, model=2), cfg)
+    split = {path: a for path, a, _ in _pairs(place, specs) if a.axes()}
+    moe_layers = [i for i, k in enumerate(cfg.all_layers())
+                  if k.startswith("moe")]
+    assert set(split) == {f"/layers/{i}/moe/{w}" for i in moe_layers
+                          for w in ("wi", "wg", "wo")}
+    assert all(a == ("model", None, None) for a in split.values())
+    wide = dataclasses.replace(cfg, ep_axes=("data", "model"))
+    place = sharding.train_placements(specs, dict(data=2, model=2), wide)
+    assert place["layers"][moe_layers[0]]["moe"]["wi"][0] == ("data",
+                                                              "model")
+    # E = 8 does not divide over 16: every leaf whole (the dense path)
+    place = sharding.train_placements(specs, dict(model=16), cfg)
+    assert not any(a.axes() for _, a, _ in _pairs(place, specs))
+    assert sharding.grad_sum_axes(sharding.Placement(("model", None)),
+                                  dict(data=2, model=2)) == ("data",)
+    assert sharding.grad_sum_axes(sharding.Placement((None,)),
+                                  dict(data=2, model=2), model=True) == (
+        "data", "model")
+    assert sharding.grad_sum_axes(sharding.Placement((None,)),
+                                  dict(data=2, model=2), "dp") == (
+        "data", "model")
