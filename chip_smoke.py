@@ -223,7 +223,7 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      2 x 512 activations from seed 0, bit for bit the in-process a2a of
      the same axes, K3 launched; (b) 4 ranks on the card over gloo-host,
      mesh (model 4), each making only its 64 experts (``params.
-     init_rows``): routing ids, slots, keeps and router statistics exact
+     init_block``): routing ids, slots, keeps and router statistics exact
      against the in-process a2a of (model 4), output and aux within 1e-3
      of the largest magnitude (whether bit for bit is printed), each
      rank's exchange ms, layer wall and peak memory; (c) the same ranks as
@@ -234,11 +234,35 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      exact), every rank's whole leaves equal (SHA-256), K3 and K6 forward
      and backward launched on every rank.
 
+ 19. tensor parallelism over "model" and FSDP over "data" (each rank
+     holds only its blocks of every leaf under the JAX rules, drawn by
+     ``params.init_blocks``; ``sharding.tp_plan``): (a) gemma3-27b at its
+     published width (d_model 5376, 32 heads, 16 KV heads, hd 168, d_ff
+     21504, vocabulary 262144, tied), its first 2 layers, f32 parameters,
+     over 4 ranks on the card as mesh (model 4): 8 query and 4 KV heads a
+     rank through K6, 65536 vocabulary rows a rank, one train step on 2 x
+     512 tokens from seed 0 in f32 compute and one in bf16 compute (the
+     config's), each held to the same step in one process on the card
+     from the same bits (f32: loss 1e-5 relative, grad norm 1e-4; bf16,
+     at its resolution: 1e-4 and 1e-3; every parameter within 2.5 lr),
+     whole leaves equal on every rank; each rank's parameter elements and
+     GiB against the whole tree's, peak, step walls and K6 launches; (b)
+     smollm-135m at its
+     published width and depth under its "dp" profile over (data 2, model
+     2), batch 8 x 512, FSDP over "data", held alike; (c) reduced configs
+     on the card's ranks against the same ranks on the CPU: gemma3-27b on
+     (model 4) (the head-repeat branch, asserted taken), deepseek-v3 under
+     "dp" on (data 2, model 2) (the MoE boundary: routing, slots, keeps
+     and statistics exact) and qwen1.5-110b on (data 2, model 2)
+     (``qkv_bias`` under TP).  The one-process references are built, run
+     and freed before the ranks start; their updated leaves go to the
+     ranks through files under the temporary directory.
+
 It prints the card's name and power limit, one JSON line of the sharded
 phases' numbers, one of the model families', one of expert balancing,
 one of training, one of the benches and examples, one of the ranks
 (phase 17: walls, transports, launches by rank), one of the model mesh
-(phase 18), one JSON line of
+(phase 18), one of tensor parallelism (phase 19), one JSON line of
 per-kernel numbers (K6's backward beside K6, and inside its row), and as
 its last line
 ``{"ok": true, "device": {...}}``.  Any
@@ -484,6 +508,32 @@ MESH_KERNELS = dict(a2a=("scatter_dest",),
                     step=("scatter_dest", "flash_attention",
                           "flash_attention_bwd"))
 MESH: dict = {}         # phase 18's numbers (one JSON line)
+# phase 19: tensor parallelism and FSDP over TP_WORLD ranks on the card
+# (gloo-host).  (a) TP_GEMMA: gemma3-27b published, its first ``layers``
+# layers, mesh (model 4); (b) TP_SMOLLM: smollm-135m published under its
+# "dp" profile, mesh (data 2, model 2); both with f32 parameters; (c)
+# TP_SMALL: the reduced configs (f32) on the card's ranks and on as many
+# CPU ranks.  Time limits a spawn (seconds), intra-op threads a rank, and
+# the kernels each run launches
+TP_FULL = True               # the published configs; a rehearsal: reduced
+TP_WORLD = 4
+TP_GEMMA = dict(arch="gemma3-27b", layers=2, batch=2, seq=512, seed=0)
+TP_SMOLLM = dict(arch="smollm-135m", batch=8, seq=512, seed=0)
+TP_SMALL = dict(batch=4, seq=16, seed=0, cases=(
+    ("gemma3-27b", (("model", 4),), "2d"),
+    ("deepseek-v3-671b", (("data", 2), ("model", 2)), "dp"),
+    ("qwen1.5-110b", (("data", 2), ("model", 2)), "2d")))
+# (a) and (b) step in each compute type, held to the one-process step
+# within its tolerances (relative): f32 the model mesh's; bf16, the
+# configs' own, at bf16's resolution (a data- or tensor-parallel split
+# rounds its partial products elsewhere than one process does)
+TP_COMPUTE = dict(float32=dict(loss=1e-5, grad_norm=1e-4),
+                  bfloat16=dict(loss=1e-4, grad_norm=1e-3))
+TP_TIMEOUT = dict(card=900, cpu=300)
+TP_THREADS = 2
+TP_KERNELS = dict(step=("flash_attention", "flash_attention_bwd"),
+                  moe=("scatter_dest",))
+TP: dict = {}           # phase 19's numbers (one JSON line)
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -4273,29 +4323,27 @@ def _mesh_layer_cfg(conf):
 
 def _mesh_layer(cfg, mesh, dev, x_shape):
     """The MoE layer's weights in bf16, every leaf drawn one row at a time
-    (``params.init_rows``, leaf j's row r from seed 1_000_000·j + r): the
+    (``params.init_block``, leaf j's row r from seed 1_000_000·j + r): the
     expert stacks only this shard's EP block on a ``ProcessMesh`` (the
     bits those rows have in the whole stack), else whole; and the
     activations (B, S, d_model) from seed 0."""
     import dataclasses
 
     import torch
-    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.distributed.sharding import Placement
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.params import init_rows
+    from repro_torch.models.params import init_block
 
-    E = cfg.moe.num_experts
     plan = moe_mod.ep_plan(cfg, mesh, x_shape[1])
     check(plan is not None, "phase 18: the a2a does not apply to the mesh")
-    ep_axes, ep = plan
+    ep_axes, _ = plan
+    entry = ep_axes if len(ep_axes) > 1 else ep_axes[0]
     params = {}
     for j, (name, spec) in enumerate(moe_mod.moe_specs(cfg).items()):
         spec = dataclasses.replace(spec, dtype="bfloat16")
-        rows = range(spec.shape[0])
-        if name in ("wi", "wg", "wo") and isinstance(mesh, ProcessMesh):
-            i = mesh.group_rank(ep_axes, mesh.rank)
-            rows = range(i * E // ep, (i + 1) * E // ep)
-        params[name] = init_rows(spec, 1_000_000 * j, rows, dev)
+        place = (Placement((entry,) + (None,) * (len(spec.shape) - 1))
+                 if name in ("wi", "wg", "wo") else None)
+        params[name] = init_block(spec, 1_000_000 * j, place, mesh, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(tuple(x_shape) + (cfg.d_model,), generator=gen,
                     dtype=torch.float32, device=dev).to(torch.bfloat16)
@@ -4657,6 +4705,424 @@ def model_mesh_phase():
           f"{MESH['many']['layer_seconds']}; (c) steps equal the in-process "
           f"ones; spawn {spawn_many:.1f} s; phase "
           f"{MESH['phase_seconds']:.1f} s")
+    return launches
+
+
+# ------------------------------------------- tensor parallelism, FSDP --
+
+
+def _tp_conf():
+    """Phase 19's sizes, passed to its ranks (which import this module
+    afresh)."""
+    return dict(full=TP_FULL, gemma=dict(TP_GEMMA), smollm=dict(TP_SMOLLM),
+                small=dict(TP_SMALL))
+
+
+def _tp_cfg(which, conf, compute):
+    """(a) gemma3-27b published with its first layers, (b) smollm-135m
+    published (its "dp" profile), f32 parameters, ``compute`` the compute
+    type; a rehearsal: the reduced configs."""
+    spec = conf[which]
+    if not conf["full"]:
+        return _train_cfg(spec["arch"], False, compute_dtype=compute)
+    cut = dict(num_layers=spec["layers"]) if "layers" in spec else {}
+    return _train_cfg(spec["arch"], True, compute_dtype=compute, **cut)
+
+
+def _tp_small_cfg(arch, profile):
+    """(c): the reduced ``arch`` in f32 under ``profile`` (a MoE config
+    with the a2a at its capacity factor)."""
+    import dataclasses
+
+    cfg = _train_cfg(arch, False, compute_dtype="float32",
+                     sharding_profile=profile)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="a2a"))
+    return cfg
+
+
+def _tp_step(cfg, params, batch, mesh, dev):
+    """One train step (deterministic algorithms), its wall seconds and
+    the launches: ``(new params, metrics, wall, launches)``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    step = ts_mod.make_train_step(
+        cfg, opt_mod.OptConfig(warmup_steps=1, total_steps=10),
+        collect_router_stats=cfg.moe is not None, mesh=mesh)
+    opt = opt_mod.init(params, device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _rank_sync(torch.device(dev))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, _, m = step(params, opt, batch)
+        _rank_sync(torch.device(dev))
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del opt
+    return new, {k: v.cpu() for k, v in m.items()}, wall, launches
+
+
+def _tp_reference(which, conf, dev, ref_dir):
+    """(a) or (b) in one process on the card: the whole tree drawn by
+    ``params.init_blocks``, one step in each compute type of
+    ``TP_COMPUTE``; each step's updated leaves saved one file a leaf
+    under ``ref_dir / compute`` (for the ranks), its numbers returned.
+    Frees what it made."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import count_params, init_blocks
+    from repro_torch.models.params import tree_leaves
+
+    specs = transformer.model_specs(_tp_cfg(which, conf, "float32"))
+    _reset_peak()
+    params = init_blocks(specs, conf[which]["seed"], device=dev)
+    out = dict(elements=count_params(specs), gib=param_gib(params), runs={})
+    for compute in TP_COMPUTE:
+        cfg = _tp_cfg(which, conf, compute)
+        batch = _mesh_step_batch(cfg, dev, conf[which])
+        new, m, wall, launches = _tp_step(cfg, params, batch, None, dev)
+        (ref_dir / compute).mkdir(parents=True)
+        for i, t in enumerate(tree_leaves(new)):
+            np.save(ref_dir / compute / f"{i}.npy", t.cpu().numpy())
+        out["runs"][compute] = dict(metrics=m, wall_seconds=wall,
+                                    launches=launches)
+        del new, batch
+    out["peak_gib"] = _mesh_peak_gib(torch.device(dev))
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_step(which, conf, mesh, dev, ref_dir):
+    """(a) or (b) on this rank: its blocks drawn by ``init_blocks`` under
+    ``train_placements``, its block of the batch, one step in each
+    compute type; each updated block against the reference's leaf (the
+    largest difference), the whole leaves' SHA-256, the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_blocks, tree_leaves
+
+    cfg = _tp_cfg(which, conf, "float32")
+    specs = transformer.model_specs(cfg)
+    place = sharding.train_placements(specs, mesh, cfg)
+    places = []
+    sharding.tree_map(lambda _, p: places.append(p), specs, place)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_blocks(specs, conf[which]["seed"], place, mesh, dev)
+    out = dict(elements=sum(t.numel() for t in tree_leaves(params)),
+               gib=param_gib(params), plan=sharding.tp_plan(cfg, mesh),
+               runs={})
+    for compute in TP_COMPUTE:
+        cfg = _tp_cfg(which, conf, compute)
+        batch = _mesh_step_batch(cfg, dev, conf[which])
+        bplace = sharding.data_placements(batch, mesh, cfg.sharding_profile)
+        batch = {k: sharding.local_block(v, bplace[k], mesh).contiguous()
+                 for k, v in batch.items()}
+        new, m, wall, launches = _tp_step(cfg, params, batch, mesh, dev)
+        err, sha = 0.0, []
+        for i, (t, p) in enumerate(zip(tree_leaves(new), places)):
+            ref = np.load(ref_dir / compute / f"{i}.npy", mmap_mode="r")
+            ref = torch.from_numpy(np.array(
+                ref[sharding.block_slices(ref.shape, p, mesh)])).to(dev)
+            err = max(err, float((t.float() - ref.float()).abs().max()))
+            if not p.axes():
+                sha.append(_sha(t.cpu().numpy()))
+            del ref
+        out["runs"][compute] = dict(metrics=m, wall_seconds=wall,
+                                    launches=launches, param_err=err,
+                                    replicated_sha=sha)
+        del new, batch
+    out["peak_gib"] = _mesh_peak_gib(dev)
+    return out
+
+
+def _tp_small(conf, dev):
+    """(c) on this rank: each reduced case's step from the CPU's draw of
+    its blocks (the same bits on the card and on the CPU), and for the
+    MoE case its first MoE layer's routing under "dp" on this rank's rows
+    of activations from seed 0; the whole trees gathered back (on the
+    CPU) and the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_blocks, tree_leaves, tree_to
+
+    small = conf["small"]
+    out = {}
+    for arch, axes, profile in small["cases"]:
+        cfg = _tp_small_cfg(arch, profile)
+        mesh = ProcessMesh(dev, axes=dict(axes))
+        specs = transformer.model_specs(cfg)
+        place = sharding.train_placements(specs, mesh, cfg)
+        params = tree_to(init_blocks(specs, small["seed"], place, mesh,
+                                     "cpu"), dev)
+        batch = _mesh_step_batch(cfg, dev, small)
+        bplace = sharding.data_placements(batch, mesh, profile)
+        lbatch = {k: sharding.local_block(v, bplace[k], mesh).contiguous()
+                  for k, v in batch.items()}
+        res = dict(plan=sharding.tp_plan(cfg, mesh))
+        if cfg.moe is not None:
+            i = cfg.all_layers().index("moe")
+            layer = params["layers"][i]["moe"]
+            x = torch.from_numpy(np.random.default_rng(small["seed"]).normal(
+                size=(small["batch"], small["seq"], cfg.d_model)).astype(
+                np.float32)).to(dev)
+            xl = sharding.local_block(x, sharding.data_placements(
+                dict(x=x), mesh, profile)["x"], mesh).contiguous()
+            kernels.reset_launch_counts()
+            with torch.no_grad():
+                y, aux, st, routing = moe_mod.a2a_with_routing(
+                    layer, cfg, xl, mesh=mesh)
+            res["layer"] = dict(
+                y=y.cpu(), aux=aux.cpu(), counts=st.counts.cpu(),
+                coact=st.coact.cpu(), ids=routing.ids.cpu(),
+                slot=routing.slot.cpu(), keep=routing.keep.cpu(),
+                launches=kernels.launch_counts())
+        new, m, wall, launches = _tp_step(cfg, params, lbatch, mesh, dev)
+        whole = sharding.gather_tree(new, place, mesh)
+        res.update(metrics=m, wall_seconds=wall, launches=launches,
+                   whole=[t.cpu() for t in tree_leaves(whole)])
+        out[arch] = res
+    return out
+
+
+def _rank_tp(world, conf, ref_root):
+    """Phase 19 on a card rank: (a) over (model W), (b) over (data 2,
+    model W/2), then (c)."""
+    from pathlib import Path
+
+    import torch
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import moe as moe_mod
+
+    W, dev = world.num_shards, world.device
+    out = dict(rank=world.rank, transport=world.transport, device=str(dev))
+    out["gemma"] = _tp_rank_step("gemma", conf,
+                                 ProcessMesh(dev, axes=dict(model=W)), dev,
+                                 Path(ref_root) / "gemma")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["smollm"] = _tp_rank_step(
+        "smollm", conf, ProcessMesh(dev, axes=dict(data=2, model=W // 2)),
+        dev, Path(ref_root) / "smollm")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["small"] = _tp_small(conf, dev)
+    check(moe_mod.ambient_mesh() is None, "phase 19: a mesh left ambient")
+    return out
+
+
+def _rank_tp_cpu(world, conf):
+    """Phase 19 (c) on a CPU rank."""
+    return dict(rank=world.rank, small=_tp_small(conf, world.device))
+
+
+def _tp_held(gm, wm, err, lr, what, tol=TP_COMPUTE["float32"]):
+    """A rank's step against the reference's: loss and grad norm within
+    ``tol`` (relative; by default 1e-5 and 1e-4), parameters within 2.5 lr
+    (``err`` its largest difference), router counts exact."""
+    check(abs(float(gm["loss"]) - float(wm["loss"]))
+          <= tol["loss"] * abs(float(wm["loss"])), f"{what}: loss "
+          f"{float(gm['loss'])} vs {float(wm['loss'])}")
+    check(abs(float(gm["grad_norm"]) - float(wm["grad_norm"]))
+          <= tol["grad_norm"] * abs(float(wm["grad_norm"])),
+          f"{what}: grad norm {float(gm['grad_norm'])} vs "
+          f"{float(wm['grad_norm'])}")
+    if "router_counts" in wm:
+        check(bool((gm["router_counts"] == wm["router_counts"]).all()),
+              f"{what}: router counts")
+    check(err <= 2.5 * lr, f"{what}: parameters off by {err} (lr {lr})")
+
+
+def tensor_parallel_phase():
+    """Phase 19: tensor parallelism over "model" and FSDP over "data" on
+    ``TP_WORLD`` ranks of the card (gloo-host): (a) gemma3-27b at its
+    published width over (model 4) and (b) smollm-135m under its "dp"
+    profile over (data 2, model 2), each rank holding only its blocks,
+    held to the one-process step on the card from the same bits; (c) the
+    reduced configs on the card's ranks against the same ranks on the
+    CPU.  Returns the ranks' launches by kernel (summed over ranks and
+    runs)."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+
+    W = TP_WORLD
+    conf = _tp_conf()
+    many_t = "gloo-host" if DEV == "cuda" else "gloo"
+    threads = TP_THREADS if DEV == "cuda" else 1
+    t_phase = time.perf_counter()
+    held_gib = (torch.cuda.memory_allocated() / 2 ** 30 if DEV == "cuda"
+                else None)       # what earlier phases still hold
+    ref_root = Path(tempfile.mkdtemp(prefix="chip_smoke-tp-"))
+    try:
+        # (c)'s CPU ranks meanwhile the one-process references on the card
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cpu = (pool.submit(run_ranks, _rank_tp_cpu, W, args=(conf,),
+                               device="cpu", transport="gloo",
+                               timeout=TP_TIMEOUT["cpu"], threads=1)
+                   if DEV == "cuda" else None)
+            refs = {w: _tp_reference(w, conf, DEV, ref_root / w)
+                    for w in ("gemma", "smollm")}
+            t_refs = time.perf_counter() - t_phase
+            cpu = None if cpu is None else cpu.result()
+        t0 = time.perf_counter()
+        many = run_ranks(_rank_tp, W, args=(conf, str(ref_root)),
+                         device=DEV, transport=many_t,
+                         timeout=TP_TIMEOUT["card"], threads=threads)
+        spawn = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_root, ignore_errors=True)
+    if cpu is None:           # a rehearsal: its ranks ran on the CPU
+        cpu = [dict(rank=o["rank"], small=o["small"]) for o in many]
+    cfgs = {w: _tp_cfg(w, conf, "float32") for w in ("gemma", "smollm")}
+    for w, want in refs.items():
+        for compute, run in want["runs"].items():
+            got = [o[w]["runs"][compute] for o in many]
+            print(f"phase 19 {w} {compute}: one process loss "
+                  f"{float(run['metrics']['loss'])!r} grad norm "
+                  f"{float(run['metrics']['grad_norm'])!r}; ranks' loss "
+                  f"{[float(g['metrics']['loss']) for g in got]}, grad norm "
+                  f"{[float(g['metrics']['grad_norm']) for g in got]}, "
+                  f"parameters off by {[g['param_err'] for g in got]} "
+                  f"(lr {float(run['metrics']['lr'])!r})", flush=True)
+    dropped = 0
+    for r, o in enumerate(many):
+        check(o["rank"] == r and o["transport"] == many_t,
+              f"phase 19: rank {r} ran {o['transport']}")
+        for w, want in refs.items():
+            check(o[w]["elements"] < want["elements"],
+                  f"phase 19 {w}: rank {r} holds every element")
+            for compute, run in want["runs"].items():
+                got = o[w]["runs"][compute]
+                what = f"phase 19 {w} {compute} rank {r}"
+                _tp_held(got["metrics"], run["metrics"], got["param_err"],
+                         float(run["metrics"]["lr"]), what,
+                         TP_COMPUTE[compute])
+                check(got["replicated_sha"]
+                      == many[0][w]["runs"][compute]["replicated_sha"],
+                      f"{what}: whole leaves differ from rank 0's")
+                for name in TP_KERNELS["step"] if DEV == "cuda" else ():
+                    check(got["launches"][name] > 0,
+                          f"{what}: launched no {name}")
+        check(o["gemma"]["plan"][cfgs["gemma"].all_layers()[0]]["attn"]
+              == ("tp" if TP_FULL else "repeat"),
+              f"phase 19 (a): rank {r} ran {o['gemma']['plan']}")
+        for arch, axes, profile in TP_SMALL["cases"]:
+            got, want = o["small"][arch], cpu[r]["small"][arch]
+            lr = float(want["metrics"]["lr"])
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got["whole"], want["whole"]))
+            _tp_held(got["metrics"], want["metrics"], err, lr,
+                     f"phase 19 (c) {arch} rank {r}")
+            check(got["plan"] == want["plan"], f"phase 19 (c) {arch} plan")
+            if arch == "gemma3-27b":
+                check(got["plan"]["attn"]["attn"] == "repeat",
+                      "phase 19 (c): gemma3-27b on (model 4) did not take "
+                      "the head-repeat branch")
+            for name in TP_KERNELS["step"] if DEV == "cuda" else ():
+                check(got["launches"][name] > 0,
+                      f"phase 19 (c) {arch}: rank {r} launched no {name}")
+            if "layer" in want:
+                for k in ("ids", "slot", "keep", "counts", "coact"):
+                    check(torch.equal(got["layer"][k], want["layer"][k]),
+                          f"phase 19 (c) {arch} rank {r}: {k} differ from "
+                          "the CPU ranks'")
+                dropped += int((~want["layer"]["keep"]).sum())
+                for name in TP_KERNELS["moe"] if DEV == "cuda" else ():
+                    check(got["layer"]["launches"][name] > 0,
+                          f"phase 19 (c): rank {r} launched no {name}")
+    check(dropped > 0, "phase 19 (c): the MoE layer dropped nothing at "
+          "its capacity factor")
+    launches = {}
+    for o in many:
+        runs = [run for w in ("gemma", "smollm")
+                for run in o[w]["runs"].values()] + [
+            x for res in o["small"].values()
+            for x in (res, res.get("layer", dict(launches={})))]
+        for run in runs:
+            for name, n in run["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+
+    def run_numbers(w, compute):
+        want = refs[w]["runs"][compute]
+        got = [o[w]["runs"][compute] for o in many]
+        return dict(
+            one_process=dict(loss=float(want["metrics"]["loss"]),
+                             grad_norm=float(want["metrics"]["grad_norm"]),
+                             step_seconds=want["wall_seconds"]),
+            tolerance=TP_COMPUTE[compute], lr=float(want["metrics"]["lr"]),
+            step_seconds=[g["wall_seconds"] for g in got],
+            loss=[float(g["metrics"]["loss"]) for g in got],
+            grad_norm=[float(g["metrics"]["grad_norm"]) for g in got],
+            param_err=[g["param_err"] for g in got],
+            k6_forward=[g["launches"].get("flash_attention", 0)
+                        for g in got],
+            k6_backward=[g["launches"].get("flash_attention_bwd", 0)
+                         for g in got])
+
+    def numbers(w):
+        return dict(
+            arch=cfgs[w].name, layers=cfgs[w].num_layers,
+            profile=cfgs[w].sharding_profile,
+            mesh=("model 4" if w == "gemma" else "data 2, model 2"),
+            tokens=conf[w]["batch"] * conf[w]["seq"],
+            whole_elements=refs[w]["elements"], whole_gib=refs[w]["gib"],
+            one_process_peak_gib=refs[w]["peak_gib"],
+            elements=[o[w]["elements"] for o in many],
+            gib=[o[w]["gib"] for o in many],
+            peak_gib=[o[w]["peak_gib"] for o in many],
+            runs={c: run_numbers(w, c) for c in TP_COMPUTE})
+
+    TP.update(card=SMI, world_size=W, transport=many_t,
+              phase_seconds=time.perf_counter() - t_phase,
+              spawn_seconds=spawn, reference_seconds=t_refs,
+              held_at_start_gib=held_gib,
+              gemma=numbers("gemma"), smollm=numbers("smollm"),
+              small={arch: dict(
+                  mesh=dict(axes), profile=profile,
+                  plan=many[0]["small"][arch]["plan"],
+                  loss=float(many[0]["small"][arch]["metrics"]["loss"]),
+                  cpu_loss=float(cpu[0]["small"][arch]["metrics"]["loss"]),
+                  step_seconds=[o["small"][arch]["wall_seconds"]
+                                for o in many])
+                  for arch, axes, profile in TP_SMALL["cases"]},
+              dropped_pairs=dropped, launches=launches)
+    for w, part in (("gemma", "a"), ("smollm", "b")):
+        g = TP[w]
+        print(f"phase 19 ({part}): {g['arch']} {g['layers']} layers "
+              f"\"{g['profile']}\" over {W} {many_t} ranks ({g['mesh']}): a "
+              f"rank holds {g['elements'][0]} of {g['whole_elements']} "
+              f"elements ({g['gib'][0]:.3f} of {g['whole_gib']:.3f} GiB), "
+              f"peak {g['peak_gib']} GiB (one process "
+              f"{g['one_process_peak_gib']} GiB); step s by compute type "
+              + "; ".join(f"{c} {r['step_seconds']} (one process "
+                          f"{r['one_process']['step_seconds']:.3f})"
+                          for c, r in g["runs"].items()))
+    print(f"phase 19 (c): {list(TP['small'])} on the card's ranks equal "
+          f"the CPU ranks; spawn {spawn:.1f} s, phase "
+          f"{TP['phase_seconds']:.1f} s")
     return launches
 
 
@@ -5115,6 +5581,13 @@ def main() -> int:
         if n:
             r["launches"] += n
             r.setdefault("launches_by_path", {})["model mesh"] = n
+    # phase 19's launches (the tensor-parallel ranks, summed over them)
+    tp_launches = tensor_parallel_phase()
+    for r in rows:
+        n = tp_launches.get(r["name"], 0)
+        if n:
+            r["launches"] += n
+            r.setdefault("launches_by_path", {})["tensor parallel"] = n
     by_name = {r["name"]: r for r in rows}
     by_name["flash_attention"]["backward"].update(
         launches=by_name["flash_attention_bwd"]["launches"],
@@ -5127,6 +5600,7 @@ def main() -> int:
     print(json.dumps({"benches": BENCHES}, default=float))
     print(json.dumps({"ranks": RANKS}))
     print(json.dumps({"model_mesh": MESH}))
+    print(json.dumps({"tensor_parallel": TP}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

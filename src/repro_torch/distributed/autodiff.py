@@ -18,12 +18,32 @@ under ``shard_map`` as autodiff transposes them:
     tensor the group holds whole (a slice, as entering that region takes
     this shard's sequence block).  Each member's part of the gradient
     flows back through its own block, so the backward gathers the blocks
-    and every member gets the whole gradient.
+    and every member gets the whole gradient;
+  * :func:`tp_in` — the input of a column-parallel product over
+    ``"model"``: the identity forward; each member's backward holds the
+    part of the replicated input's gradient its columns give, so the
+    backward is their sum over the group;
+  * :func:`tp_out` — the output of a row-parallel product: the sum of the
+    members' partial products forward, the identity backward (what
+    follows runs alike on every member); :func:`row_parallel` is the
+    product and its sum, in a 16-bit type with the partials kept in f32
+    so that the sum is rounded once, as one product over the whole rows
+    is;
+  * :func:`fsdp_gather` — the gather-before-use of a leaf stored as
+    blocks over ``axes`` whose members compute with other tokens (the
+    ``"data"`` axes of FSDP), or each compute a part of one use: the
+    all-gather forward, a reduce-scatter backward (the sum of the
+    members' gradients of the whole, then this rank's block).  Unlike
+    :func:`leave`, whose members hold the same tokens and so the same
+    gradient, it adds them.
+
+Every float sum is gathered and added in member order (``mesh.psum`` and
+``mesh.reduce_scatter``), so each rank gets the same bits.
 
 On a ``ShardMesh`` (one process) :func:`all_to_all` is the same
-Function; :func:`leave` and :func:`enter` are for a ``ProcessMesh``,
-where the replicas are processes: in one process a gather is tensor
-operations whose autograd holds one copy.
+Function; the others are for a ``ProcessMesh``, where the replicas are
+processes: in one process a gather is tensor operations whose autograd
+holds one copy.
 """
 from __future__ import annotations
 
@@ -94,8 +114,9 @@ class _Enter(torch.autograd.Function):
 
 def _process_mesh(mesh) -> ProcessMesh:
     if not isinstance(mesh, ProcessMesh):
-        raise TypeError("leave and enter run over a ProcessMesh; in one "
-                        "process the shards' tensors are one tensor")
+        raise TypeError("leave, enter, tp_in, tp_out and fsdp_gather run "
+                        "over a ProcessMesh; in one process the shards' "
+                        "tensors are one tensor")
     return mesh
 
 
@@ -112,3 +133,96 @@ def enter(mesh: ProcessMesh, x: torch.Tensor, axes: AxesArg = None,
     group over ``axes`` holds whole; the backward gathers the blocks'
     gradients."""
     return _Enter.apply(x, _process_mesh(mesh), axes, dim)
+
+
+class _TPIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.psum(g.unsqueeze(0), ctx.axes).reshape(g.shape),
+                None, None)
+
+
+class _TPOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh, axes):
+        return mesh.psum(y.unsqueeze(0), axes).reshape(y.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(mesh, w, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.movedim(ctx.dim, 0).contiguous().unsqueeze(0)
+        block = ctx.mesh.reduce_scatter(part, ctx.axes)[0]
+        return block.movedim(0, ctx.dim).contiguous(), None, None, None
+
+
+def tp_in(x: torch.Tensor, mesh: ProcessMesh,
+          axes: AxesArg = "model") -> torch.Tensor:
+    """``x`` (replicated over ``axes``) entering a column-parallel
+    product: the identity forward; the backward sums the members'
+    partial gradients over ``axes``."""
+    return _TPIn.apply(x, _process_mesh(mesh), axes)
+
+
+def tp_out(y: torch.Tensor, mesh: ProcessMesh,
+           axes: AxesArg = "model") -> torch.Tensor:
+    """The sum over ``axes`` of the members' partials ``y`` (a
+    row-parallel product's), in member order; the identity backward."""
+    return _TPOut.apply(y, _process_mesh(mesh), axes)
+
+
+def fsdp_gather(w: torch.Tensor, mesh: ProcessMesh, axes: AxesArg,
+                dim: int) -> torch.Tensor:
+    """The group over ``axes`` gathers its blocks ``w`` along ``dim``; the
+    backward is a reduce-scatter: the members' gradients added in member
+    order, then this rank's block."""
+    return _FSDPGather.apply(w, _process_mesh(mesh), axes, dim)
+
+
+class _ProductF32(torch.autograd.Function):
+    """``a @ b`` of 16-bit (n, k) and (k, m) matrices as f32: on a card
+    the tensor cores' f32 accumulator (``torch.mm``'s ``out_dtype``),
+    on the CPU an f32 product.  The backward takes the gradient in the
+    operands' type, as the backward of their 16-bit product would."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ b.T, a.T @ g
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, mesh: ProcessMesh,
+                 axes: AxesArg = "model") -> torch.Tensor:
+    """``tp_out(h @ w)``: a row-parallel product (``h``'s last dim and
+    ``w``'s rows this rank's block) summed over ``axes``, in ``h``'s
+    type.  In a 16-bit type each member's partial leaves its product in
+    f32, the partials are added in f32 and the sum is rounded once, as
+    the product over the whole rows is rounded once; rounding each
+    partial to 16 bits first would add one rounding a member."""
+    if h.dtype not in (torch.bfloat16, torch.float16):
+        return tp_out(h @ w, mesh, axes)
+    part = _ProductF32.apply(h.reshape(-1, h.shape[-1]), w)
+    y = tp_out(part, mesh, axes).to(h.dtype)
+    return y.reshape(*h.shape[:-1], w.shape[-1])

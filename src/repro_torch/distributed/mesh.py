@@ -26,9 +26,14 @@ collectives become tensor operations:
     order (``tiled=True``), an exact copy (:meth:`ShardMesh.all_gather_many`
     gathers several blocks at once);
   * :meth:`ShardMesh.all_to_all` — block j of every shard to member j of
-    its group (``all_to_all`` with ``tiled=False``), an exact copy.
+    its group (``all_to_all`` with ``tiled=False``), an exact copy;
+  * :meth:`ShardMesh.reduce_scatter` — member j's block of the sum of the
+    group's partials (``psum_scatter``): block j of every member, added
+    in member order after an ``all_to_all``;
+  * :meth:`ShardMesh.pmax` — the elementwise max of the partials (exact).
 
-``all_gather``, ``psum`` and ``all_to_all`` take ``axes=``: the
+``all_gather``, ``psum``, ``pmax``, ``reduce_scatter`` and
+``all_to_all`` take ``axes=``: the
 collective runs within each group of shards that differ only in those
 axes (members in the row-major order of their coordinates on them), as a
 JAX collective over those axis names does.  Over every axis (the
@@ -52,7 +57,10 @@ the mesh is built).  Its collectives move exact copies:
   * ``psum`` all-gathers the partials and adds them with the
     ``ShardMesh`` expression (``.sum(0)`` of the (D, ...) stack), so a
     float psum has the in-process mesh's bits; no float ``all_reduce``;
-  * ``all_to_all`` is ``dist.all_to_all_single`` on the group.
+    ``pmax`` gathers and takes the max alike;
+  * ``all_to_all`` is ``dist.all_to_all_single`` on the group;
+    ``reduce_scatter`` is that exchange of the blocks, then their sum in
+    member order (each rank adds only its own block).
 
 The transport follows from the group's backend and the mesh's device:
 ``"nccl"`` (a card a rank), ``"gloo"`` (CPU tensors) or ``"gloo-host"``
@@ -240,11 +248,33 @@ class ShardMesh:
         """Sum of the per-shard partials (leading axis) over ``axes``: the
         gathered (members, ...) stack added over its first axis; over every
         axis one replicated tensor, else (D, ...)."""
+        return self._reduced(partial, axes, lambda t: t.sum(0))
+
+    def pmax(self, partial: torch.Tensor, axes: AxesArg = None
+             ) -> torch.Tensor:
+        """Elementwise max of the per-shard partials over ``axes``, laid
+        out as :meth:`psum`'s result."""
+        return self._reduced(partial, axes, lambda t: t.amax(0))
+
+    def _reduced(self, partial, axes, op):
         if self._whole(axes):
-            return self.all_gather(partial.unsqueeze(1)).sum(0)
+            return op(self.all_gather(partial.unsqueeze(1)))
         g = self._grouped(partial, axes)
-        total = g.transpose(0, 1).sum(0)[:, None]
+        total = op(g.transpose(0, 1))[:, None]
         return self._ungrouped(total.expand(g.shape), axes)
+
+    def reduce_scatter(self, partial: torch.Tensor, axes: AxesArg = None
+                       ) -> torch.Tensor:
+        """(D, G·m, ...) → (D, m, ...): each shard's block of the sum of
+        its group's partials over ``axes`` (G members; member j keeps
+        block j), added in member order as :meth:`psum` adds."""
+        G = self.size(axes)
+        if partial.shape[1] % G:
+            raise ValueError(f"extent {partial.shape[1]} does not divide "
+                             f"over {G} members")
+        blocks = partial.reshape(partial.shape[0], G, -1,
+                                 *partial.shape[2:])
+        return self.all_to_all(blocks, axes).sum(1)
 
     def all_gather(self, block: torch.Tensor, axes: AxesArg = None
                    ) -> torch.Tensor:
@@ -390,9 +420,17 @@ class ProcessMesh(ShardMesh):
              ) -> torch.Tensor:
         """Sum of the group's (1, ...) partials over ``axes``: gathered in
         rank order and added as :meth:`ShardMesh.psum` adds them."""
+        return self._reduced(partial, axes, lambda t: t.sum(0))
+
+    def pmax(self, partial: torch.Tensor, axes: AxesArg = None
+             ) -> torch.Tensor:
+        """Elementwise max of the group's (1, ...) partials over ``axes``."""
+        return self._reduced(partial, axes, lambda t: t.amax(0))
+
+    def _reduced(self, partial, axes, op):
         if self._whole(axes):
-            return self.all_gather(partial.unsqueeze(1)).sum(0)
-        return self.all_gather(partial.unsqueeze(1), axes)[0].sum(0)[None]
+            return op(self.all_gather(partial.unsqueeze(1)))
+        return op(self.all_gather(partial.unsqueeze(1), axes)[0])[None]
 
     def all_gather(self, block: torch.Tensor, axes: AxesArg = None
                    ) -> torch.Tensor:

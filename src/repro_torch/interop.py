@@ -67,7 +67,7 @@ def _port_tree(tree: Dict, cfg) -> Dict:
     return out
 
 
-def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
+def params_from_numpy(tree: Dict, cfg, device="cuda", mesh=None) -> Dict:
     """The port's model parameters from the JAX package's parameter tree
     given as nested dicts and lists of NumPy arrays.
 
@@ -75,11 +75,23 @@ def params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
     stack): layer ``len(prefix) + g * len(layer_unit) + i`` takes
     ``unit[i][...][g]`` (stacked experts: (G, E, ...) → (E, ...)).
     Returns ``{embed, final_norm, layers[, lm_head][, mtp]}`` with
-    ``layers`` in ``cfg.all_layers()`` order, on ``device``."""
+    ``layers`` in ``cfg.all_layers()`` order, on ``device``.  Over a
+    ``ProcessMesh`` (``mesh``) each leaf is this rank's block under
+    ``distributed.sharding.train_placements``, as ``sharding.local_tree``
+    cuts it: only the block is copied to ``device``."""
+    from repro_torch.distributed import sharding
+
     dev = resolve_device(device)
+    port = _port_tree(tree, cfg)
     # copies: the arrays may be read-only views of another package's buffers
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
-                    _port_tree(tree, cfg))
+    if mesh is None:
+        return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
+                        port)
+    return sharding.tree_map(
+        lambda a, p: torch.tensor(np.asarray(a)[sharding.block_slices(
+            np.shape(a), p, mesh)], device=dev),
+        port, sharding.train_placements(tree_map(np.asarray, port), mesh,
+                                        cfg))
 
 
 def opt_state_from_numpy(state, cfg, device="cuda"):

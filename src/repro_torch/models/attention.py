@@ -9,8 +9,15 @@ for CUDA tensors, the plain chunked attention (the JAX package's
 per-slot position array (``pos``, initialized to ``POS_SENTINEL``), so
 full caches and ring-buffer sliding-window caches share one code path.
 
-Left for a later slice: the tensor-parallel head-repeat branch, which
-needs a device mesh.
+Over a ``ProcessMesh`` (``tp=``, the mode ``distributed.sharding.tp_plan``
+gives) the heads are split over ``"model"``: each rank projects, ropes
+and attends over its block of the heads and ``wo`` is row parallel, the
+collectives written out (``autodiff.tp_in`` where the replicated input
+enters, ``autodiff.row_parallel`` adding the partial outputs).  GQA takes
+either the plain split (KV heads dividing over ``"model"``) or the JAX
+package's head-repeat branch (they do not, H does): the keys and values
+repeated G times on the head axis and each rank's block of them taken, so
+each rank attends with G = 1.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import autodiff, sharding
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import POS_SENTINEL
@@ -72,9 +80,14 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
     )
 
 
+#: the JAX gate of the head-repeat branch: keys no longer than this
+REPEAT_MAX_KV = 16384
+
+
 def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
-                  prefix_len: int = 0, cache: Optional[Dict] = None
+                  prefix_len: int = 0, cache: Optional[Dict] = None,
+                  tp: Optional[str] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, D), positions (B, S) → (y (B, S, D), cache).
 
@@ -82,10 +95,23 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``positions mod T`` (window layers) or ``positions`` *in place* — the
     returned cache is the one given — and attention reads the whole
     cache.  A window layer's prefill is defined for prompts up to T:
-    longer ones would write several positions into one slot at once."""
+    longer ones would write several positions into one slot at once.
+
+    ``tp`` (over the ambient ``ProcessMesh``): ``"tp"`` — ``wq``, ``wk``,
+    ``wv`` (and biases) are this rank's column blocks of whole heads and
+    ``wo`` its row block; ``"repeat"`` — ``wq``/``bq``/``wo`` so, ``wk``/
+    ``wv``/``bk``/``bv`` whole (each rank uses its part of them), the
+    cache whole.  None: the weights whole."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     G = H // KV
+    mesh = sharding.rank_mesh() if tp else None
+    if mesh is not None:
+        M = mesh.axes[MODEL]
+        x = autodiff.tp_in(x, mesh, MODEL)
+        H //= M                       # this rank's query heads,
+        if tp == "tp":
+            KV //= M                  # and KV heads where they divide
     dt = x.dtype
     q = x @ params["wq"].to(dt)
     k = x @ params["wk"].to(dt)
@@ -95,7 +121,8 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
     q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    q = q.reshape(B, S, KV, G, hd)
+    q = q.reshape(B, S, H, 1, hd) if tp == "repeat" else q.reshape(
+        B, S, KV, G, hd)
     k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, KV, hd)
 
@@ -111,10 +138,19 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         kv_pos = positions
 
+    if tp == "repeat":
+        # the JAX branch repeats K and V G times on the head axis and
+        # splits every head over "model": this rank's H heads of them
+        first = mesh.group_rank(MODEL, mesh.rank) * H
+        idx = torch.div(torch.arange(first, first + H, device=x.device), G,
+                        rounding_mode="floor")
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     out = flash_attention(q, k, v, positions, kv_pos, window=window,
-                          prefix_len=prefix_len)
-    y = out.reshape(B, S, H * hd) @ params["wo"].to(dt)
-    return y, cache
+                          prefix_len=prefix_len).reshape(B, S, H * hd)
+    if mesh is not None:
+        return autodiff.row_parallel(out, params["wo"].to(dt), mesh,
+                                     MODEL), cache
+    return out @ params["wo"].to(dt), cache
 
 
 # ----------------------------------------------------------- MLA forward ----
@@ -138,7 +174,8 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
-                  prefix_len: int = 0, cache: Optional[Dict] = None
+                  prefix_len: int = 0, cache: Optional[Dict] = None,
+                  tp: Optional[str] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Multi-head latent attention in the absorbed form: x (B, S, D),
     positions (B, S) → (y (B, S, D), cache).
@@ -148,12 +185,22 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     directly: one "kv head" of G = H query heads, keys ``[ckv | k_rope]``,
     values ``[ckv | 0]`` of the same width, the first kv_lora_rank output
     columns kept.  With a cache, the new latents are written at slot
-    ``positions`` in place and attention reads the whole cache."""
+    ``positions`` in place and attention reads the whole cache.
+
+    ``tp="tp"`` (over the ambient ``ProcessMesh``): ``wq_b``, ``wk_b``,
+    ``wv_b`` are this rank's column blocks of whole heads and ``wo`` its
+    row block; the replicated query latent and the keys' latents enter
+    this rank's heads by ``autodiff.tp_in``."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
     dt = x.dtype
+    mesh = sharding.rank_mesh() if tp else None
+    if mesh is not None:
+        H //= mesh.axes[MODEL]
     qa = rms_norm(x @ params["wq_a"].to(dt), params["q_norm"], cfg.norm_eps)
+    if mesh is not None:
+        qa = autodiff.tp_in(qa, mesh, MODEL)
     q = (qa @ params["wq_b"].to(dt)).reshape(B, S, H,
                                              m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
@@ -174,6 +221,9 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         ckv_all, krope_all, kv_pos = cache["ckv"], cache["krope"], cache["pos"]
     else:
         ckv_all, krope_all, kv_pos = ckv, k_rope, positions
+    if mesh is not None:
+        ckv_all = autodiff.tp_in(ckv_all, mesh, MODEL)
+        krope_all = autodiff.tp_in(krope_all, mesh, MODEL)
 
     # absorb: q_abs[h] = q_nope[h] @ wk_b[h]^T, latent-space queries
     wk_b = params["wk_b"].to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_dim)
@@ -192,6 +242,9 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                         window=window, prefix_len=prefix_len)
     o_latent = o[:, :, 0, :, :m.kv_lora_rank]            # (B, S, H, kv_lora)
     wv_b = params["wv_b"].to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
-    out = torch.einsum("bshr,rhv->bshv", o_latent, wv_b)
-    y = out.reshape(B, S, H * m.v_head_dim) @ params["wo"].to(dt)
-    return y, cache
+    out = torch.einsum("bshr,rhv->bshv", o_latent, wv_b).reshape(
+        B, S, H * m.v_head_dim)
+    if mesh is not None:
+        return autodiff.row_parallel(out, params["wo"].to(dt), mesh,
+                                     MODEL), cache
+    return out @ params["wo"].to(dt), cache

@@ -4,13 +4,15 @@ parameter specs (counterpart of ``repro.models.layers``).
 The JAX package's sharding helpers (``shard``, the profiles,
 ``translate``) constrain activations under GSPMD and have no counterpart;
 the specs carry the JAX partition axes (``distributed.sharding`` reads
-them).
+them), and over a ``ProcessMesh`` the MLP runs tensor parallel with its
+collectives written out.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import autodiff
 from repro_torch.models.params import ParamSpec
 
 BATCH = ("pod", "data")
@@ -64,11 +66,20 @@ def mlp_specs(d_model: int, d_ff: int) -> dict:
                 wo=ParamSpec((d_ff, d_model), (MODEL, (None,))))
 
 
-def mlp(params: dict, x: torch.Tensor, dtype) -> torch.Tensor:
-    """Gated SiLU MLP (llama family)."""
+def mlp(params: dict, x: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+    """Gated SiLU MLP (llama family).  ``mesh``: a ``ProcessMesh`` whose
+    ``"model"`` axis splits ``d_ff``: ``wi``/``wg`` are this rank's
+    column blocks and ``wo`` its row block, so the product is tensor
+    parallel (``x`` enters by ``autodiff.tp_in``, the partial outputs
+    are added by ``autodiff.row_parallel``)."""
+    if mesh is not None:
+        x = autodiff.tp_in(x, mesh, MODEL)
     h = x @ params["wg"].to(dtype)
     u = x @ params["wi"].to(dtype)
-    return (F.silu(h) * u) @ params["wo"].to(dtype)
+    if mesh is None:
+        return (F.silu(h) * u) @ params["wo"].to(dtype)
+    return autodiff.row_parallel(F.silu(h) * u, params["wo"].to(dtype), mesh,
+                                 MODEL)
 
 
 def embed_specs(vocab: int, d_model: int) -> ParamSpec:

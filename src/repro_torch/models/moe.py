@@ -23,9 +23,14 @@ weights.  The mesh is a ``distributed.mesh.ShardMesh`` (every shard in
 this process, the token shards a leading tensor axis) or a
 ``ProcessMesh`` (this rank's shard: its rows of the batch, of which it
 takes its sequence block and gathers the layer's output back,
-``distributed.autodiff.enter``/``leave``).  :func:`moe_ffn` takes it
-where a mesh is given (or ambient, :func:`use_mesh`) and ``impl`` is
-"a2a" or "auto"; otherwise ``moe_dense``.  Its gradient is autograd of
+``distributed.autodiff.enter``/``leave``; under the ``"dp"`` profile,
+whose ranks hold rows of their own over ``"model"`` too, an exchange over
+``"model"`` regroups them into the same token shards and back).  There
+the expert stacks' ``"data"`` (FSDP) blocks are gathered before the
+exchange, and the shared expert runs tensor parallel over ``"model"``
+(``sharding.tp_plan``).  :func:`moe_ffn` takes the mesh where one is
+given (or ambient, ``sharding.use_mesh``, re-exported here) and ``impl``
+is "a2a" or "auto"; otherwise ``moe_dense``.  Its gradient is autograd of
 these operations, as the JAX package's is autodiff of its einsums.
 
 ``pair_stats`` gives the per-expert token counts and the co-activation
@@ -34,18 +39,19 @@ in f32, exact.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import autodiff
+from repro_torch.distributed import autodiff, sharding
+from repro_torch.distributed.sharding import (  # noqa: F401
+    ambient_mesh, use_mesh)
 from repro_torch.distributed.mesh import ProcessMesh
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.migrate import ops as mops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import BATCH, MODEL
+from repro_torch.models.layers import BATCH, MODEL, mlp
 from repro_torch.models.params import ParamSpec
 
 IMPLS = ("auto", "dense", "a2a")
@@ -122,10 +128,29 @@ def _router(params, cfg: ModelConfig, x2d: torch.Tensor):
     return w.to(x2d.dtype), ids, aux + 1e-3 * zloss
 
 
-def _shared(params, x: torch.Tensor, dt) -> torch.Tensor:
-    h = F.silu(x @ params["shared_wg"].to(dt)) * (x @ params["shared_wi"]
-                                                  .to(dt))
-    return h @ params["shared_wo"].to(dt)
+SHARED = ("shared_wi", "shared_wg", "shared_wo")
+
+
+def _shared(params, cfg: ModelConfig, x: torch.Tensor, dt,
+            mesh=None) -> torch.Tensor:
+    """The shared expert, a gated MLP on x's rows.  Over a
+    ``ProcessMesh`` given this rank's blocks it is tensor parallel over
+    ``"model"`` where ``sharding.tp_plan`` says so (its ``d_ff`` columns
+    split there), its ``"data"`` blocks gathered before use; weights
+    given whole are used whole."""
+    w = {k: params[k] for k in SHARED}
+    tp = None
+    if isinstance(mesh, ProcessMesh):
+        specs = moe_specs(cfg)
+        kind = next(k for k in cfg.all_layers() if k.startswith("moe"))
+        if (sharding.tp_plan(cfg, mesh)[kind]["shared"] == "tp"
+                and w["shared_wo"].shape[0] < specs["shared_wo"].shape[0]):
+            tp = mesh
+        w = {k: sharding.gathered(v, specs[k], mesh, cfg.sharding_profile,
+                                  keep=MODEL if tp is not None else ())
+             for k, v in w.items()}
+    return mlp(dict(wi=w["shared_wi"], wg=w["shared_wg"],
+                    wo=w["shared_wo"]), x, dt, mesh=tp)
 
 
 def moe_dense(params, cfg: ModelConfig, x: torch.Tensor,
@@ -147,37 +172,13 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor,
     ye = torch.matmul(F.silu(hg) * hi, params["wo"].to(dt))  # (E, T, D)
     y = torch.einsum("etd,te->td", ye, comb).reshape(B, S, D)
     if m.num_shared:
-        y = y + _shared(params, x, dt)
+        y = y + _shared(params, cfg, x, dt)
     if collect_stats:
         return y, aux, stats
     return y, aux
 
 
 # --------------------------------------------------------------- a2a path --
-
-_AMBIENT: list = []
-
-#: where the EP block of a MoE config under the "dp" profile is queued
-DP_BOUNDARY_ITEM = ("the MoE boundary under the \"dp\" profile is not "
-                    "ported (ROADMAP queue 1, item 6b's next slice)")
-
-
-@contextlib.contextmanager
-def use_mesh(mesh):
-    """Make ``mesh`` the ambient mesh of :func:`moe_ffn` (and of
-    ``transformer.loss_fn``) inside the block, as
-    ``jax.sharding.set_mesh`` makes a mesh ambient for the JAX package's
-    MoE layers."""
-    _AMBIENT.append(mesh)
-    try:
-        yield mesh
-    finally:
-        _AMBIENT.pop()
-
-
-def ambient_mesh():
-    """The innermost :func:`use_mesh` mesh, or None."""
-    return _AMBIENT[-1] if _AMBIENT else None
 
 
 def dispatch_slots(flat_e: torch.Tensor, num_experts: int, cap: int):
@@ -284,14 +285,19 @@ def ep_plan(cfg: ModelConfig, mesh, seq_len: int):
 def _expert_blocks(params, cfg: ModelConfig, mesh, ep_axes, ep):
     """Each local shard's block of the expert stacks, (n, E_loc, ...).
     On a ``ProcessMesh`` a stack is this rank's block (E_loc experts) or
-    the whole stack, of which the block is cut; on a ``ShardMesh`` the
-    whole stack, cut into every shard's block (a view where the EP group
-    is the whole mesh)."""
+    the whole stack, of which the block is cut, its ``"data"`` (FSDP)
+    blocks gathered first, as GSPMD gathers them at the JAX layer's
+    boundary; on a ``ShardMesh`` the whole stack, cut into every shard's
+    block (a view where the EP group is the whole mesh)."""
     E = cfg.moe.num_experts
     E_loc = E // ep
+    specs = moe_specs(cfg)
     out = []
     for name in ("wi", "wg", "wo"):
         w = params[name]
+        if isinstance(mesh, ProcessMesh):
+            w = sharding.gathered(w, specs[name], mesh, cfg.sharding_profile,
+                                  keep=ep_axes)
         if w.shape[0] not in (E, E_loc):
             raise ValueError(f"expert stack {name} has {w.shape[0]} "
                              f"experts: neither {E} nor the {E_loc} of an "
@@ -314,12 +320,15 @@ def a2a_with_routing(params, cfg: ModelConfig, x: torch.Tensor, *, mesh):
     or None where the JAX package takes ``moe_dense`` (:func:`ep_plan`).
 
     On a ``ShardMesh`` ``x`` (B, S, D) is the whole batch; on a
-    ``ProcessMesh`` this rank's rows of it (its block over the batch
-    axes, replicated over ``"model"``).  ``aux`` is the mean of the token
+    ``ProcessMesh`` this rank's rows of it: its block over the profile's
+    batch axes (``sharding.batch_axes``), replicated over ``"model"``
+    under ``"2d"`` and its own over ``"model"`` too under ``"dp"``.
+    Either way the token shards are the JAX layer's (its ``shard_map``
+    takes ``P(("pod", "data"), "model", None)`` under both profiles):
+    shard (p, d, m) routes the rows of its ``("pod", "data")`` block, its
+    ``"model"`` block of the sequence.  ``aux`` is the mean of the token
     shards' router losses in shard order (the JAX package's ``pmean``);
     the statistics are summed over the token shards."""
-    if cfg.sharding_profile == "dp":
-        raise NotImplementedError(DP_BOUNDARY_ITEM)
     plan = ep_plan(cfg, mesh, x.shape[1])
     if plan is None:
         return None
@@ -329,12 +338,24 @@ def a2a_with_routing(params, cfg: ModelConfig, x: torch.Tensor, *, mesh):
     k = cfg.moe.top_k
     wi, wg, wo = _expert_blocks(params, cfg, mesh, ep_axes, ep)
     if isinstance(mesh, ProcessMesh):
-        # this rank's sequence block of its rows, then the sequence
-        # gathered back: the boundary of the sequence-split region
-        x_loc = autodiff.enter(mesh, x, MODEL, dim=1).reshape(1, -1, Dm)
+        rows_own = MODEL in sharding.batch_axes(mesh, cfg.sharding_profile)
+        if rows_own:
+            # "dp": an exchange over "model" gives each member the rows of
+            # its group (its (pod, data) block) in member order, its
+            # sequence block; the reverse exchange after
+            x_loc = _exchange(mesh, x.reshape(B, M, S // M, Dm)
+                              .transpose(0, 1)).reshape(1, -1, Dm)
+        else:
+            # this rank's sequence block of its rows, then the sequence
+            # gathered back: the boundary of the sequence-split region
+            x_loc = autodiff.enter(mesh, x, MODEL, dim=1).reshape(1, -1, Dm)
         y, aux, routing = _a2a_local(x_loc, params["router"], wi, wg, wo,
                                      cfg=cfg, mesh=mesh, ep_axes=ep_axes)
-        y = autodiff.leave(mesh, y.reshape(B, S // M, Dm), MODEL, dim=1)
+        if rows_own:
+            y = _exchange(mesh, y.reshape(M, B, S // M, Dm)).transpose(
+                0, 1).reshape(B, S, Dm)
+        else:
+            y = autodiff.leave(mesh, y.reshape(B, S // M, Dm), MODEL, dim=1)
         aux = autodiff.leave(mesh, aux).mean()
         st = pair_stats(routing.ids.reshape(-1, k), cfg.moe.num_experts)
         st = RouterStats(*(mesh.psum(t.unsqueeze(0)) for t in st))
@@ -352,17 +373,21 @@ def a2a_with_routing(params, cfg: ModelConfig, x: torch.Tensor, *, mesh):
         aux = aux.mean()
         st = pair_stats(routing.ids.reshape(-1, k), cfg.moe.num_experts)
     if cfg.moe.num_shared:
-        y = y + _shared(params, x, x.dtype)
+        y = y + _shared(params, cfg, x, x.dtype, mesh)
     return y, aux, st, routing
+
+
+def _exchange(mesh: ProcessMesh, blocks: torch.Tensor) -> torch.Tensor:
+    """(M, ...) → (M, ...): block j to member j of this rank's group over
+    ``"model"``; block j of the result from member j (with a gradient)."""
+    return autodiff.all_to_all(mesh, blocks.contiguous()[None], MODEL)[0]
 
 
 def moe_a2a(params, cfg: ModelConfig, x: torch.Tensor,
             collect_stats: bool = False, *, mesh):
     """Expert-parallel MoE over ``mesh`` (see :func:`a2a_with_routing`):
     ``(y, aux)`` or ``(y, aux, RouterStats)``; ``moe_dense`` where the
-    JAX package takes it (:func:`ep_plan`; on a ``ShardMesh`` only).  A
-    MoE config under the ``"dp"`` profile raises
-    ``NotImplementedError``."""
+    JAX package takes it (:func:`ep_plan`; on a ``ShardMesh`` only)."""
     out = a2a_with_routing(params, cfg, x, mesh=mesh)
     if out is None:
         if isinstance(mesh, ProcessMesh):
@@ -380,7 +405,7 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
             impl: Optional[str] = None, collect_stats: bool = False, *,
             mesh=None):
     """The MoE FFN: :func:`moe_a2a` over ``mesh`` (or the ambient mesh of
-    :func:`use_mesh`) for ``impl`` "a2a" or "auto", else ``moe_dense``."""
+    ``sharding.use_mesh``) for ``impl`` "a2a" or "auto", else ``moe_dense``."""
     impl = impl or cfg.moe.impl
     if impl not in IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}; one of {IMPLS}")

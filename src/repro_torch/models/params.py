@@ -2,11 +2,13 @@
 
 Architectures declare parameters as ``ParamSpec`` trees (nested dicts and
 lists of shape + partition axes + initializer).  :func:`init_params`
-materializes one on a device, :func:`shape_dtype_tree` gives its shapes
-and types without weights and :func:`count_params` counts it without
-allocating.  ``ParamSpec.spec`` is the JAX leaf's ``PartitionSpec`` axes
-(a layer of a scanned group without the group's leading replicated
-axis); ``distributed.sharding`` turns it into a placement on a mesh.
+materializes one on a device, :func:`init_blocks` one rank's blocks of
+it (each leaf drawn row by row, so a block has the bits it has in the
+whole leaf), :func:`shape_dtype_tree` gives its shapes and types without
+weights and :func:`count_params` counts it without allocating.
+``ParamSpec.spec`` is the JAX leaf's ``PartitionSpec`` axes (a layer of
+a scanned group without the group's leading replicated axis);
+``distributed.sharding`` turns it into a placement on a mesh.
 """
 from __future__ import annotations
 
@@ -67,24 +69,61 @@ def init_params(tree, seed: int = 0, device="cuda"):
     return tree_map(make, tree)
 
 
-def init_rows(spec: ParamSpec, seed: int, rows: range,
-              device="cuda") -> torch.Tensor:
-    """Rows ``rows`` (along dim 0) of a ``normal`` leaf drawn one row at a
+#: seeds between two leaves of :func:`init_blocks` (rows a leaf at most)
+LEAF_SEEDS = 1 << 20
+
+
+def init_block(spec: ParamSpec, seed: int, placement=None, mesh=None,
+               device="cuda") -> torch.Tensor:
+    """This shard's block under ``placement`` (``distributed.sharding``;
+    None: the whole leaf) of a leaf drawn one row (along dim 0) at a
     time, row r from its own generator seeded with ``seed + r`` (on
-    ``device``): a shard that holds rows [a, b) of the leaf (an expert
-    parallel block of an expert stack) draws only those, with the bits
-    they have in the whole leaf drawn this way (``range(shape[0])``)."""
-    if spec.init != "normal":
-        raise ValueError(f"init_rows draws normal leaves, not {spec.init}")
+    ``device``) and narrowed to the block's columns: a rank of a
+    ``ProcessMesh`` draws only its block's rows, with the bits they have
+    in the whole leaf drawn this way (a ``ShardMesh`` or ``mesh=None``:
+    the whole leaf).  ``zeros`` and ``ones`` leaves are made at the
+    block's shape."""
+    from repro_torch.distributed.sharding import block_slices
+
     dev = resolve_device(device)
-    out = torch.empty((len(rows),) + tuple(spec.shape[1:]),
-                      dtype=getattr(torch, spec.dtype), device=dev)
-    for i, r in enumerate(rows):
-        gen = torch.Generator(device=dev).manual_seed(int(seed) + int(r))
+    dt = getattr(torch, spec.dtype)
+    idx = (tuple(slice(0, n) for n in spec.shape) if placement is None
+           else block_slices(tuple(spec.shape), placement, mesh))
+    shape = tuple(s.stop - s.start for s in idx)
+    if spec.init in ("zeros", "ones"):
+        return getattr(torch, spec.init)(shape, dtype=dt, device=dev)
+    if spec.init != "normal":
+        raise ValueError(spec.init)
+    out = torch.empty(shape, dtype=dt, device=dev)
+    for i, r in enumerate(range(idx[0].start, idx[0].stop)):
+        gen = torch.Generator(device=dev).manual_seed(int(seed) + r)
         w = torch.randn(spec.shape[1:], generator=gen, dtype=torch.float32,
                         device=dev)
-        out[i] = w * spec.scale
+        out[i] = w[idx[1:]] * spec.scale
     return out
+
+
+def init_blocks(tree, seed: int = 0, placements=None, mesh=None,
+                device="cuda"):
+    """:func:`init_block` of every leaf of a ``ParamSpec`` tree, leaf j
+    (in tree order) from seeds ``seed + j · LEAF_SEEDS + r``: over a
+    ``ProcessMesh`` with the tree's placements this rank's blocks,
+    otherwise the whole tree, with the same bits in both."""
+    from repro_torch.distributed import sharding
+
+    drawn = []
+
+    def draw(spec, place=None):
+        if spec.shape[0] > LEAF_SEEDS:
+            raise ValueError(f"a leaf of {spec.shape[0]} rows: at most "
+                             f"{LEAF_SEEDS}")
+        drawn.append(spec)
+        return init_block(spec, int(seed) + (len(drawn) - 1) * LEAF_SEEDS,
+                          place, mesh, device)
+
+    if placements is None:
+        return sharding.tree_map(draw, tree)
+    return sharding.tree_map(draw, tree, placements)
 
 
 def shape_dtype_tree(tree, device="meta"):

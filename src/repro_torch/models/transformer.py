@@ -25,6 +25,13 @@ logits), ``decode_step`` and ``loss_fn`` (the training loss: the
 sequence-chunked next-token CE with its z-loss, the MoE aux term and
 DeepSeek's multi-token-prediction term).
 
+Over an ambient ``ProcessMesh`` (``distributed.sharding.use_mesh``, as
+the sharded train step sets it) the parameters are this rank's blocks
+under the JAX rules, and each layer and the vocabulary compute as
+``sharding.tp_plan`` says: tensor parallel over ``"model"`` (heads,
+``d_ff`` columns, vocabulary rows; the CE vocabulary parallel) or
+gathered before use (``sharding.gathered``; FSDP's ``"data"`` blocks).
+
 Rematerialization (``remat``): "none" keeps every layer's activations
 for the backward; "full" runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), so the backward recomputes it.  The JAX package's
@@ -93,6 +100,14 @@ def _block_specs(cfg: ModelConfig, kind: str) -> Dict:
     return p
 
 
+def _lm_head_spec(cfg: ModelConfig) -> ParamSpec:
+    return ParamSpec((cfg.d_model, cfg.vocab_size), ("data", MODEL))
+
+
+def _mtp_proj_spec(cfg: ModelConfig) -> ParamSpec:
+    return ParamSpec((2 * cfg.d_model, cfg.d_model), ("data", None))
+
+
 def model_specs(cfg: ModelConfig) -> Dict:
     """``{embed, final_norm, layers: [block specs per layer][, lm_head]
     [, mtp]}``."""
@@ -101,12 +116,10 @@ def model_specs(cfg: ModelConfig) -> Dict:
                    final_norm=rms_norm_spec(cfg.d_model),
                    layers=[_block_specs(cfg, k) for k in cfg.all_layers()])
     if not cfg.tie_embeddings:
-        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
-                                 ("data", MODEL))
+        p["lm_head"] = _lm_head_spec(cfg)
     if cfg.mtp:
         p["mtp"] = dict(block=_block_specs(cfg, "attn"),
-                        proj=ParamSpec((2 * cfg.d_model, cfg.d_model),
-                                       ("data", None)),
+                        proj=_mtp_proj_spec(cfg),
                         norm=rms_norm_spec(cfg.d_model))
     if cfg.param_dtype != "float32":
         p = tree_map(lambda s: dataclasses.replace(s, dtype=cfg.param_dtype),
@@ -181,6 +194,37 @@ def _aux_add(a, b):
     return a + b
 
 
+#: the head-repeat branch's leaves each rank uses a part of
+REPEAT_PARTIAL = ("wk", "wv", "bk", "bv")
+
+
+def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                cache: Optional[Dict], mesh: ProcessMesh):
+    """One layer's blocks on this rank as its compute uses them, and the
+    layer's plan (``sharding.tp_plan``; the head-repeat branch only for
+    keys no longer than ``attention.REPEAT_MAX_KV``, as the JAX gate):
+    each part's leaves gathered over their axes (``sharding.gathered``)
+    but ``"model"`` where the part runs tensor parallel; the MoE part as
+    the a2a takes it (``models.moe``)."""
+    plan = sharding.tp_plan(cfg, mesh)[kind]
+    if plan.get("attn") == "repeat":
+        T_kv = x.shape[1] if cache is None else cache["kv"]["k"].shape[1]
+        if T_kv > attn.REPEAT_MAX_KV:
+            plan["attn"] = "gather"
+    specs = _block_specs(cfg, kind)
+    out = dict(params)
+    for part, mode in plan.items():
+        if part not in params:          # the shared expert: in "moe"
+            continue
+        partial = REPEAT_PARTIAL if mode == "repeat" else ()
+        keep = (MODEL,) if mode in ("tp", "repeat") else ()
+        out[part] = {k: sharding.gathered(
+            v, specs[part][k], mesh, cfg.sharding_profile,
+            keep=() if k in partial else keep, partial=k in partial)
+            for k, v in params[part].items()}
+    return out, plan
+
+
 def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict], *,
                 prefix_len: int = 0, decode: bool = False,
@@ -188,11 +232,21 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """One block; returns ``(x_out, aux)`` and updates the cache, if any,
     in place.  A MoE block's aux is its router loss, or ``(loss,
     RouterStats)`` with ``collect_router_stats``; other blocks add none
-    (``None``: no device work where nothing is routed)."""
+    (``None``: no device work where nothing is routed).
+
+    Under an ambient ``ProcessMesh`` (``sharding.use_mesh``) ``params``
+    are this rank's blocks: the block runs as ``sharding.tp_plan`` says
+    (:func:`_rank_layer`)."""
     dt = x.dtype
     aux = None
     window = cfg.sliding_window if kind in ("attn_local", "moe_local",
                                             "hymba") else 0
+    mesh = sharding.rank_mesh()
+    att_tp = mlp_mesh = None
+    if mesh is not None:
+        params, plan = _rank_layer(params, cfg, kind, x, cache, mesh)
+        att_tp = plan.get("attn") if plan.get("attn") != "gather" else None
+        mlp_mesh = mesh if plan.get("mlp") == "tp" else None
 
     if kind in ATTN_KINDS:
         h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -200,7 +254,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
               else attn.gqa_attention)
         a, _ = fn(params["attn"], cfg, h, positions, window=window,
                   prefix_len=prefix_len,
-                  cache=None if cache is None else cache["kv"])
+                  cache=None if cache is None else cache["kv"], tp=att_tp)
         x = x + a
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
         if kind.startswith("moe"):
@@ -208,7 +262,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                   collect_stats=collect_router_stats)
             f, aux = out[0], (out[1:] if collect_router_stats else out[1])
         else:
-            f = mlp(params["mlp"], h, dt)
+            f = mlp(params["mlp"], h, dt, mlp_mesh)
         return x + f, aux
 
     if kind in HYMBA_KINDS:
@@ -216,7 +270,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         a, _ = attn.gqa_attention(
             params["attn"], cfg, h, positions, window=window,
             prefix_len=prefix_len,
-            cache=None if cache is None else cache["kv"])
+            cache=None if cache is None else cache["kv"], tp=att_tp)
         state = None if cache is None else cache["ssm"]
         if decode:
             m, s_new = ssm.mamba_step(params["mamba"], cfg, h, state)
@@ -227,7 +281,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         beta = params["beta"].to(dt)
         x = x + 0.5 * (beta[0] * a + beta[1] * m)
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
-        return x + mlp(params["mlp"], h, dt), aux
+        return x + mlp(params["mlp"], h, dt, mlp_mesh), aux
 
     if kind in XLSTM_KINDS:
         h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -242,7 +296,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         x = x + y
         if cfg.d_ff:
             h = rms_norm(x, params["norm2"], cfg.norm_eps)
-            x = x + mlp(params["mlp"], h, dt)
+            x = x + mlp(params["mlp"], h, dt, mlp_mesh)
         return x, aux
 
     raise ValueError(f"unknown block kind {kind!r}")
@@ -251,16 +305,56 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 # ---------------------------------------------------------------- forward --
 
 
+def _vocab_params(params: Dict, cfg: ModelConfig):
+    """``(params, mesh)``: under an ambient ``ProcessMesh`` the embedding
+    (and an untied head) with their ``"data"`` blocks gathered, and the
+    mesh where the vocabulary runs tensor parallel over ``"model"`` (each
+    rank its block of the rows; ``sharding.tp_plan``), else None; whole
+    trees as they are."""
+    mesh = sharding.rank_mesh()
+    if mesh is None:
+        return params, None
+    tp = sharding.tp_plan(cfg, mesh)["embed"]["vocab"] == "tp"
+    keep = (MODEL,) if tp else ()
+    out = dict(params)
+    out["embed"] = sharding.gathered(
+        params["embed"], embed_specs(cfg.vocab_size, cfg.d_model), mesh,
+        cfg.sharding_profile, keep=keep)
+    if "lm_head" in params:
+        out["lm_head"] = sharding.gathered(
+            params["lm_head"], _lm_head_spec(cfg), mesh,
+            cfg.sharding_profile, keep=keep)
+    return out, mesh if tp else None
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor, dt,
+            mesh: Optional[ProcessMesh] = None) -> torch.Tensor:
+    """The tokens' embedding rows, gathered, then cast (the same values as
+    casting the whole table).  ``mesh``: ``embed`` is this rank's block
+    of the vocabulary over ``"model"``; ids outside it give zeros and
+    the blocks' rows are added over ``"model"`` (one of them nonzero:
+    exact)."""
+    if mesh is None:
+        return embed[tokens.long()].to(dt)
+    Vl = embed.shape[0]
+    loc = tokens.long() - mesh.group_rank(MODEL, mesh.rank) * Vl
+    own = (loc >= 0) & (loc < Vl)
+    e = embed[loc.clamp(0, Vl - 1)].to(dt)
+    e = torch.where(own[..., None], e, torch.zeros((), dtype=dt,
+                                                   device=e.device))
+    return autodiff.tp_out(e, mesh, MODEL)
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """Precomputed frontend ``embeds`` (if any), then the tokens'
     embeddings, along the sequence; the gemma scale on both."""
     dt = as_dtype(cfg.compute_dtype)
+    params, vmesh = _vocab_params(params, cfg)
     parts = []
     if batch.get("embeds") is not None:
         parts.append(batch["embeds"].to(dt))
     if batch.get("tokens") is not None:
-        # gather, then cast: the same values as casting the whole table
-        parts.append(params["embed"][batch["tokens"].long()].to(dt))
+        parts.append(_lookup(params["embed"], batch["tokens"], dt, vmesh))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model),
@@ -307,11 +401,15 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     return h, cache
 
 
+def _head(params, cfg: ModelConfig, dt) -> torch.Tensor:
+    """The head's (D, V) weight in ``dt``: the tied embedding's transpose
+    or ``lm_head`` (a rank's vocabulary block of either)."""
+    return (params["embed"].to(dt).T if cfg.tie_embeddings
+            else params["lm_head"].to(dt))
+
+
 def logits_head(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    dt = h.dtype
-    w = (params["embed"].to(dt).T if cfg.tie_embeddings
-         else params["lm_head"].to(dt))
-    return h @ w
+    return h @ _head(params, cfg, h.dtype)
 
 
 # ------------------------------------------------------------------- loss --
@@ -332,10 +430,50 @@ def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, dt):
             torch.where(valid, lse * lse, zero), valid)
 
 
-def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor):
+def _ce_terms_tp(logits: torch.Tensor, labels: torch.Tensor, dt,
+                 mesh: ProcessMesh):
+    """:func:`_ce_terms` of the logits' vocabulary split over ``"model"``:
+    ``logits`` (..., V/M) is this rank's block.  The row max is the max
+    over ``"model"`` of the blocks' (exact), the sum of ``exp`` the
+    blocks' sums added in f32 in rank order, and the label logit (read
+    in the compute type ``dt``) comes from the rank whose block holds the
+    label (the others add zero; a label of -1 is in no block).  Every
+    rank gets the same terms."""
+    Vl = logits.shape[-1]
+    m = mesh.pmax(logits.detach().amax(dim=-1).unsqueeze(0),
+                  MODEL).reshape(labels.shape)
+    se = autodiff.tp_out(torch.sum(torch.exp(logits - m[..., None]),
+                                   dim=-1), mesh, MODEL)
+    lse = m + torch.log(se)
+    loc = labels.long() - mesh.group_rank(MODEL, mesh.rank) * Vl
+    own = (loc >= 0) & (loc < Vl)
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    label_logit = logits.to(dt).gather(-1, loc.clamp(0, Vl - 1)[..., None])[
+        ..., 0].to(torch.float32)
+    label_logit = autodiff.tp_out(torch.where(own, label_logit, zero), mesh,
+                                  MODEL)
+    valid = labels >= 0
+    return (torch.where(valid, lse - label_logit, zero),
+            torch.where(valid, lse * lse, zero), valid)
+
+
+def _logits(h: torch.Tensor, w: torch.Tensor,
+            mesh: Optional[ProcessMesh]) -> torch.Tensor:
+    """f32 logits from the compute-type product ``h @ w``; ``mesh``: ``w``
+    is this rank's vocabulary block (a column-parallel product)."""
+    if mesh is not None:
+        h = autodiff.tp_in(h, mesh, MODEL)
+    return (h @ w).to(torch.float32)
+
+
+def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor,
+              mesh: Optional[ProcessMesh] = None):
     """One sequence chunk's summed nll and z terms: logits (B, c, V) in
-    f32 from the compute-type product."""
-    nll, zl, _ = _ce_terms((hx @ w).to(torch.float32), lx, hx.dtype)
+    f32 from the compute-type product (over ``mesh``: this rank's
+    vocabulary block of them, :func:`_ce_terms_tp`)."""
+    logits = _logits(hx, w, mesh)
+    nll, zl, _ = (_ce_terms(logits, lx, hx.dtype) if mesh is None
+                  else _ce_terms_tp(logits, lx, hx.dtype, mesh))
     return nll.sum(), zl.sum()
 
 
@@ -354,12 +492,16 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
     ``collect_router_stats`` the detached ``router_counts`` (E,) and
     ``router_coact`` (E, E).
 
-    Under an ambient ``ProcessMesh`` (``moe.use_mesh``) ``batch`` is this
-    rank's block and the loss the whole batch's: the CE, z and MTP sums
-    are added over the batch axes of ``cfg.sharding_profile`` and divided
-    by the global count of valid labels (a gathered integer), as the JAX
-    package's ``jit`` over a mesh computes them; every rank returns the
-    same loss and metrics."""
+    Under an ambient ``ProcessMesh`` (``sharding.use_mesh``) ``params``
+    are this rank's blocks, ``batch`` is its block and the loss the whole
+    batch's: the CE, z and MTP sums are added over the batch axes of
+    ``cfg.sharding_profile`` and divided by the global count of valid
+    labels (a gathered integer), as the JAX package's ``jit`` over a mesh
+    computes them; every rank returns the same loss and metrics.  Where
+    the vocabulary is split over ``"model"`` the head and the CE run
+    vocabulary parallel (:func:`_ce_terms_tp`): no rank holds a whole
+    row of logits."""
+    params, vmesh = _vocab_params(params, cfg)
     h, _, aux = forward(params, cfg, batch, with_aux=True, remat=remat,
                         collect_router_stats=collect_router_stats)
     rstats = None
@@ -369,8 +511,7 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
     labels = batch["labels"]
     B, S = labels.shape
     dt = h.dtype
-    w = (params["embed"].to(dt).T if cfg.tie_embeddings
-         else params["lm_head"].to(dt))
+    w = _head(params, cfg, dt)
     c = min(seq_chunk, S)
     Sp = -(-S // c) * c
     hp, lp = h, labels
@@ -383,9 +524,10 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
     for i in range(0, Sp, c):
         hx, lx = hp[:, i:i + c], lp[:, i:i + c]
         if torch.is_grad_enabled():
-            nll, zl = checkpoint(_chunk_ce, hx, lx, w, use_reentrant=False)
+            nll, zl = checkpoint(_chunk_ce, hx, lx, w, vmesh,
+                                 use_reentrant=False)
         else:
-            nll, zl = _chunk_ce(hx, lx, w)
+            nll, zl = _chunk_ce(hx, lx, w, vmesh)
         tot = tot + nll
         ztot = ztot + zl
     cnt = _batch_sum(cfg, (labels >= 0).sum().to(torch.int32))
@@ -397,7 +539,7 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
         loss = loss + cfg.moe.router_aux_weight * aux
     mtp = torch.zeros((), dtype=f32, device=h.device)
     if cfg.mtp and batch.get("tokens") is not None:
-        mtp = _mtp_loss(params, cfg, batch, h[:, :S])
+        mtp = _mtp_loss(params, cfg, batch, h[:, :S], vmesh)
         loss = loss + 0.3 * mtp
     metrics = dict(ce=ce, aux=aux, tokens=cnt, mtp=mtp)
     if rstats is not None:
@@ -407,22 +549,30 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
 
 def _mtp_loss(params: Dict, cfg: ModelConfig, batch: Dict,
-              h: torch.Tensor) -> torch.Tensor:
+              h: torch.Tensor,
+              vmesh: Optional[ProcessMesh] = None) -> torch.Tensor:
     """DeepSeek-V3 multi-token prediction: one extra attention block
     predicting t+2 from ``[norm(h_t) ; emb(token_{t+1})]``, sharing the
-    embedding and the head; the mean CE over valid positions."""
+    embedding and the head; the mean CE over valid positions
+    (vocabulary parallel over ``vmesh``, as :func:`loss_fn`)."""
     dt = h.dtype
     tokens, labels = batch["tokens"], batch["labels"]
     nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     lbl2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, -1:], -1)],
                      dim=1)
-    e = params["embed"][nxt.long()].to(dt)
+    e = _lookup(params["embed"], nxt, dt, vmesh)
     hm = rms_norm(h, params["mtp"]["norm"], cfg.norm_eps)
-    x = torch.cat([hm, e], dim=-1) @ params["mtp"]["proj"].to(dt)
+    proj = params["mtp"]["proj"]
+    mesh = sharding.rank_mesh()
+    if mesh is not None:
+        proj = sharding.gathered(proj, _mtp_proj_spec(cfg), mesh,
+                                 cfg.sharding_profile)
+    x = torch.cat([hm, e], dim=-1) @ proj.to(dt)
     x, _ = apply_block(params["mtp"]["block"], cfg, "attn", x,
                        batch["positions"], None)
-    logits = logits_head(params, cfg, x).to(torch.float32)
-    nll, _, valid = _ce_terms(logits, lbl2, dt)
+    logits = _logits(x, _head(params, cfg, dt), vmesh)
+    nll, _, valid = (_ce_terms(logits, lbl2, dt) if vmesh is None
+                     else _ce_terms_tp(logits, lbl2, dt, vmesh))
     return _batch_sum(cfg, nll.sum()) / torch.clamp(
         _batch_sum(cfg, valid.sum()), min=1).to(torch.float32)
 
@@ -431,8 +581,8 @@ def _batch_sum(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
     """A scalar summed over the batch axes of the ambient ``ProcessMesh``
     (gathered and added in rank order, the same bits on every rank; its
     gradient reaches this rank's term once), else ``t``."""
-    mesh = moe_mod.ambient_mesh()
-    if not isinstance(mesh, ProcessMesh):
+    mesh = sharding.rank_mesh()
+    if mesh is None:
         return t
     axes = sharding.batch_axes(mesh, cfg.sharding_profile)
     return autodiff.leave(mesh, t.reshape(1), axes).sum(0).to(t.dtype)

@@ -11,21 +11,26 @@ returns new parameter and state trees; the inputs are left as they were.
 Over a mesh (``mesh=``) the step is the JAX step under ``jit`` with the
 partition rules' shardings, as ``tests/test_distributed_small_mesh.py``
 builds it.  On a ``ShardMesh`` the process holds every shard, so the
-trees are whole and the mesh is the MoE layers' (``moe.use_mesh``).  On
-a ``ProcessMesh`` the step takes and returns this rank's trees: the
-parameters and the optimizer state placed by
-``distributed.sharding.train_placements`` (``local_tree``), the batch
-its block over the profile's batch axes (``data_placements``).  Each
-gradient is summed by gather-and-add over ``sharding.grad_sum_axes``:
-the batch axes it is not split over, as their ranks hold other tokens
-(an expert block over ``"data"`` where EP is over ``"model"`` alone, and
-over none where EP spans the batch axes), and the router's over
-``"model"`` too, as each rank routes its own sequence block.  Loss,
-metrics and grad norm are global and the replicated leaves' updates
-equal on every rank.  Profiles: ``"2d"`` (batch over
-``("pod", "data")``, dense weights whole over ``"model"``: their tensor
-parallelism is the next slice) and ``"dp"`` (batch over every axis,
-weights whole; a MoE config raises).
+trees are whole and the mesh is the MoE layers' (``sharding.use_mesh``).
+On a ``ProcessMesh`` the step takes and returns this rank's trees: the
+parameters and the optimizer state (moments, master copy) placed by
+``distributed.sharding.train_placements`` — the JAX rules' placement of
+every leaf, so no rank holds a whole copy of a leaf the rules split —
+and the batch its block over the profile's batch axes
+(``data_placements``; the global batch must divide over them).  The
+model computes tensor parallel over ``"model"`` where a block is whole
+heads, ``d_ff`` columns or a vocabulary block, and gathers every other
+block just before use (``sharding.tp_plan``, ``sharding.gathered``): a
+``"data"`` (FSDP) gather's backward is a reduce-scatter, which adds the
+``"data"`` ranks' gradients.  What is left is summed by gather-and-add
+over ``sharding.grad_sum_axes``: the batch axes a leaf is not split over,
+as their ranks hold other tokens, and the router's over ``"model"`` too,
+as each rank routes its own sequence block.  Loss, metrics and grad norm
+are global and the replicated leaves' updates equal on every rank.
+Profiles: ``"2d"`` (batch over ``("pod", "data")``, tensor parallel over
+``"model"``) and ``"dp"`` (batch over every axis, the ``"model"``
+entries whole, the ``"data"`` ones FSDP; a MoE layer regroups its tokens
+over ``"model"`` at the boundary, ``models.moe``).
 """
 from __future__ import annotations
 
@@ -36,7 +41,6 @@ import torch
 
 from repro_torch.distributed import sharding
 from repro_torch.distributed.mesh import ProcessMesh
-from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves, tree_map
@@ -97,9 +101,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.OptConfig, *,
     and ``router_coact`` (E, E) to the metrics, for the expert-placement
     runtime (``train.ep_runtime``).  ``mesh``: the step over a mesh (see
     the module's docstring)."""
-    if mesh is not None and cfg.moe is not None and (
-            cfg.sharding_profile == "dp"):
-        raise NotImplementedError(moe_mod.DP_BOUNDARY_ITEM)
     loss = make_loss(cfg, remat, collect_router_stats)
     ranks = mesh if isinstance(mesh, ProcessMesh) else None
 
@@ -109,7 +110,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.OptConfig, *,
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
-        ctx = (moe_mod.use_mesh(mesh) if mesh is not None
+        ctx = (sharding.use_mesh(mesh) if mesh is not None
                else contextlib.nullcontext())
         with torch.enable_grad(), ctx:
             lval, metrics = loss(live, batch)

@@ -2,8 +2,8 @@
 
 A module of its own, importing neither JAX nor the JAX package, so that a
 spawned rank (``launch.mesh.run_ranks``) imports only the port.  The
-parent passes every input as NumPy arrays; each case returns NumPy arrays
-(or the message of what it raised).
+parent passes every input as NumPy arrays; each case returns NumPy
+arrays.
 """
 import dataclasses
 
@@ -122,8 +122,7 @@ def _step_case(mesh, case, params_np, tok):
                 local=[_np(t) for t in tree_leaves(new)],
                 mu=[_np(t) for t in tree_leaves(new_opt.mu)],
                 whole=[_np(t) for t in tree_leaves(whole)],
-                split=[bool(p.axes()) for p in _placement_leaves(
-                    params, place)])
+                places=[tuple(p) for p in _placement_leaves(params, place)])
 
 
 def _placement_leaves(tree, place):
@@ -133,24 +132,9 @@ def _placement_leaves(tree, place):
     return out
 
 
-def _raises_under_dp(mesh):
-    """A MoE config under the "dp" profile: the step and the layer raise."""
-    out = []
-    cfg = step_cfg("deepseek-v3-671b", "dp", 1.25)
-    try:
-        ts_mod.make_train_step(cfg, opt_mod.OptConfig(), mesh=mesh)
-    except NotImplementedError as e:
-        out.append(str(e))
-    try:
-        moe.moe_a2a({}, cfg, torch.zeros(2, 4, cfg.d_model), mesh=mesh)
-    except NotImplementedError as e:
-        out.append(str(e))
-    return out
-
-
 def all_cases(world, inputs):
     """Every case of the model-mesh tests on this rank, one spawn for
-    all: the a2a on each case's mesh, the train steps, the "dp" check."""
+    all: the a2a on each case's mesh, the train steps, the collectives."""
     out = dict(rank=world.rank, a2a={}, steps={})
     meshes = {}
 
@@ -169,6 +153,5 @@ def all_cases(world, inputs):
             inputs["tokens"][case["arch"]])
     out["collectives"] = _collectives(mesh_of(dict(data=2, model=2)),
                                       inputs["blocks"])
-    out["dp"] = _raises_under_dp(mesh_of(dict(data=2, model=2)))
     out["repr"] = repr(mesh_of(dict(data=2, model=2)))
     return out

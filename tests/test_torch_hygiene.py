@@ -19,6 +19,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "repro_torch.pic.driver" in mods and len(mods) > 20
     # the sharded slice's modules are among those checked
     assert {"repro_torch.distributed.mesh", "repro_torch.distributed.lb_shard",
+            "repro_torch.distributed.autodiff",
+            "repro_torch.distributed.sharding",
             "repro_torch.distributed.replay_shard",
             "repro_torch.runtime.resilience",
             "repro_torch.train.fault_tolerance",
@@ -39,8 +41,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "benchmarks_torch.replay_shard_bench",
             "benchmarks_torch.roofline", "repro_torch.launch.dryrun"} <= set(
                 mods)
-    # what a spawned rank of the process-mesh tests imports
-    mods += ["tests.process_mesh_ranks"]
+    # what a spawned rank of the process- and model-mesh and tensor
+    # parallel tests imports
+    mods += ["tests.process_mesh_ranks", "tests.model_mesh_ranks",
+             "tests.tensor_parallel_ranks"]
     examples = sorted(str(f) for f in (ROOT / "examples_torch").glob("*.py"))
     assert len(examples) == 5
     code = (
@@ -69,7 +73,8 @@ def test_sources_have_no_jax_or_repro_imports():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", *(ROOT / "benchmarks_torch").glob("*.py"),
               *(ROOT / "examples_torch").glob("*.py"),
-              ROOT / "tests" / "process_mesh_ranks.py"]
+              *(ROOT / "tests" / f"{m}_ranks.py" for m in (
+                  "process_mesh", "model_mesh", "tensor_parallel"))]
     assert len(list((ROOT / "examples_torch").glob("*.py"))) == 5
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -823,4 +828,42 @@ def test_chip_smoke_model_mesh_phase_rehearses_on_cpu(monkeypatch):
     assert m["many"]["world_size"] == 4 and len(m["many"]["exchange_ms"]) == 4
     assert m["many"]["dropped_pairs"] > 0          # capacity 1.25 drops
     assert len(m["steps"]["deepseek_param_err"]) == 4
+    assert not any(launches.values())                # plain versions
+
+
+def test_chip_smoke_tensor_parallel_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 19 runs end to end on the CPU's plain versions
+    at reduced sizes in one spawn of 4 gloo ranks: (a) the reduced
+    gemma3-27b over (model 4) (the head-repeat branch) and (b) the reduced
+    smollm-135m over (data 2, model 2), each rank holding only its blocks,
+    held to the one-process step through the reference's files in f32
+    and in bf16 compute; (c) the reduced cases' checks (against the same
+    ranks, the CPU's)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "TP_FULL", False)
+    monkeypatch.setattr(chip_smoke, "TP_GEMMA", dict(
+        chip_smoke.TP_GEMMA, seq=32))
+    monkeypatch.setattr(chip_smoke, "TP_SMOLLM", dict(
+        chip_smoke.TP_SMOLLM, seq=32))
+    monkeypatch.setattr(chip_smoke, "TP", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.tensor_parallel_phase()
+    finally:
+        torch.set_num_threads(threads)
+    t = chip_smoke.TP
+    assert t["world_size"] == 4 and t["transport"] == "gloo"
+    for w in ("gemma", "smollm"):
+        assert all(e < t[w]["whole_elements"] for e in t[w]["elements"])
+        assert set(t[w]["runs"]) == {"float32", "bfloat16"}
+        for run in t[w]["runs"].values():
+            assert max(run["param_err"]) <= 2.5 * run["lr"]
+    assert set(t["small"]) == {"gemma3-27b", "deepseek-v3-671b",
+                               "qwen1.5-110b"}
+    assert t["dropped_pairs"] > 0
     assert not any(launches.values())                # plain versions

@@ -29,7 +29,13 @@ the in-process ``ShardMesh`` of the same axes:
     parameters within 2.5 lr, router counts exact (the one-device steps
     at capacity 8, where nothing drops);
   * every rank's metrics and whole (replicated) leaves equal bit for bit;
-  * a MoE config under the ``"dp"`` profile raises.
+  * in process, the ``"dp"`` profile computes what one device (or, with
+    experts, the ``"2d"`` profile) computes.
+
+The step's placements are the JAX rules' (``sharding.train_placements``):
+the dense layers' tensor parallelism and FSDP and the MoE boundary under
+``"dp"`` are held to these references in
+``tests/test_torch_tensor_parallel.py``.
 """
 import dataclasses
 import functools
@@ -48,6 +54,7 @@ from repro.models.params import init_params as j_init
 from repro.train import optimizer as j_opt
 from repro.train import train_step as j_ts
 from repro_torch import interop
+from repro_torch.distributed import sharding
 from repro_torch.distributed.mesh import ShardMesh
 from repro_torch.launch.mesh import make_host_mesh, run_ranks
 from repro_torch.models import moe
@@ -434,36 +441,37 @@ def test_train_step_over_ranks_equals_one_device_and_jax(ranks, name):
 @pytest.mark.parametrize("name", list(STEPS))
 def test_replicated_leaves_and_metrics_equal_on_every_rank(ranks, name):
     """The clip scale, the gradient sums and the router's model-axis sum
-    give every rank the same bits: every whole leaf, its first moment and
-    every metric are equal across the ranks; an expert block differs."""
+    give every rank the same bits: every metric, every whole leaf and its
+    first moment, and every block of a split leaf on the ranks that hold
+    that block, are equal across the ranks; the ranks holding another
+    block of a split leaf hold other bits."""
     _, out = ranks
+    mesh = _mesh(STEPS[name]["axes"])
     first = out[0]["steps"][name]
+    places = [sharding.Placement(p) for p in first["places"]]
+    assert any(p.axes() for p in places), name
     for r, o in enumerate(out[1:], 1):
         s = o["steps"][name]
         for k, v in first["metrics"].items():
             np.testing.assert_array_equal(s["metrics"][k], v,
                                           err_msg=(name, r, k))
-        for i, split in enumerate(first["split"]):
-            if not split:
+        for i, p in enumerate(places):
+            if all(mesh.coords(r)[a] == 0 for a in p.axes()):
                 np.testing.assert_array_equal(s["local"][i],
                                               first["local"][i])
                 np.testing.assert_array_equal(s["mu"][i], first["mu"][i])
-    split = [i for i, sp in enumerate(first["split"]) if sp]
-    assert bool(split) == ("deepseek" in name), name
-    for i in split:
-        assert not np.array_equal(out[1]["steps"][name]["local"][i],
-                                  first["local"][i])
+            else:
+                assert not np.array_equal(s["local"][i], first["local"][i])
 
 
-def test_moe_under_the_dp_profile_raises(ranks):
+def test_process_mesh_repr_and_the_dp_profile_in_process(ranks):
+    """A rank's mesh names its axes; in process the "dp" profile computes
+    what one device computes (a model without experts bit for bit; a MoE
+    model's "dp" step equal to its "2d" step: the a2a's token shards are
+    the same under both profiles)."""
     _, out = ranks
     for o in out:
-        assert len(o["dp"]) == 2 and all("6b" in m for m in o["dp"]), o["dp"]
         assert "axes={'data': 2, 'model': 2}" in o["repr"]
-    cfg = rk.step_cfg("deepseek-v3-671b", "dp", 1.25)
-    with pytest.raises(NotImplementedError, match="6b"):
-        ts_mod.make_train_step(cfg, opt_mod.OptConfig(), mesh=_mesh(DM))
-    # a model without experts takes "dp" in process, equal to one device
     case = STEPS["smollm-dp"]
     inputs = _inputs()
     arch = case["arch"]
@@ -474,3 +482,13 @@ def test_moe_under_the_dp_profile_raises(ranks):
     for x, y in zip(a[0], b[0]):
         np.testing.assert_array_equal(x, y)
     assert math.isfinite(float(a[1]["loss"]))
+    arch = "deepseek-v3-671b"
+    dp = _port_step(dict(arch=arch, cf=1.25, profile="dp"),
+                    inputs["params"][arch], inputs["tokens"][arch],
+                    _mesh(DM))
+    two = _port_step(dict(arch=arch, cf=1.25), inputs["params"][arch],
+                     inputs["tokens"][arch], _mesh(DM))
+    for x, y in zip(dp[0], two[0]):
+        np.testing.assert_array_equal(x, y)
+    for k, v in two[1].items():
+        np.testing.assert_array_equal(dp[1][k], v, err_msg=k)

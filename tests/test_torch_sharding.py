@@ -209,30 +209,98 @@ def test_local_blocks_make_up_the_tensor(placement):
     assert sharding.gather_tree(tree, dict(a=[p]), mesh) is tree
 
 
-def test_train_placements_split_only_the_expert_stacks():
-    """The sharded step's placements: the expert stacks over the EP axes
-    on dim 0 (as the a2a takes them), where E divides; all else whole."""
-    cfg = get_arch("deepseek-v3-671b").reduced
-    specs = transformer.model_specs(cfg)
-    place = sharding.train_placements(specs, dict(data=2, model=2), cfg)
-    split = {path: a for path, a, _ in _pairs(place, specs) if a.axes()}
-    moe_layers = [i for i, k in enumerate(cfg.all_layers())
-                  if k.startswith("moe")]
-    assert set(split) == {f"/layers/{i}/moe/{w}" for i in moe_layers
-                          for w in ("wi", "wg", "wo")}
-    assert all(a == ("model", None, None) for a in split.values())
-    wide = dataclasses.replace(cfg, ep_axes=("data", "model"))
-    place = sharding.train_placements(specs, dict(data=2, model=2), wide)
-    assert place["layers"][moe_layers[0]]["moe"]["wi"][0] == ("data",
-                                                              "model")
-    # E = 8 does not divide over 16: every leaf whole (the dense path)
-    place = sharding.train_placements(specs, dict(model=16), cfg)
-    assert not any(a.axes() for _, a, _ in _pairs(place, specs))
-    assert sharding.grad_sum_axes(sharding.Placement(("model", None)),
-                                  dict(data=2, model=2)) == ("data",)
-    assert sharding.grad_sum_axes(sharding.Placement((None,)),
-                                  dict(data=2, model=2), model=True) == (
+TRAIN_MESHES = {"2x2": dict(data=2, model=2), "4": dict(model=4)}
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_placements_equal_the_jax_rules(jrules, arch, mesh, profile):
+    """The sharded step keeps every leaf of the reduced config where the
+    JAX rules place it (``param_shardings``) on the four-rank meshes: the
+    expert stacks ``(ep_axes, "data", None)``, the dense layers and the
+    vocabulary over "model", the ``"data"`` entries FSDP — on its specs
+    and on a tree of tensors alike."""
+    jcfg = dataclasses.replace(j_get_arch(arch).reduced,
+                               sharding_profile=profile)
+    tcfg = dataclasses.replace(get_arch(arch).reduced,
+                               sharding_profile=profile)
+    axes = TRAIN_MESHES[mesh]
+    want = _port_layout(jrules.param_shardings(
+        jt.model_specs(jcfg), _jmesh(axes), profile), jcfg, _unstack_p)
+    specs = transformer.model_specs(tcfg)
+    got = sharding.train_placements(specs, axes, tcfg)
+    n = 0
+    for path, a, b in _pairs(got, want):
+        assert isinstance(a, sharding.Placement), path
+        assert a == tuple(b), (path, a, b)
+        n += 1
+    assert n == len(list(_pairs(specs, specs)))
+    tensors = sharding.tree_map(lambda s: torch.empty(s.shape,
+                                                      device="meta"), specs)
+    assert sharding.train_placements(tensors, axes, tcfg) == got
+    if tcfg.moe is not None and profile == "2d" and "data" in axes:
+        for layer in got["layers"]:
+            if "moe" in layer:
+                assert layer["moe"]["wi"] == ("model", "data", None)
+                assert layer["moe"]["wo"] == ("model", None, "data")
+
+
+def test_grad_sum_axes_leave_out_the_split_axes():
+    """A leaf's gradient is summed over the batch axes it is not split
+    over (its FSDP gather's reduce-scatter has summed those it is split
+    over), and the router's over "model" too."""
+    dm = dict(data=2, model=2)
+    P = sharding.Placement
+    assert sharding.grad_sum_axes(P(("model", None)), dm) == ("data",)
+    assert sharding.grad_sum_axes(P(("data", None)), dm) == ()
+    assert sharding.grad_sum_axes(P(("data", "model")), dm) == ()
+    assert sharding.grad_sum_axes(P((None,)), dm, model=True) == (
         "data", "model")
-    assert sharding.grad_sum_axes(sharding.Placement((None,)),
-                                  dict(data=2, model=2), "dp") == (
-        "data", "model")
+    assert sharding.grad_sum_axes(P((None,)), dm, "dp") == ("data", "model")
+    assert sharding.grad_sum_axes(P(("data", None)), dm, "dp") == ("model",)
+    assert sharding.grad_sum_axes(P(("model", "data", None)), dm,
+                                  "dp") == ()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_plan_follows_heads_widths_and_the_profile(arch):
+    """``tp_plan`` on the reduced configs: under "dp" or without a
+    "model" axis everything is gathered; under "2d" GQA takes the plain
+    split where the KV heads divide over "model", the head-repeat branch
+    where only the query heads do (the JAX gate), else gathers; MLA splits
+    where its heads divide; an MLP or the vocabulary is tensor parallel
+    where its width divides; SSM cells are gathered."""
+    cfg = get_arch(arch).reduced
+    for axes in (dict(data=2, model=2), dict(model=4), dict(data=4)):
+        for profile in PROFILES:
+            c = dataclasses.replace(cfg, sharding_profile=profile)
+            plan = sharding.tp_plan(c, axes)
+            M = axes.get("model", 1) if profile == "2d" else 1
+            kinds = set(c.all_layers()) | ({"attn"} if c.mtp else set())
+            assert set(plan) == kinds | {"embed"}
+            modes = {m for p in plan.values() for m in p.values()}
+            if M == 1:
+                assert modes == {"gather"}, (arch, axes, profile)
+                continue
+            H, KV = c.num_heads, c.num_kv_heads
+            if c.attention == "mla":
+                att = "tp" if H % M == 0 else "gather"
+            elif KV % M == 0 and (KV * c.hd) % M == 0:
+                att = "tp"
+            elif H % M == 0:
+                att = "repeat"
+            else:
+                att = "gather"
+            for kind, p in plan.items():
+                if "attn" in p:
+                    assert p["attn"] == att, (arch, axes, kind, p)
+                if "mlp" in p:
+                    width = (c.d_ff_dense or c.d_ff) if kind in (
+                        "attn", "attn_local") else c.d_ff
+                    assert p["mlp"] == ("tp" if width % M == 0
+                                        else "gather"), (arch, kind)
+                for part in ("mamba", "cell"):
+                    assert p.get(part, "gather") == "gather"
+            assert plan["embed"]["vocab"] == (
+                "tp" if c.vocab_size % M == 0 else "gather")
