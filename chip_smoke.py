@@ -534,6 +534,32 @@ TP_THREADS = 2
 TP_KERNELS = dict(step=("flash_attention", "flash_attention_bwd"),
                   moe=("scatter_dest",))
 TP: dict = {}           # phase 19's numbers (one JSON line)
+# phase 20: serving over SV_WORLD ranks on the card (gloo-host), each
+# holding only its blocks of the parameters and of the cache (slots over
+# "model").  (a) SV_GEMMA: gemma3-27b published, cut to one attn_local and
+# one attn layer, mesh (model 4): 960-token prompts, then 128 greedy ticks
+# past the 1024-slot ring; the 2048-slot global cache's last rank block
+# holds no key; (b) SV_DEEPSEEK: deepseek-v3 published, cut to its first
+# two dense MLA layers (decode through the simt form's partials); (c)
+# SV_SMALL: every reduced family on the card's ranks and on as many CPU
+# ranks, over both meshes; (d) K6's partials at (a)'s and (b)'s decode
+# shapes against their plain versions (times in K6's row).  f32 compute:
+# greedy tokens equal the one-process run's; bf16: the ranks fed the
+# one-process tokens.  The logits' bound against the one-process run,
+# relative to its largest |logit| (bf16's stated in PERF.md before the
+# first run)
+SV_FULL = True               # the published widths; a rehearsal: reduced
+SV_WORLD = 4
+SV_GEMMA = dict(arch="gemma3-27b", batch=2, prompt=960, ticks=128,
+                max_len=2048, seed=0)
+SV_DEEPSEEK = dict(arch="deepseek-v3-671b", batch=2, prompt=256, ticks=32,
+                   max_len=288, seed=0)
+SV_SMALL = dict(batch=4, prompt=14, ticks=8, max_len=24, seed=0,
+                meshes=((("data", 2), ("model", 2)), (("model", 4),)))
+SV_TOL = dict(float32=1e-4, bfloat16=2e-2, small=1e-5)
+SV_TIMEOUT = dict(card=900, cpu=300)
+SV_THREADS = 2
+SV: dict = {}           # phase 20's numbers (one JSON line)
 SMI = ""             # the card's name and power limit (nvidia-smi)
 RESULTS: dict = {}   # single-device results the sharded phases are held to
 SHARDED: dict = {}   # the sharded phases' numbers (one JSON line)
@@ -5126,6 +5152,550 @@ def tensor_parallel_phase():
     return launches
 
 
+# ------------------------------------------------- serving over ranks --
+
+
+def _sv_conf():
+    """Phase 20's sizes, passed to its ranks."""
+    return dict(full=SV_FULL, gemma=dict(SV_GEMMA),
+                deepseek=dict(SV_DEEPSEEK), small=dict(SV_SMALL))
+
+
+def _sv_cfg(which, conf, compute):
+    """(a) gemma3-27b cut to one attn_local and one attn layer, (b)
+    deepseek-v3 cut to its first two (dense, MLA) layers, no MTP;
+    ``compute`` the compute type; a rehearsal: the reduced configs cut
+    alike."""
+    arch = conf[which]["arch"]
+    if which == "gemma":
+        cut = dict(num_layers=2, prefix_layers=(),
+                   layer_unit=("attn_local", "attn"), suffix_layers=())
+    else:
+        cut = dict(num_layers=2, prefix_layers=("attn", "attn"),
+                   layer_unit=("moe",), suffix_layers=(), mtp=False)
+    return _train_cfg(arch, conf["full"], compute_dtype=compute, **cut)
+
+
+def _sv_cache_dtype(compute):
+    import torch
+
+    return torch.float32 if compute == "float32" else torch.bfloat16
+
+
+def _sv_prompt(cfg, spec, dev):
+    """``batch`` prompts of ``prompt`` tokens from seed ``seed``,
+    positions from 0."""
+    import numpy as np
+    import torch
+
+    B, S = spec["batch"], spec["prompt"]
+    tok = np.random.default_rng(spec["seed"]).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return dict(tokens=torch.from_numpy(tok).to(dev),
+                positions=torch.arange(S, dtype=torch.int32, device=dev)[
+                    None].expand(B, S).contiguous())
+
+
+def _tree_gib(tree) -> float:
+    from repro_torch.models.params import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(tree)) / 2 ** 30
+
+
+def _k6_counts():
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    return dict({f"forward {k}": v for k, v in fops.form_launches.items()},
+                **{f"partials {k}": v
+                   for k, v in fops.partial_launches.items()})
+
+
+def _sv_generate(params, cfg, batch, cache, ticks, *, feed=None,
+                 embeds=None):
+    """``transformer.prefill`` of ``batch`` (positions from 0), then
+    ``ticks`` greedy ``decode_step`` ticks, each fed the argmax of the
+    previous logits, or the tokens ``feed`` (B, ticks) in turn (two runs
+    held to one sequence), or the frame embeddings ``embeds`` (B, ticks,
+    D) (the audio frontend).  Returns the tokens (B, ticks + 1), the
+    logits of the prefill and of every tick (each (B, V) f32), and the
+    prefill's and each tick's seconds, the device synchronized at each
+    end.  Under an ambient ``ProcessMesh`` the inputs are this rank's
+    blocks (``cfg`` as ``transformer.serving_layout`` gives it), the
+    logits and tokens every row's, and each tick feeds this rank's
+    rows."""
+    import time
+
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+
+    dev = batch["positions"].device
+
+    def clock():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    index = batch["positions"].shape[1]
+    t0 = clock()
+    lg, cache = transformer.prefill(params, cfg, batch, cache)
+    logits = [lg[:, -1].float()]
+    tokens = [torch.argmax(logits[-1], dim=-1)]
+    t1 = clock()
+    prefill_s, tick_s = t1 - t0, []
+    rows = slice(None)
+    mesh = sharding.rank_mesh()
+    if mesh is not None:
+        place = sharding.data_placements(dict(t=(lg.shape[0], 1)), mesh,
+                                         cfg.sharding_profile)["t"]
+        rows = sharding.block_slices((lg.shape[0], 1), place, mesh)[0]
+    for i in range(ticks):
+        if embeds is not None:
+            lg, cache = transformer.decode_step(
+                params, cfg, None, index + i, cache,
+                embeds=embeds[:, i:i + 1])
+        else:
+            tok = tokens[-1] if feed is None else feed[:, i].to(dev)
+            lg, cache = transformer.decode_step(
+                params, cfg, tok[rows, None].to(torch.int32), index + i,
+                cache)
+        logits.append(lg[:, 0].float())
+        tokens.append(torch.argmax(logits[-1], dim=-1))
+        t2 = clock()
+        tick_s.append(t2 - t1)
+        t1 = t2
+    return torch.stack(tokens, 1), logits, prefill_s, tick_s
+
+
+def _sv_serve(params, cfg, batch, cache, spec, feed, dev):
+    """One greedy run under the ambient mesh (if any): the tokens, the
+    logits (ticks + 1, B, V) f32 on the host, the prefill's and ticks'
+    seconds and the launches of K6 by entry and form."""
+    import torch
+    from repro_torch import kernels
+
+    _rank_sync(torch.device(dev))
+    kernels.reset_launch_counts()
+    before = _k6_counts()
+    with torch.no_grad():
+        tokens, logits, prefill_s, tick_s = _sv_generate(
+            params, cfg, batch, cache, spec["ticks"], feed=feed)
+    after = _k6_counts()
+    return dict(tokens=tokens.cpu(), logits=torch.stack(logits).cpu(),
+                prefill_s=prefill_s,
+                tick_ms=1e3 * sum(tick_s) / len(tick_s),
+                launches=kernels.launch_counts(),
+                k6_forms={k: after[k] - before[k] for k in after})
+
+
+def _sv_reference(which, conf, dev, ref_dir):
+    """(a) or (b) in one process on the card: the whole tree drawn by
+    ``params.init_blocks``, a greedy run in f32 and one in bf16 compute;
+    each run's logits and tokens saved under ``ref_dir / compute`` for
+    the ranks, its numbers returned.  Frees what it made."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import count_params, init_blocks
+
+    spec = conf[which]
+    specs = transformer.model_specs(_sv_cfg(which, conf, "float32"))
+    params = init_blocks(specs, spec["seed"], device=dev)
+    out = dict(elements=count_params(specs), gib=param_gib(params), runs={})
+    for compute in ("float32", "bfloat16"):
+        cfg = _sv_cfg(which, conf, compute)
+        cache = transformer.init_cache(cfg, spec["batch"], spec["max_len"],
+                                       _sv_cache_dtype(compute), dev)
+        out.setdefault("cache_gib", {})[compute] = _tree_gib(cache)
+        run = _sv_serve(params, cfg, _sv_prompt(cfg, spec, dev), cache,
+                        spec, None, dev)        # greedy in both types
+        (ref_dir / compute).mkdir(parents=True)
+        np.save(ref_dir / compute / "logits.npy", run["logits"].numpy())
+        np.save(ref_dir / compute / "tokens.npy", run["tokens"].numpy())
+        out["runs"][compute] = dict(
+            tokens=run["tokens"], prefill_s=run["prefill_s"],
+            tick_ms=run["tick_ms"], k6_forms=run["k6_forms"],
+            scale=float(run["logits"].abs().max()))
+        del cache, run
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sv_rank_model(which, conf, mesh, dev, ref_dir):
+    """(a) or (b) on this rank: its blocks of the parameters
+    (``init_blocks`` under ``train_placements``) and of the cache
+    (``init_cache(mesh=...)``), a greedy run in f32 and one in bf16 fed
+    the one-process bf16 tokens; its logits against the reference's
+    (largest difference, largest |logit|), their SHA-256, the tokens, the
+    times and the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_blocks, tree_leaves
+
+    spec = conf[which]
+    base, specs, place = transformer.serving_layout(
+        _sv_cfg(which, conf, "float32"), mesh)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_blocks(specs, spec["seed"], place, mesh, dev)
+    out = dict(elements=sum(t.numel() for t in tree_leaves(params)),
+               gib=param_gib(params), plan=sharding.tp_plan(base, mesh),
+               runs={}, cache_gib={})
+    for compute in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        cache = transformer.init_cache(cfg, spec["batch"], spec["max_len"],
+                                       _sv_cache_dtype(compute), dev,
+                                       mesh=mesh)
+        out["cache_gib"][compute] = _tree_gib(cache)
+        feed = None
+        if compute == "bfloat16":
+            feed = torch.from_numpy(np.load(
+                ref_dir / compute / "tokens.npy"))[:, :spec["ticks"]]
+        batch = _sv_prompt(cfg, spec, dev)
+        bplace = sharding.data_placements(batch, mesh, cfg.sharding_profile)
+        batch = {k: sharding.local_block(v, bplace[k], mesh).contiguous()
+                 for k, v in batch.items()}
+        with sharding.use_mesh(mesh):
+            run = _sv_serve(params, cfg, batch, cache, spec, feed, dev)
+        lg = run.pop("logits").numpy()
+        ref = np.load(ref_dir / compute / "logits.npy", mmap_mode="r")
+        run.update(err=float(np.abs(lg - ref).max()),
+                   scale=float(np.abs(ref).max()), sha=_sha(lg))
+        out["runs"][compute] = run
+        del cache, lg, ref
+    out["peak_gib"] = _mesh_peak_gib(dev)
+    return out
+
+
+def _sv_small(conf, dev):
+    """(c) on this rank: every reduced family (f32) over each mesh of
+    ``SV_SMALL``, its blocks drawn on the CPU (the same bits on the card
+    and on the CPU): the greedy tokens, the logits and the launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import list_archs
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_blocks, tree_to
+
+    small = conf["small"]
+    out = {}
+    for axes in small["meshes"]:
+        mesh = ProcessMesh(dev, axes=dict(axes))
+        for arch in list_archs():
+            cfg, specs, place = transformer.serving_layout(_train_cfg(
+                arch, False, compute_dtype="float32"), mesh)
+            params = tree_to(init_blocks(specs, small["seed"], place, mesh,
+                                         "cpu"), dev)
+            cache = transformer.init_cache(cfg, small["batch"],
+                                           small["max_len"], "float32", dev,
+                                           mesh=mesh)
+            # drawn on the CPU: the same prompt on the card and the CPU
+            batch = {k: None if v is None else v.to(dev)
+                     for k, v in frontend_batch(
+                         cfg, small["batch"], small["prompt"],
+                         small["seed"], "cpu").items()}
+            bplace = sharding.data_placements(batch, mesh,
+                                              cfg.sharding_profile)
+            batch = {k: None if v is None else sharding.local_block(
+                v, bplace[k], mesh).contiguous() for k, v in batch.items()}
+            embeds = None
+            if cfg.frontend == "audio_stub":
+                embeds = torch.ones((batch["positions"].shape[0],
+                                     small["ticks"], cfg.d_model),
+                                    device=dev) * 0.01
+            with sharding.use_mesh(mesh), torch.no_grad():
+                kernels.reset_launch_counts()
+                tokens, logits, _, _ = _sv_generate(
+                    params, cfg, batch, cache, small["ticks"], embeds=embeds)
+                launches = kernels.launch_counts()
+            out[(arch, axes)] = dict(tokens=tokens.cpu(),
+                                     logits=torch.stack(logits).cpu(),
+                                     launches=launches)
+    return out
+
+
+def _rank_sv(world, conf, ref_root):
+    """Phase 20 on a card rank: (a) and (b) over (model W), then (c)."""
+    from pathlib import Path
+
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import ProcessMesh
+
+    W, dev = world.num_shards, world.device
+    out = dict(rank=world.rank, transport=world.transport, device=str(dev))
+    mesh = ProcessMesh(dev, axes=dict(model=W))
+    for which in ("gemma", "deepseek"):
+        out[which] = _sv_rank_model(which, conf, mesh, dev,
+                                    Path(ref_root) / which)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["small"] = _sv_small(conf, dev)
+    check(sharding.ambient_mesh() is None, "phase 20: a mesh left ambient")
+    return out
+
+
+def _rank_sv_cpu(world, conf):
+    """Phase 20 (c) on a CPU rank."""
+    return dict(rank=world.rank, small=_sv_small(conf, world.device))
+
+
+def _sv_partials(dev):
+    """(d): K6's partials at (a)'s and (b)'s decode shapes, each rank
+    block of the last tick's cache (f32 and bf16 where the run computes
+    in them), against the plain version on the same card tensors; the
+    merge over the blocks against the plain merge.  Times: the partials
+    of rank 0's block (which holds keys) and the merge of all four,
+    device time (``device_ms``; the plain versions, whose host issue
+    outlasts its sleep, by ``time_ms``); bounds from this run's visited
+    keys."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (POS_SENTINEL,
+                                                         combine_partials,
+                                                         split_partials)
+
+    conf = _sv_conf()
+    W = SV_WORLD
+    gen = torch.Generator(dev).manual_seed(0)
+    out = {}
+    for which, dtype in (("gemma", torch.bfloat16), ("gemma", torch.float32),
+                         ("deepseek", torch.bfloat16)):
+        spec = conf[which]
+        cfg = _sv_cfg(which, conf, "float32")
+        B, T = spec["batch"], spec["max_len"]
+        last = spec["prompt"] + spec["ticks"] - 1
+        if which == "gemma":
+            KV, G, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+                cfg.hd
+        else:
+            KV, G = 1, cfg.num_heads
+            hd = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+        q = torch.randn((B, 1, KV, G, hd), generator=gen, device=dev).to(
+            dtype)
+        k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev).to(
+            dtype) for _ in range(2))
+        qp = torch.full((B, 1), last, dtype=torch.int32, device=dev)
+        s = torch.arange(T, dtype=torch.int32, device=dev)[None]
+        kp = torch.where(s <= last, s, POS_SENTINEL).expand(B, T)
+        kp = kp.to(torch.int32).contiguous()
+        n = T // W
+        form = fops.partials_form(1, G, hd)
+        blocks = [tuple(t[:, i * n:(i + 1) * n].contiguous()
+                        for t in (k, v, kp)) for i in range(W)]
+        kw = [dict(offset=i * n, total=T) for i in range(W)]
+        got = [fops.flash_partials(q, b[0], b[1], qp, b[2], **a)
+               for b, a in zip(blocks, kw)]
+        kps = n if form == "simt" else fops.split_keys(B, KV, T)
+        want = [split_partials(q, b[0], b[1], qp, b[2],
+                               keys_per_split=min(kps, n), **a)
+                for b, a in zip(blocks, kw)]
+        cat = [torch.cat([g[j] for g in got]) for j in range(3)]
+        merged = fops.flash_combine(*cat, dtype)
+        plain = combine_partials(*[torch.cat([w[j] for w in want])
+                                   for j in range(3)], dtype)
+        err = float((merged.float() - plain.float()).abs().max())
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+        check(bool(((merged.float() - plain.float()).abs()
+                    <= tol + tol * plain.float().abs()).all()),
+              f"K6 partials ({which}, {dtype}): max_abs_err {err}")
+        empty = [bool((g[0] == -float("inf")).all()) for g in got]
+        b0 = blocks[0]
+        ms = device_ms(lambda: fops.flash_partials(q, b0[0], b0[1], qp,
+                                                   b0[2], **kw[0]))
+        plain_ms = time_ms(lambda: split_partials(
+            q, b0[0], b0[1], qp, b0[2], keys_per_split=min(kps, n),
+            **kw[0]))
+        comb_ms = device_ms(lambda: fops.flash_combine(*cat, dtype))
+        comb_plain_ms = time_ms(lambda: combine_partials(*cat, dtype))
+        # rank 0's block: q, its keys and values once, the partials out;
+        # QK^T and PV over its visited keys
+        vis = min(n, last + 1)
+        nbytes = (q.numel() * q.element_size() + 2 * B * vis * KV * hd
+                  * k.element_size() + 4 * B * vis
+                  + sum(t.numel() * 4 for t in got[0]))
+        flops = 4 * hd * G * KV * B * vis
+        bms, by = bound_ms(nbytes, flops, PEAK_BF16_PER_S
+                           if dtype == torch.bfloat16 else PEAK_F32_PER_S)
+        cbytes = sum(t.numel() * 4 for t in cat) + merged.numel() * \
+            merged.element_size()
+        cms, cby = bound_ms(cbytes, 3 * cat[2].numel(), PEAK_F32_PER_S)
+        out[f"{cfg.name} decode {str(dtype)[6:]} ({form})"] = dict(
+            q=list(q.shape), block=[B, n, KV, hd], blocks=W,
+            form=form, max_abs_err=err, empty_blocks=empty, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+            combine=dict(splits=int(cat[0].shape[0]), ms=comb_ms,
+                         plain_ms=comb_plain_ms, bound_ms=cms,
+                         bound_by=cby, library_ms=None))
+    return out
+
+
+def _sv_held(err, scale, tol, what):
+    check(err <= tol * scale, f"{what}: logits off by {err} (largest "
+          f"|logit| {scale}, bound {tol} of it)")
+
+
+def serving_ranks_phase():
+    """Phase 20: serving over ``SV_WORLD`` ranks of the card (gloo-host),
+    each holding only its blocks: (a) gemma3-27b and (b) deepseek-v3 at
+    their published widths, held to the one-process run on the card from
+    the same bits; (c) the reduced families on the card's ranks against
+    the same ranks on the CPU; (d) K6's partials against their plain
+    versions.  Returns the ranks' launches by kernel (summed over ranks
+    and runs) and (d)'s numbers."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.mesh import run_ranks
+
+    W = SV_WORLD
+    conf = _sv_conf()
+    many_t = "gloo-host" if DEV == "cuda" else "gloo"
+    threads = SV_THREADS if DEV == "cuda" else 1
+    t_phase = time.perf_counter()
+    ref_root = Path(tempfile.mkdtemp(prefix="chip_smoke-sv-"))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cpu = (pool.submit(run_ranks, _rank_sv_cpu, W, args=(conf,),
+                               device="cpu", transport="gloo",
+                               timeout=SV_TIMEOUT["cpu"], threads=1)
+                   if DEV == "cuda" else None)
+            refs = {w: _sv_reference(w, conf, DEV, ref_root / w)
+                    for w in ("gemma", "deepseek")}
+            t_refs = time.perf_counter() - t_phase
+            cpu = None if cpu is None else cpu.result()
+        t0 = time.perf_counter()
+        many = run_ranks(_rank_sv, W, args=(conf, str(ref_root)),
+                         device=DEV, transport=many_t,
+                         timeout=SV_TIMEOUT["card"], threads=threads)
+        spawn = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_root, ignore_errors=True)
+    if cpu is None:           # a rehearsal: its ranks ran on the CPU
+        cpu = [dict(rank=o["rank"], small=o["small"]) for o in many]
+    partials = _sv_partials(DEV) if DEV == "cuda" else {}
+    forms = dict(gemma="split", deepseek="simt" if SV_FULL else "split")
+    for r, o in enumerate(many):
+        check(o["rank"] == r and o["transport"] == many_t,
+              f"phase 20: rank {r} ran {o['transport']}")
+        for w, want in refs.items():
+            got = o[w]
+            check(got["elements"] < want["elements"],
+                  f"phase 20 {w}: rank {r} holds every element")
+            for compute, run in got["runs"].items():
+                what = f"phase 20 {w} {compute} rank {r}"
+                _sv_held(run["err"], run["scale"], SV_TOL[compute], what)
+                check(run["sha"] == many[0][w]["runs"][compute]["sha"],
+                      f"{what}: logits differ from rank 0's")
+                check(got["cache_gib"][compute]
+                      < want["cache_gib"][compute], f"{what}: the whole "
+                      "cache")
+                if compute == "float32":
+                    check(torch.equal(run["tokens"],
+                                      want["runs"][compute]["tokens"]),
+                          f"{what}: greedy tokens differ from the one-"
+                          "process run's")
+                if DEV == "cuda":
+                    f = run["k6_forms"]
+                    check(run["launches"]["flash_attention"] > 0
+                          and f[f"partials {forms[w]}"] > 0
+                          and f["partials combine"] > 0,
+                          f"{what}: K6's partials not launched ({f})")
+        for arch in list_archs():
+            for axes in SV_SMALL["meshes"]:
+                got, want = o["small"][(arch, axes)], cpu[r]["small"][
+                    (arch, axes)]
+                what = f"phase 20 (c) {arch} {dict(axes)} rank {r}"
+                check(torch.equal(got["tokens"], want["tokens"]),
+                      f"{what}: tokens differ from the CPU ranks'")
+                err = float((got["logits"] - want["logits"]).abs().max())
+                _sv_held(err, float(want["logits"].abs().max()),
+                         SV_TOL["small"], what)
+                if DEV == "cuda":
+                    check(got["launches"]["flash_attention"] > 0
+                          or not any(k in ("attn", "attn_local", "moe",
+                                           "moe_local", "hymba", "hymba_g")
+                                     for k in _train_cfg(
+                                         arch, False).all_layers()),
+                          f"{what}: K6 not launched")
+    launches = {}
+    for o in many:
+        runs = [run for w in ("gemma", "deepseek")
+                for run in o[w]["runs"].values()] + list(o["small"].values())
+        for run in runs:
+            for name, n in run["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+
+    def numbers(w):
+        want = refs[w]
+        return dict(
+            arch=_sv_cfg(w, conf, "float32").name,
+            layers=list(_sv_cfg(w, conf, "float32").all_layers()),
+            mesh=f"model {W}", batch=conf[w]["batch"],
+            prompt=conf[w]["prompt"], ticks=conf[w]["ticks"],
+            max_len=conf[w]["max_len"], plan=many[0][w]["plan"],
+            whole_elements=want["elements"], whole_gib=want["gib"],
+            gib=[o[w]["gib"] for o in many],
+            whole_cache_gib=want["cache_gib"],
+            cache_gib=[o[w]["cache_gib"] for o in many],
+            peak_gib=[o[w]["peak_gib"] for o in many],
+            runs={c: dict(
+                tolerance=SV_TOL[c],
+                fed="greedy" if c == "float32" else "one-process tokens",
+                logit_err=[o[w]["runs"][c]["err"] for o in many],
+                largest_logit=many[0][w]["runs"][c]["scale"],
+                tokens_agree=float(
+                    (many[0][w]["runs"][c]["tokens"]
+                     == want["runs"][c]["tokens"]).float().mean()),
+                one_process=dict(prefill_s=want["runs"][c]["prefill_s"],
+                                 tick_ms=want["runs"][c]["tick_ms"],
+                                 k6_forms=want["runs"][c]["k6_forms"]),
+                prefill_s=[o[w]["runs"][c]["prefill_s"] for o in many],
+                tick_ms=[o[w]["runs"][c]["tick_ms"] for o in many],
+                k6_forms=[o[w]["runs"][c]["k6_forms"] for o in many])
+                for c in ("float32", "bfloat16")})
+
+    SV.update(card=SMI, world_size=W, transport=many_t,
+              phase_seconds=time.perf_counter() - t_phase,
+              spawn_seconds=spawn, reference_seconds=t_refs,
+              gemma=numbers("gemma"), deepseek=numbers("deepseek"),
+              small=dict(archs=list(list_archs()),
+                         meshes=[dict(a) for a in SV_SMALL["meshes"]],
+                         tolerance=SV_TOL["small"]),
+              partials=partials, launches=launches)
+    for w, part in (("gemma", "a"), ("deepseek", "b")):
+        g = SV[w]
+        print(f"phase 20 ({part}): {g['arch']} {g['layers']} over {W} "
+              f"{many_t} ranks: a rank holds {g['gib'][0]:.3f} of "
+              f"{g['whole_gib']:.3f} GiB of parameters, "
+              f"{g['cache_gib'][0]} of {g['whole_cache_gib']} GiB of "
+              f"cache; " + "; ".join(
+                  f"{c}: logits off by {max(r['logit_err'])} (largest "
+                  f"{r['largest_logit']}), prefill s {r['prefill_s']}, "
+                  f"tick ms {r['tick_ms']} (one process "
+                  f"{r['one_process']['prefill_s']:.3f} s, "
+                  f"{r['one_process']['tick_ms']:.3f} ms), K6 {r['k6_forms'][0]}"
+                  for c, r in g["runs"].items()), flush=True)
+    print(f"phase 20 (c): every reduced family over "
+          f"{SV['small']['meshes']} on the card's ranks equals the CPU "
+          f"ranks; spawn {spawn:.1f} s, phase {SV['phase_seconds']:.1f} s")
+    return launches, partials
+
+
 # -------------------------------------------------------------- kernels --
 
 
@@ -5588,7 +6158,16 @@ def main() -> int:
         if n:
             r["launches"] += n
             r.setdefault("launches_by_path", {})["tensor parallel"] = n
+    # phase 20's launches (the serving ranks, summed over them) and K6's
+    # partials at its decode shapes
+    sv_launches, sv_partials = serving_ranks_phase()
+    for r in rows:
+        n = sv_launches.get(r["name"], 0)
+        if n:
+            r["launches"] += n
+            r.setdefault("launches_by_path", {})["serving ranks"] = n
     by_name = {r["name"]: r for r in rows}
+    by_name["flash_attention"]["partials"] = sv_partials
     by_name["flash_attention"]["backward"].update(
         launches=by_name["flash_attention_bwd"]["launches"],
         launches_by_path=by_name["flash_attention_bwd"].get(
@@ -5601,6 +6180,7 @@ def main() -> int:
     print(json.dumps({"ranks": RANKS}))
     print(json.dumps({"model_mesh": MESH}))
     print(json.dumps({"tensor_parallel": TP}))
+    print(json.dumps({"serving_ranks": SV}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

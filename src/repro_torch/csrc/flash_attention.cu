@@ -158,6 +158,14 @@ __device__ __forceinline__ int visit_end(const int* __restrict__ qpos_b,
              T);
 }
 
+// A block of keys: the k/v a call is given hold global slots [offset,
+// offset + T) of a cache of T_total slots (a rank's block of a cache split
+// by length); the bound above counts global slots.  The local slots a
+// global visit end `e` leaves: [0, min(max(e - offset, 0), T)).
+__device__ __forceinline__ int local_end(int e, int offset, int T) {
+  return min(max(e - offset, 0), T);
+}
+
 // ------------------------------------------------------------ simt form --
 
 // NC output columns a lane (hd <= 32 NC); GB groups a block (blockIdx.z
@@ -168,9 +176,13 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
                              const TKV* __restrict__ v,
                              const int* __restrict__ qpos,
                              const int* __restrict__ kvpos,
-                             TQ* __restrict__ out, int Sq, int T, int KV,
-                             int G, int GB, int hd, int rows, int window,
-                             int prefix_len, float scale) {
+                             TQ* __restrict__ out,
+                             float* __restrict__ m_part,
+                             float* __restrict__ l_part,
+                             float* __restrict__ o_part, int Sq, int T,
+                             int KV, int G, int GB, int hd, int rows,
+                             int window, int prefix_len, float scale,
+                             int offset, int T_total) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x >> 5;
   const int ldk = hd + 1;
@@ -178,7 +190,7 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
   float* v_s = k_s + KB * ldk;               // KB x hd
   float* q_s = v_s + KB * hd;                // nwarps x hd
   int* kp_s = reinterpret_cast<int*>(q_s + nwarps * hd);   // KB
-  __shared__ int n_tiles_s;
+  __shared__ int vis_s;
 
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
   const int r0 = blockIdx.y * rows;
@@ -187,14 +199,17 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
   const bool active = r < Sq && g < G;
 
   if (threadIdx.x == 0)
-    n_tiles_s = visit_tiles(qpos + b * Sq, r0, min(r0 + rows, Sq), T,
-                            prefix_len);
+    vis_s = local_end(
+        min(visit_tiles(qpos + b * Sq, r0, min(r0 + rows, Sq), T_total,
+                        prefix_len) * KB, T_total),
+        offset, T);
   const size_t qoff = ((static_cast<size_t>(b) * Sq + r) * KV + kvh) * G + g;
   if (active)
     for (int d = lane; d < hd; d += 32)
       q_s[warp * hd + d] = to_f(q[qoff * hd + d]);
   __syncthreads();
-  const int n_tiles = n_tiles_s;
+  const int vis = vis_s;                     // local slots visited
+  const int n_tiles = (vis + KB - 1) / KB;
   const int qp = active ? qpos[b * Sq + r] : 0;
 
   float m = -INFINITY, l = 0.0f;
@@ -204,7 +219,7 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = t * KB;
-    const int nk = min(KB, T - t0);
+    const int nk = min(KB, vis - t0);
     __syncthreads();                         // the last tile is consumed
     for (int idx = threadIdx.x; idx < nk * hd; idx += blockDim.x) {
       const int j = idx / hd, d = idx - j * hd;
@@ -245,7 +260,21 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
     }
   }
 
-  if (active) {
+  if (active && m_part != nullptr) {
+    // partials: one split, the split form's layout (row (b * KV + kv
+    // head) * Sq * G + pair), o unnormalized
+    const size_t prow =
+        (static_cast<size_t>(blockIdx.x) * Sq + r) * G + g;
+    if (lane == 0) {
+      m_part[prow] = m;
+      l_part[prow] = l;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < hd) o_part[prow * hd + d] = o[c];
+    }
+  } else if (active) {
     const float den = fmaxf(l, 1e-30f);
     TQ* orow = out + qoff * hd;
 #pragma unroll
@@ -258,8 +287,10 @@ __global__ void flash_kernel(const TQ* __restrict__ q,
 
 template <typename TQ, typename TKV, int NC>
 int launch_simt_nc(void* q, void* k, void* v, void* qpos, void* kvpos,
-                   void* out, int B, int Sq, int T, int KV, int G, int hd,
-                   int window, int prefix_len, cudaStream_t stream) {
+                   void* out, void* m_part, void* l_part, void* o_part,
+                   int B, int Sq, int T, int KV, int G, int hd, int window,
+                   int prefix_len, int offset, int T_total,
+                   cudaStream_t stream) {
   // rows * G warps a block: about 16 warps, at least one query row; where
   // that passes the warps a block holds (32, or 16 at 18 columns a lane:
   // the register file), slices of 16 groups
@@ -278,25 +309,29 @@ int launch_simt_nc(void* q, void* k, void* v, void* qpos, void* kvpos,
   flash_kernel<TQ, TKV, NC><<<grid, nwarps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kvpos), static_cast<TQ*>(out), Sq, T, KV, G,
-      GB, hd, rows, window, prefix_len,
-      1.0f / sqrtf(static_cast<float>(hd)));
+      static_cast<const int*>(kvpos), static_cast<TQ*>(out),
+      static_cast<float*>(m_part), static_cast<float*>(l_part),
+      static_cast<float*>(o_part), Sq, T, KV, G, GB, hd, rows, window,
+      prefix_len, 1.0f / sqrtf(static_cast<float>(hd)), offset, T_total);
   return static_cast<int>(cudaGetLastError());
 }
 
+// out, or (m_part != nullptr) the partials of one split
 template <typename TQ, typename TKV>
 int launch_simt(void* q, void* k, void* v, void* qpos, void* kvpos,
-                void* out, int B, int Sq, int T, int KV, int G, int hd,
-                int window, int prefix_len, cudaStream_t stream) {
+                void* out, void* m_part, void* l_part, void* o_part, int B,
+                int Sq, int T, int KV, int G, int hd, int window,
+                int prefix_len, int offset, int T_total,
+                cudaStream_t stream) {
   if (hd > SIMT_MAX_HD || G > SIMT_MAX_G)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= MAX_HD)
     return launch_simt_nc<TQ, TKV, MAX_HD / 32>(
-        q, k, v, qpos, kvpos, out, B, Sq, T, KV, G, hd, window, prefix_len,
-        stream);
+        q, k, v, qpos, kvpos, out, m_part, l_part, o_part, B, Sq, T, KV, G,
+        hd, window, prefix_len, offset, T_total, stream);
   return launch_simt_nc<TQ, TKV, SIMT_MAX_HD / 32>(
-      q, k, v, qpos, kvpos, out, B, Sq, T, KV, G, hd, window, prefix_len,
-      stream);
+      q, k, v, qpos, kvpos, out, m_part, l_part, o_part, B, Sq, T, KV, G,
+      hd, window, prefix_len, offset, T_total, stream);
 }
 
 // ------------------------------------------------ asynchronous copies --
@@ -414,7 +449,8 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
              const int* __restrict__ kvpos, float* __restrict__ m_part,
              float* __restrict__ l_part, float* __restrict__ o_part, int Sq,
              int T, int KV, int G, int hd, int rows, int window,
-             int prefix_len, float scale, int keys_per_split, int vec) {
+             int prefix_len, float scale, int keys_per_split, int vec,
+             int offset, int T_total) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int vis_s[SPLIT_MAX_PAIRS], qp_s[SPLIT_MAX_PAIRS];
   __shared__ int blk_vis_s;
@@ -438,7 +474,9 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   if (tid == 0) blk_vis_s = 0;
   __syncthreads();
   if (tid < NP) {
-    const int e = visit_end(qpos_b, tid / G, Sq, rows, T, prefix_len);
+    const int e = local_end(
+        visit_end(qpos_b, tid / G, Sq, rows, T_total, prefix_len), offset,
+        T);
     vis_s[tid] = e;
     qp_s[tid] = qpos_b[tid / G];
     atomicMax(&blk_vis_s, e);
@@ -708,6 +746,7 @@ int launch_split(void* q, void* k, void* v, void* qpos, void* kvpos,
                  void* out, void* m_part, void* l_part, void* o_part, int B,
                  int Sq, int T, int KV, int G, int hd, int window,
                  int prefix_len, int keys_per_split, int n_split, int vec,
+                 int offset, int T_total, bool combine,
                  cudaStream_t stream) {
   const int rows = max(1, min(Sq, 16 / G));
   const int NP = Sq * G, hd8 = (hd + 7) & ~7;
@@ -728,9 +767,9 @@ int launch_split(void* q, void* k, void* v, void* qpos, void* kvpos,
       static_cast<const TKV*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kvpos), mp, lp, op, Sq, T, KV, G, hd, rows,
       window, prefix_len, 1.0f / sqrtf(static_cast<float>(hd)),
-      keys_per_split, vec);
+      keys_per_split, vec, offset, T_total);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || !combine) return static_cast<int>(err);
   return launch_combine<TQ>(mp, lp, op, out, B, Sq, KV, G, hd, n_split,
                             stream);
 }
@@ -783,7 +822,7 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            float* __restrict__ m_part, float* __restrict__ l_part,
            float* __restrict__ o_part, int Sq, int T, int KV, int G, int hd,
            int rows, int window, int prefix_len, float scale,
-           int keys_per_split) {
+           int keys_per_split, int offset, int T_total, int partials) {
   constexpr int BM = 16 * NW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int blk_vis_s;
@@ -807,7 +846,10 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pr[h] = m0 + warp * 16 + gq + 8 * h;
     const int r = pr[h] / G;
     qp[h] = pr[h] < NP ? qpos_b[r] : 0;
-    vis[h] = pr[h] < NP ? visit_end(qpos_b, r, Sq, rows, T, prefix_len) : 0;
+    vis[h] = pr[h] < NP
+                 ? local_end(visit_end(qpos_b, r, Sq, rows, T_total,
+                                       prefix_len), offset, T)
+                 : 0;
   }
   if (tid == 0) blk_vis_s = 0;
   __syncthreads();
@@ -964,7 +1006,7 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[h] += __shfl_xor_sync(FULL, l[h], 1);
     l[h] += __shfl_xor_sync(FULL, l[h], 2);
     if (pr[h] >= NP) continue;
-    if (n_split == 1) {
+    if (n_split == 1 && !partials) {
       const int r = pr[h] / G, g = pr[h] - r * G;
       bf16* orow =
           out + (((static_cast<size_t>(b) * Sq + r) * KV + kvh) * G + g) * hd;
@@ -982,7 +1024,8 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m_part[prow] = m[h];
         l_part[prow] = l[h];
       }
-      if (m[h] == -INFINITY) continue;    // w = 0: the merge skips it
+      // w = 0: the merge skips it (returned partials hold its zeros)
+      if (m[h] == -INFINITY && !partials) continue;
       float* op = o_part + prow * hd;
 #pragma unroll
       for (int dt = 0; dt < MAX_DT; ++dt)
@@ -997,7 +1040,8 @@ template <int NW>
 int launch_mma(void* q, void* k, void* v, void* qpos, void* kvpos, void* out,
                void* m_part, void* l_part, void* o_part, int B, int Sq,
                int T, int KV, int G, int hd, int window, int prefix_len,
-               int keys_per_split, int n_split, cudaStream_t stream) {
+               int keys_per_split, int n_split, int offset, int T_total,
+               bool partials, cudaStream_t stream) {
   constexpr int BM = 16 * NW;
   const int rows = max(1, min(Sq, 16 / G));
   const int NP = Sq * G;
@@ -1016,9 +1060,11 @@ int launch_mma(void* q, void* k, void* v, void* qpos, void* kvpos, void* out,
       static_cast<const bf16*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kvpos), static_cast<bf16*>(out), mp, lp, op,
       Sq, T, KV, G, hd, rows, window, prefix_len,
-      1.0f / sqrtf(static_cast<float>(hd)), keys_per_split);
+      1.0f / sqrtf(static_cast<float>(hd)), keys_per_split, offset, T_total,
+      partials ? 1 : 0);
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || n_split == 1 || partials)
+    return static_cast<int>(err);
   return launch_combine<bf16>(mp, lp, op, out, B, Sq, KV, G, hd, n_split,
                               stream);
 }
@@ -1037,17 +1083,15 @@ extern "C" int flash_attention_launch(void* q, void* k, void* v, void* qpos,
                                       int window, int prefix_len, int q_bf16,
                                       int kv_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch_simt<bf16, bf16>(q, k, v, qpos, kvpos, out, B, Sq, T, KV,
-                                   G, hd, window, prefix_len, s);
-  if (q_bf16)
-    return launch_simt<bf16, float>(q, k, v, qpos, kvpos, out, B, Sq, T, KV,
-                                    G, hd, window, prefix_len, s);
-  if (kv_bf16)
-    return launch_simt<float, bf16>(q, k, v, qpos, kvpos, out, B, Sq, T, KV,
-                                    G, hd, window, prefix_len, s);
-  return launch_simt<float, float>(q, k, v, qpos, kvpos, out, B, Sq, T, KV,
-                                   G, hd, window, prefix_len, s);
+#define FA_SIMT(TQ, TKV)                                                  \
+  launch_simt<TQ, TKV>(q, k, v, qpos, kvpos, out, nullptr, nullptr,      \
+                       nullptr, B, Sq, T, KV, G, hd, window, prefix_len, \
+                       0, T, s)
+  if (q_bf16 && kv_bf16) return FA_SIMT(bf16, bf16);
+  if (q_bf16) return FA_SIMT(bf16, float);
+  if (kv_bf16) return FA_SIMT(float, bf16);
+  return FA_SIMT(float, float);
+#undef FA_SIMT
 }
 
 // split form: Sq * G <= 32; partials of B * KV * Sq * G * n_split (m, l)
@@ -1068,12 +1112,12 @@ extern "C" int flash_attention_split_launch(
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_mma<2>(q, k, v, qpos, kvpos, out, m_part, l_part, o_part,
                          B, Sq, T, KV, G, hd, window, prefix_len,
-                         keys_per_split, n_split, s);
+                         keys_per_split, n_split, 0, T, false, s);
   }
 #define FA_SPLIT(TQ, TKV)                                                   \
   launch_split<TQ, TKV>(q, k, v, qpos, kvpos, out, m_part, l_part, o_part, \
                         B, Sq, T, KV, G, hd, window, prefix_len,           \
-                        keys_per_split, n_split, vec, s)
+                        keys_per_split, n_split, vec, 0, T, true, s)
   if (q_bf16 && kv_bf16) return FA_SPLIT(bf16, bf16);
   if (q_bf16) return FA_SPLIT(bf16, float);
   if (kv_bf16) return FA_SPLIT(float, bf16);
@@ -1093,10 +1137,82 @@ extern "C" int flash_attention_mma_launch(
   if (warps == 2)
     return launch_mma<2>(q, k, v, qpos, kvpos, out, m_part, l_part, o_part,
                          B, Sq, T, KV, G, hd, window, prefix_len,
-                         keys_per_split, n_split, s);
+                         keys_per_split, n_split, 0, T, false, s);
   if (warps == 4)
     return launch_mma<4>(q, k, v, qpos, kvpos, out, m_part, l_part, o_part,
                          B, Sq, T, KV, G, hd, window, prefix_len,
-                         keys_per_split, n_split, s);
+                         keys_per_split, n_split, 0, T, false, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Partials of a block of keys: k, v (B, T, KV, hd) and kv_pos (B, T) hold
+// global slots [offset, offset + T) of a cache of T_total slots, and the
+// visit bound counts global slots.  Writes, without merging, the f32
+// partials m, l (B * KV * Sq * G * n_split) and o (that times hd) in the
+// split form's layout: row (b * KV + kv head) * Sq * G + pair, split s at
+// [row * n_split + s].  A split (or block) holding none of a row's visited
+// keys writes m = -inf, l = 0, o = 0.  form 0: the simt form (one split,
+// n_split = 1; any Sq, G <= 128, hd <= 576: MLA's decode); form 1: the
+// split form (Sq * G <= 32, G <= 32, hd <= 288; n_split = ceil(T /
+// keys_per_split); tensor_cores as flash_attention_split_launch's).
+extern "C" int flash_attention_partials_launch(
+    void* q, void* k, void* v, void* qpos, void* kvpos, void* m_part,
+    void* l_part, void* o_part, int B, int Sq, int T, int KV, int G, int hd,
+    int window, int prefix_len, int q_bf16, int kv_bf16, int offset,
+    int T_total, int form, int keys_per_split, int n_split, int vec,
+    int tensor_cores, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (offset < 0 || offset + T > T_total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (form == 0) {
+    if (n_split != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define FA_SIMT(TQ, TKV)                                                  \
+  launch_simt<TQ, TKV>(q, k, v, qpos, kvpos, nullptr, m_part, l_part,    \
+                       o_part, B, Sq, T, KV, G, hd, window, prefix_len,  \
+                       offset, T_total, s)
+    if (q_bf16 && kv_bf16) return FA_SIMT(bf16, bf16);
+    if (q_bf16) return FA_SIMT(bf16, float);
+    if (kv_bf16) return FA_SIMT(float, bf16);
+    return FA_SIMT(float, float);
+#undef FA_SIMT
+  }
+  if (Sq * G > SPLIT_MAX_PAIRS || hd > MAX_HD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tensor_cores) {
+    if (!(q_bf16 && kv_bf16) || hd % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_mma<2>(q, k, v, qpos, kvpos, nullptr, m_part, l_part,
+                         o_part, B, Sq, T, KV, G, hd, window, prefix_len,
+                         keys_per_split, n_split, offset, T_total, true, s);
+  }
+#define FA_SPLIT(TQ, TKV)                                                   \
+  launch_split<TQ, TKV>(q, k, v, qpos, kvpos, nullptr, m_part, l_part,     \
+                        o_part, B, Sq, T, KV, G, hd, window, prefix_len,   \
+                        keys_per_split, n_split, vec, offset, T_total,     \
+                        false, s)
+  if (q_bf16 && kv_bf16) return FA_SPLIT(bf16, bf16);
+  if (q_bf16) return FA_SPLIT(bf16, float);
+  if (kv_bf16) return FA_SPLIT(float, bf16);
+  return FA_SPLIT(float, float);
+#undef FA_SPLIT
+}
+
+// The merge of partials in the layout above (n_split of them a row, in
+// order: across ranks, gathered rank-major and split-minor):
+// combine_kernel, out (B, Sq, KV, G, hd) in q's type (out_bf16).
+extern "C" int flash_attention_combine_launch(void* m_part, void* l_part,
+                                              void* o_part, void* out, int B,
+                                              int Sq, int KV, int G, int hd,
+                                              int n_split, int out_bf16,
+                                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* mp = static_cast<const float*>(m_part);
+  const float* lp = static_cast<const float*>(l_part);
+  const float* op = static_cast<const float*>(o_part);
+  if (out_bf16)
+    return launch_combine<bf16>(mp, lp, op, out, B, Sq, KV, G, hd, n_split,
+                                s);
+  return launch_combine<float>(mp, lp, op, out, B, Sq, KV, G, hd, n_split,
+                               s);
 }

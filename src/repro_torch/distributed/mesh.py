@@ -69,6 +69,17 @@ refuses: each block is copied to the host, moved by gloo, and copied
 back).  ``launch.mesh.init_process_mesh`` starts a group over the
 transport its caller names; it never picks gloo-host on its own.
 
+:class:`TraceMesh` is a ``ProcessMesh`` with no process group: rank 0
+of named axes of any size (the dry run's 256- and 512-chip meshes).  Its
+collectives return tensors of their results' shapes (fake tensors under
+``FakeTensorMode``; copies of this rank's blocks on real ones).  Every
+``ProcessMesh`` counts the collectives it issues (:meth:`ProcessMesh.census`)
+by kind, with the bytes the JAX package's ``launch/hlo.py`` puts on the
+wire: an all-gather its result's bytes, an all-to-all and a ring hop
+(``collective-permute``) their operand's; no ``ProcessMesh`` collective
+is an all-reduce (a ``psum`` is an all-gather and a local sum), so that
+kind stays 0.
+
 :func:`resolve_mesh` derives a mesh from a ``mesh`` / ``num_shards`` spec
 with the JAX package's rules (``replay_shard._resolve_mesh``): not both;
 every extent must divide D; ``num_shards=None`` resolves to the real
@@ -78,6 +89,7 @@ of W (a ``num_shards`` other than W raises).
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -89,6 +101,9 @@ from repro_torch.kernels import resolve_device
 
 #: the JAX package's mesh axes, in its order
 AXES = ("pod", "data", "model")
+#: the collective kinds of the JAX package's ``launch/hlo.py``
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
 #: the transports of a :class:`ProcessMesh`: (group backend, device type)
 TRANSPORTS = {"nccl": ("nccl", "cuda"), "gloo": ("gloo", "cpu"),
               "gloo-host": ("gloo", "cuda")}
@@ -339,6 +354,7 @@ class ProcessMesh(ShardMesh):
             raise ValueError(f"a {backend} group cannot move blocks on "
                              f"{self.device}")
         self.transport = transport
+        self._census = collections.Counter()
         # one group a set of axes that is neither one shard nor the world,
         # every group of every set made on every rank, in one order
         self._groups = {}
@@ -394,6 +410,47 @@ class ProcessMesh(ShardMesh):
             return None, G
         return self._groups.get(axes), G
 
+    # -- the collectives this rank issues, and their census ----------------
+
+    def _count(self, kind: str, axes, nbytes: int) -> None:
+        self._census[(kind, self.group_axes(axes), "count")] += 1
+        self._census[(kind, self.group_axes(axes), "bytes")] += int(nbytes)
+
+    def census(self, by_axes: bool = False) -> Dict:
+        """The collectives issued since the mesh was made (or
+        :meth:`reset_census`): ``{kind: {"count", "bytes"}}`` for every
+        kind of :data:`COLLECTIVES`, bytes on the wire as
+        ``launch/hlo.py`` counts them; ``by_axes``: ``{(kind, axes):
+        {...}}`` for the kinds and groups issued."""
+        if by_axes:
+            out: Dict = {}
+            for (kind, axes, what), n in self._census.items():
+                out.setdefault((kind, axes), dict(count=0, bytes=0))[what] = n
+            return out
+        out = {k: dict(count=0, bytes=0) for k in COLLECTIVES}
+        for (kind, _, what), n in self._census.items():
+            out[kind][what] += n
+        return out
+
+    def reset_census(self) -> None:
+        self._census.clear()
+
+    def _all_gather_into(self, out, t, group, axes) -> None:
+        self._count("all-gather", axes, out.numel() * out.element_size())
+        dist.all_gather_into_tensor(out, t, group=group)
+
+    def _all_to_all_into(self, out, t, group, axes) -> None:
+        self._count("all-to-all", axes, t.numel() * t.element_size())
+        dist.all_to_all_single(out, t, group=group)
+
+    def _ring_into(self, got, t) -> None:
+        self._count("collective-permute", None, t.numel() * t.element_size())
+        D, r = self.num_shards, self.rank
+        ops = [dist.P2POp(dist.isend, t, (r - 1) % D),
+               dist.P2POp(dist.irecv, got, (r + 1) % D)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
     def _send(self, t: torch.Tensor) -> torch.Tensor:
         # gloo-host: the block leaves the card for the host
         t = t.contiguous()
@@ -405,15 +462,11 @@ class ProcessMesh(ShardMesh):
     def ring_shift(self, buf: torch.Tensor) -> torch.Tensor:
         """One ring hop: send this block to rank ``rank-1``, receive rank
         ``rank+1``'s."""
-        D, r = self.num_shards, self.rank
-        if D == 1:
+        if self.num_shards == 1:
             return buf.clone()
         out = self._send(buf)
         got = torch.empty_like(out)
-        ops = [dist.P2POp(dist.isend, out, (r - 1) % D),
-               dist.P2POp(dist.irecv, got, (r + 1) % D)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        self._ring_into(got, out)
         return self._received(got)
 
     def psum(self, partial: torch.Tensor, axes: AxesArg = None
@@ -443,7 +496,7 @@ class ProcessMesh(ShardMesh):
             out = self._send(block)
             gathered = out.new_empty((G * out.shape[0],)
                                      + tuple(out.shape[1:]))
-            dist.all_gather_into_tensor(gathered, out, group=group)
+            self._all_gather_into(gathered, out, group, axes)
             got = self._received(gathered)
         if G == self.num_shards:
             return got.reshape(-1, *block.shape[2:])
@@ -476,8 +529,60 @@ class ProcessMesh(ShardMesh):
             return x.clone()
         out = self._send(x[0])
         got = torch.empty_like(out)
-        dist.all_to_all_single(got, out, group=group)
+        self._all_to_all_into(got, out, group, axes)
         return self._received(got)[None]
+
+
+class TraceMesh(ProcessMesh):
+    """Rank ``rank`` (default 0) of a mesh of named ``axes`` of any size,
+    with no process group: the dry run traces one rank's share of a
+    sharded program (its blocks, its collectives) on it.  Each collective
+    returns a tensor of its result's shape — under ``FakeTensorMode`` a
+    fake one; on real tensors every member's block is a copy of this
+    rank's (shapes right, values not a real mesh's) — and is counted
+    (:meth:`ProcessMesh.census`) as the ``ProcessMesh`` of the same axes
+    would issue it."""
+
+    def __init__(self, axes, device="cpu", *, rank: int = 0):
+        self.axes = named_axes(None, axes)
+        self.num_shards = math.prod(self.axes.values())
+        self.device = resolve_device(device)
+        if not 0 <= rank < self.num_shards:
+            raise ValueError(f"rank {rank} of {self.num_shards} shards")
+        self.rank = rank
+        self.transport = "trace"
+        self._census = collections.Counter()
+        self._groups = {}
+
+    def __repr__(self) -> str:
+        return (f"TraceMesh(axes={self.axes}, rank={self.rank}, "
+                f"device={self.device})")
+
+    def __eq__(self, other) -> bool:
+        return (type(other) is TraceMesh and other.axes == self.axes
+                and other.rank == self.rank and other.device == self.device)
+
+    def __hash__(self) -> int:
+        return hash((tuple(self.axes.items()), self.rank, str(self.device),
+                     "trace"))
+
+    def group_ranks(self, axes) -> list:
+        """The ranks of this rank's group over ``axes``, in member order."""
+        return next(g for g in self._partition(self.group_axes(axes))
+                    if self.rank in g)
+
+    def _all_gather_into(self, out, t, group, axes) -> None:
+        self._count("all-gather", axes, out.numel() * out.element_size())
+        G = out.shape[0] // t.shape[0]
+        out.view(G, *t.shape).copy_(t.unsqueeze(0).expand(G, *t.shape))
+
+    def _all_to_all_into(self, out, t, group, axes) -> None:
+        self._count("all-to-all", axes, t.numel() * t.element_size())
+        out.copy_(t)
+
+    def _ring_into(self, got, t) -> None:
+        self._count("collective-permute", None, t.numel() * t.element_size())
+        got.copy_(t)
 
 
 def num_devices(device) -> int:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -162,15 +163,15 @@ def data_placements(batch, mesh, profile: str = "2d"):
 
 def cache_placements(cache, mesh, profile: str = "2d"):
     """``cache_shardings`` on the port's per-layer caches (lists of dicts
-    of tensors): dim 0 (batch) over the batch axes, dim 1 (length or
-    heads) over ``"model"``, filtered."""
+    of tensors or arrays): dim 0 (batch) over the batch axes, dim 1
+    (length or heads) over ``"model"``, filtered."""
     ba = batch_axes(mesh)
     model = "model" if "model" in _sizes(mesh) else None
 
     def leaf(t):
         if t is None:
             return None
-        nd = t.dim()
+        nd = len(t.shape)
         spec = [None] * nd
         if nd >= 1:
             spec[0] = ba if ba else None
@@ -341,7 +342,14 @@ def gathered(w: torch.Tensor, spec: ParamSpec, mesh: ProcessMesh,
     return w
 
 
-_AMBIENT: list = []
+class _Ambient(threading.local):
+    """Each thread's stack of :func:`use_mesh` meshes."""
+
+    def __init__(self):
+        self.stack = []
+
+
+_AMBIENT = _Ambient()
 
 
 @contextlib.contextmanager
@@ -349,17 +357,20 @@ def use_mesh(mesh):
     """Make ``mesh`` the ambient mesh of the model code inside the block
     (the MoE layers', ``transformer.loss_fn``'s, and over a
     ``ProcessMesh`` every layer's), as ``jax.sharding.set_mesh`` makes a
-    mesh ambient for the JAX package's layers."""
-    _AMBIENT.append(mesh)
+    mesh ambient for the JAX package's layers.  Like JAX's config
+    context it holds for the calling thread only: two threads may each
+    hold their own mesh at once."""
+    _AMBIENT.stack.append(mesh)
     try:
         yield mesh
     finally:
-        _AMBIENT.pop()
+        _AMBIENT.stack.pop()
 
 
 def ambient_mesh():
-    """The innermost :func:`use_mesh` mesh, or None."""
-    return _AMBIENT[-1] if _AMBIENT else None
+    """This thread's innermost :func:`use_mesh` mesh, or None."""
+    stack = _AMBIENT.stack
+    return stack[-1] if stack else None
 
 
 def rank_mesh() -> Optional[ProcessMesh]:

@@ -113,10 +113,22 @@ def opt_state_from_numpy(state, cfg, device="cuda"):
         None if master is None else params_from_numpy(master, cfg, dev))
 
 
-def cache_to_numpy(cache, cfg) -> Dict:
+def cache_to_numpy(cache, cfg, mesh=None, batch=None,
+                   max_len=None) -> Dict:
     """The port's per-layer cache as the JAX package's stacked cache tree
     ``{unit, prefix, suffix}`` of NumPy arrays (``unit[i]`` leaves gain the
-    leading group dimension); every field: ``kv``, ``ssm``, ``state``."""
+    leading group dimension); every field: ``kv``, ``ssm``, ``state``.
+
+    Over a ``ProcessMesh`` (``mesh``; the global ``batch`` and
+    ``max_len`` the cache was made for) ``cache`` is this rank's blocks
+    (``transformer.init_cache(mesh=...)``): they are gathered into the
+    whole cache first (a collective every rank joins)."""
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+        from repro_torch.models import transformer
+
+        _, place = transformer.cache_layout(cfg, batch, max_len, mesh)
+        cache = sharding.gather_tree(list(cache), place, mesh)
     host = tree_map(lambda t: t.cpu().numpy(), list(cache))
     n_pre, n_unit = len(cfg.prefix_layers), len(cfg.layer_unit)
     groups = [host[n_pre + g * n_unit: n_pre + (g + 1) * n_unit]
@@ -131,3 +143,23 @@ def cache_to_numpy(cache, cfg) -> Dict:
                       for i in range(n_unit)] if groups else [],
                 prefix=host[:n_pre],
                 suffix=host[len(host) - len(cfg.suffix_layers):])
+
+
+def cache_from_numpy(tree: Dict, cfg, device="cuda", mesh=None) -> list:
+    """The inverse of :func:`cache_to_numpy`: the port's per-layer cache
+    from the JAX package's stacked cache tree of NumPy arrays, on
+    ``device``; over a ``ProcessMesh`` (``mesh``) only this rank's blocks
+    under ``sharding.cache_placements`` (the whole arrays are read, only
+    the blocks copied)."""
+    dev = resolve_device(device)
+    layers = _layers_from_tree(tree, cfg)
+    if mesh is None:
+        return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
+                        layers)
+    from repro_torch.distributed import sharding
+
+    place = sharding.cache_placements(tree_map(np.asarray, layers), mesh,
+                                      "2d")
+    return sharding.tree_map(
+        lambda a, p: torch.tensor(np.asarray(a)[sharding.block_slices(
+            np.shape(a), p, mesh)], device=dev), layers, place)

@@ -23,6 +23,19 @@ one from the shapes and types alone:
 
 Each wrapper call counts one launch of the kernel however many CUDA
 kernels its form issues; :data:`form_launches` counts the calls by form.
+
+A cache split by length over ranks (``models.attention`` over a
+``ProcessMesh``) reads a rank's block of keys at a time:
+:func:`flash_partials` gives the f32 ``(m, l, o)`` partials of a block
+whose slots start at a global ``offset`` (the visit bound counts global
+slots) without merging them — from the split form (``Sq · G <= 32``,
+``G <= 32``, ``hd <= 288``: GQA's decode) or from the simt form in a
+partials mode (one split; MLA's decode at G = 128, hd = 576), in one
+layout — and :func:`flash_combine` merges the ranks' partials, gathered
+rank-major and split-minor, with the split form's merge kernel.  Where
+each block is a whole number of splits the merge is the one-process
+split form's, bit for bit.  :data:`partial_launches` counts the calls by
+form (and the merges).
 ``_launch`` takes the form, key split, M tile and partials kernel as
 arguments, so tests and ``benchmarks_torch/flash_forms.py`` reach the
 variants the rule does not take.
@@ -56,12 +69,16 @@ import torch
 
 from repro_torch.kernels import INT, PTR, CudaKernel, check_cuda
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                     chunked_attention)
+                                                     chunked_attention,
+                                                     combine_partials,
+                                                     split_partials)
 
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_launch": [PTR] * 6 + [INT] * 10,
     "flash_attention_split_launch": [PTR] * 9 + [INT] * 14,
     "flash_attention_mma_launch": [PTR] * 9 + [INT] * 11,
+    "flash_attention_partials_launch": [PTR] * 8 + [INT] * 17,
+    "flash_attention_combine_launch": [PTR] * 4 + [INT] * 7,
 })
 BWD_KERNEL = CudaKernel("flash_attention_bwd", "flash_attention_bwd.cu", {
     "flash_attention_bwd_launch": [PTR] * 13 + [INT] * 10,
@@ -82,7 +99,10 @@ BWD_MMA_MAX_G = 32
 BWD_FORMS = ("mma", "simt")
 _TYPES = (torch.float32, torch.bfloat16)
 
+PARTIAL_FORMS = ("split", "simt")
+
 form_launches = {f: 0 for f in FORMS}
+partial_launches = {f: 0 for f in PARTIAL_FORMS + ("combine",)}
 bwd_form_launches = {f: 0 for f in BWD_FORMS}
 
 
@@ -162,13 +182,9 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, window, prefix_len):
     return _launch(q, k, v, q_pos, kv_pos, window, prefix_len, "simt")
 
 
-def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
-            keys_per_split=0, warps=MMA_WARPS, tensor_cores=False):
-    """One call of the kernel in ``form`` with these settings: keys a split
-    (split and mma forms; T or more is one split), warps a block (2 or 4,
-    mma form) and the split form's partials kernel.  The serving path takes
-    :func:`_flash_attention_cuda`'s; tests and ``flash_forms.py`` set them
-    to reach the variants the rule does not take."""
+def _check_inputs(q, k, v, q_pos, kv_pos):
+    """The checks every forward entry makes before it touches a device:
+    types, shapes, and the simt form's ``G``/``hd`` limits."""
     B, Sq, KV, G, hd = q.shape
     T = k.shape[1]
     if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
@@ -181,6 +197,18 @@ def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
         raise ValueError(f"flash attention kernel takes 1 <= G <= {MAX_G}, "
                          f"1 <= hd <= {MAX_HD} and T >= 1; got G={G}, "
                          f"hd={hd}, T={T}")
+
+
+def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
+            keys_per_split=0, warps=MMA_WARPS, tensor_cores=False):
+    """One call of the kernel in ``form`` with these settings: keys a split
+    (split and mma forms; T or more is one split), warps a block (2 or 4,
+    mma form) and the split form's partials kernel.  The serving path takes
+    :func:`_flash_attention_cuda`'s; tests and ``flash_forms.py`` set them
+    to reach the variants the rule does not take."""
+    B, Sq, KV, G, hd = q.shape
+    T = k.shape[1]
+    _check_inputs(q, k, v, q_pos, kv_pos)
     if form != "simt" and not (G <= FAST_MAX_G and hd <= FAST_MAX_HD):
         raise ValueError(f"the {form} form takes G <= {FAST_MAX_G} and "
                          f"hd <= {FAST_MAX_HD}, got G={G}, hd={hd}")
@@ -226,6 +254,128 @@ def _launch(q, k, v, q_pos, kv_pos, window, prefix_len, form,
             KERNEL.launch("flash_attention_mma_launch", *ptrs, *parts,
                           *masks, keys_per_split, n_split, warps)
     form_launches[form] += 1
+    return out
+
+
+# ------------------------------------------- a rank's block of keys --
+
+
+def partials_form(Sq: int, G: int, hd: int) -> str:
+    """The form whose partials a block of keys takes: "split" for at most
+    32 (query row, group) pairs within the split form's ``G <= 32``,
+    ``hd <= 288``, else "simt" (one split)."""
+    if G <= FAST_MAX_G and hd <= FAST_MAX_HD and Sq * G <= SPLIT_MAX_PAIRS:
+        return "split"
+    return "simt"
+
+
+def flash_partials(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                   prefix_len: int = 0, offset: int = 0, total=None,
+                   keys_per_split=None):
+    """The unmerged f32 partials of attention over a block of keys:
+    ``k``/``v`` (B, T, KV, hd) and ``kv_pos`` (B, T) hold the global
+    slots ``[offset, offset + T)`` of a cache of ``total`` slots (default
+    T).  Returns ``(m, l, o)``: m and l (n, B, Sq, KV, G), o (n, B, Sq,
+    KV, G, hd), one entry a key split (``ref.split_partials``' layout);
+    a split holding none of a row's visited keys gives m = -inf, l = 0,
+    o = 0.  The form is :func:`partials_form`'s: the split form's splits
+    of ``keys_per_split`` keys (default: :func:`split_keys` of the whole
+    cache, so the blocks' splits are the one-process call's), or the
+    simt form's one split.  CPU tensors take ``ref.split_partials``; CUDA
+    tensors launch the kernel or raise."""
+    B, Sq, KV, G, hd = q.shape
+    T = k.shape[1]
+    total = T if total is None else int(total)
+    form = partials_form(Sq, G, hd)
+    if form == "simt":
+        keys_per_split = T
+    elif keys_per_split is None:
+        keys_per_split = split_keys(B, KV, total)
+    if q.device.type == "cpu":
+        return split_partials(q, k, v, q_pos, kv_pos, window=window,
+                              prefix_len=prefix_len,
+                              keys_per_split=keys_per_split, offset=offset,
+                              total=total)
+    return _launch_partials(q, k, v, q_pos, kv_pos, window, prefix_len,
+                            offset, total, form, keys_per_split)
+
+
+def _launch_partials(q, k, v, q_pos, kv_pos, window, prefix_len, offset,
+                     total, form, keys_per_split):
+    """One call of the partials entry in ``form`` ("split" or "simt");
+    checks everything before it touches a device."""
+    B, Sq, KV, G, hd = q.shape
+    T = k.shape[1]
+    _check_inputs(q, k, v, q_pos, kv_pos)
+    if not 0 <= offset <= total - T:
+        raise ValueError(f"a block of {T} keys at offset {offset} of a "
+                         f"cache of {total}")
+    if form not in PARTIAL_FORMS:
+        raise ValueError(f"unknown partials form {form!r}")
+    if form == "split" and partials_form(Sq, G, hd) != "split":
+        raise ValueError(f"the split form's partials take Sq * G <= "
+                         f"{SPLIT_MAX_PAIRS}, G <= {FAST_MAX_G}, hd <= "
+                         f"{FAST_MAX_HD}; got Sq={Sq}, G={G}, hd={hd}")
+    if form == "split" and not (keys_per_split >= T or (
+            keys_per_split > 0 and keys_per_split % 32 == 0)):
+        raise ValueError(f"keys a split: whole 32-key tiles or T or more, "
+                         f"got {keys_per_split}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    qp, kp = _int32(q_pos), _int32(kv_pos)
+    check_cuda(q, k, v, qp, kp)
+    n_split = 1 if form == "simt" else -(-T // keys_per_split)
+    n = B * KV * Sq * G * n_split
+    part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+    if n:
+        base = part.data_ptr()
+        tc = form == "split" and takes_tensor_cores(hd, q.dtype, k.dtype)
+        KERNEL.launch(
+            "flash_attention_partials_launch",
+            *(t.data_ptr() for t in (q, k, v, qp, kp)), base, base + 4 * n,
+            base + 8 * n, B, Sq, T, KV, G, hd, int(window), int(prefix_len),
+            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+            int(offset), int(total), int(form == "split"),
+            int(min(keys_per_split, T)) if form == "split" else T, n_split,
+            int(hd % 8 == 0), int(tc))
+        partial_launches[form] += 1
+    # kernel rows (b, kv head, row, group, split) -> (split, b, row, kv, g)
+    m = part[:n].view(B, KV, Sq, G, n_split).permute(4, 0, 2, 1, 3)
+    l = part[n:2 * n].view(B, KV, Sq, G, n_split).permute(4, 0, 2, 1, 3)
+    o = part[2 * n:].view(B, KV, Sq, G, n_split, hd).permute(
+        4, 0, 2, 1, 3, 5)
+    return m.contiguous(), l.contiguous(), o.contiguous()
+
+
+def flash_combine(m, l, o, dtype) -> torch.Tensor:
+    """Merge partials ``(m, l, o)`` (:func:`flash_partials`' layout, the
+    splits in order along dim 0) into the attention output (B, Sq, KV, G,
+    hd) in ``dtype``: CPU tensors take ``ref.combine_partials``, CUDA
+    tensors the split form's merge kernel (weights exp(m_i - M), 0 for
+    m_i = -inf; one fixed order, no atomics) or raise."""
+    if m.device.type == "cpu":
+        return combine_partials(m, l, o, dtype)
+    n, B, Sq, KV, G = m.shape
+    hd = o.shape[-1]
+    if dtype not in _TYPES:
+        raise ValueError(f"flash attention output type f32 or bf16, got "
+                         f"{dtype}")
+    if not (l.shape == m.shape and o.shape == m.shape + (hd,)
+            and m.dtype == l.dtype == o.dtype == torch.float32):
+        raise ValueError("flash attention combine: f32 partials of one "
+                         "layout")
+    mk = m.permute(1, 3, 2, 4, 0).contiguous()
+    lk = l.permute(1, 3, 2, 4, 0).contiguous()
+    ok = o.permute(1, 3, 2, 4, 0, 5).contiguous()
+    check_cuda(mk, lk, ok)
+    out = torch.empty((B, Sq, KV, G, hd), dtype=dtype, device=m.device)
+    if out.numel() == 0:
+        return out
+    if n < 1:
+        raise ValueError("flash attention combine: no splits")
+    KERNEL.launch("flash_attention_combine_launch", mk.data_ptr(),
+                  lk.data_ptr(), ok.data_ptr(), out.data_ptr(), B, Sq, KV,
+                  G, hd, n, int(dtype == torch.bfloat16))
+    partial_launches["combine"] += 1
     return out
 
 

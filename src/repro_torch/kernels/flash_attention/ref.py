@@ -118,9 +118,11 @@ def attention_bwd_ref(q, k, v, q_pos, kv_pos, do, *, window: int = 0,
 
 
 # ------------------------------------------------------ the split form --
-# The kernel's split form in plain PyTorch (tests hold it against the JAX
-# package; the main path does not call it): the keys a row visits, each
-# key split's (m, l, o) partials, and their merge in split order.
+# The kernel's split form in plain PyTorch: the keys a row visits, each
+# key split's (m, l, o) partials, and their merge in split order.  The
+# partials and their merge are the CPU path of ``ops.flash_partials`` and
+# ``ops.flash_combine`` (attention over a cache split by length over
+# ranks); the split attention is what tests hold the kernel's to.
 
 TILE = 32   # keys a kernel tile
 
@@ -144,29 +146,44 @@ def visit_end(q_pos, T: int, G: int, prefix_len: int = 0) -> torch.Tensor:
 
 
 def split_partials(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                   prefix_len: int = 0, keys_per_split: int = TILE):
+                   prefix_len: int = 0, keys_per_split: int = TILE,
+                   offset: int = 0, total=None):
     """Each key split's f32 partials ``(m, l, o)``: m and l (n_split, B,
     Sq, KV, G), o (n_split, B, Sq, KV, G, hd).  A split holding none of a
     row's visited keys gives m = -inf, l = 0, o = 0; p is rounded to v's
-    type before the PV product while l sums the unrounded p."""
+    type before the PV product while l sums the unrounded p.
+
+    A block of keys: ``k``, ``v`` and ``kv_pos`` hold the global slots
+    ``[offset, offset + T)`` of a cache of ``total`` slots (default T: the
+    whole cache), and the visit bound (:func:`visit_end`) counts global
+    slots, so the partials of the M blocks of a cache, concatenated in
+    block order, are the whole cache's where ``T`` is a multiple of
+    ``keys_per_split``.  Each split's scores come from its own keys alone
+    (the same products whatever the block)."""
     B, Sq, KV, G, hd = q.shape
     T = k.shape[1]
+    total = T if total is None else int(total)
+    if not 0 <= offset <= total - T:
+        raise ValueError(f"a block of {T} keys at offset {offset} of a "
+                         f"cache of {total}")
     f32 = torch.float32
-    s = torch.einsum("bqkgh,btkh->bqkgt", q.to(f32), k.to(f32)) * _scale(hd)
-    allowed = mask(q_pos, kv_pos, window, prefix_len)[:, :, None, None]
-    s = torch.where(allowed, s, NEG)
-    slot = torch.arange(T, device=q.device)
-    seen = slot < visit_end(q_pos, T, G, prefix_len)[..., None]
-    s = torch.where(seen[:, :, None, None], s, -math.inf)
+    q32 = q.to(f32)
+    slot = offset + torch.arange(T, device=q.device)
+    seen = slot < visit_end(q_pos, total, G, prefix_len)[..., None]
     ms, ls, os = [], [], []
     for lo in range(0, T, keys_per_split):
-        sc = s[..., lo:lo + keys_per_split]
+        hi = min(lo + keys_per_split, T)
+        sc = torch.einsum("bqkgh,btkh->bqkgt", q32,
+                          k[:, lo:hi].to(f32)) * _scale(hd)
+        allowed = mask(q_pos, kv_pos[:, lo:hi], window, prefix_len)
+        sc = torch.where(allowed[:, :, None, None], sc, NEG)
+        sc = torch.where(seen[:, :, None, None, lo:hi], sc, -math.inf)
         m = sc.amax(-1)
         p = torch.where(sc == -math.inf, 0.0, torch.exp(sc - m[..., None]))
         ms.append(m)
         ls.append(p.sum(-1))
         os.append(torch.einsum("bqkgt,btkh->bqkgh", p.to(v.dtype).to(f32),
-                               v[:, lo:lo + keys_per_split].to(f32)))
+                               v[:, lo:hi].to(f32)))
     return torch.stack(ms), torch.stack(ls), torch.stack(os)
 
 

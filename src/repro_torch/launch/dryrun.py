@@ -31,13 +31,30 @@ the one the card runs too.  Each operation it dispatches is seen by
   * ``memory.argument_bytes``: exact, from the parameter, optimizer-state
     and input trees.
 
-One card: ``chips = 1``, ``collective_bytes = 0`` and ``fits`` against the
-H100's memory.  ``remat`` is the training launcher's, "none", unless
-asked.  ``mesh="multi"`` raises ``NotImplementedError``: a multi-card
-mesh is ROADMAP queue 1 item 6.  The JAX package's ``launch/hlo.py`` (an HLO
-text parser: loop-aware FLOPs and traffic, collectives, while-loop trip
-counts) has no counterpart: the dispatch counts above replace its FLOPs,
-traffic and census, one card has no collectives and eager PyTorch no
+Three mesh kinds.  ``single``: one card, ``chips = 1``,
+``collective_bytes = 0``.  ``pod`` and ``multi``: the JAX dry run's two
+production meshes, (data 16, model 16) on 256 cards (the JAX package's
+"single") and (pod 2, data 16, model 16) on 512 ("multi").  A mesh cell
+is traced as rank 0 of that mesh runs it (``distributed.mesh.TraceMesh``,
+the process mesh's code with no process group): its blocks of the
+parameters and optimizer state (``sharding.train_placements``), of the
+batch (``data_placements``) and of the cache (``init_cache(mesh=...)``,
+``cache_placements``) under the JAX rules, the "2d" profile on the cache
+paths where the config says "dp" (``transformer.serving_layout``, as the
+JAX dry run switches it).  The record adds the mesh's collectives by
+kind, with the bytes ``launch/hlo.py`` puts on the wire (all-gather: the
+result's; all-reduce: twice the operand's, and no process-mesh
+collective is one; the others: the operand's), their sum, and a
+``t_collective`` term: each group's bytes over one link rate, stated
+with its source — NVLink 4 at 450 GB/s a direction within an 8-card HGX
+H100 node, 400 Gb/s NDR InfiniBand (50 GB/s) a card across nodes (data
+sheet figures, not measurements; rank 0's group over an axis is within
+one node where its members are ranks 0-7).  ``fits`` is the peak against
+one 80 GB card's memory.  ``remat`` is the training launcher's, "none",
+unless asked.  The JAX package's ``launch/hlo.py`` (an HLO text parser:
+loop-aware FLOPs and traffic, collectives, while-loop trip counts) has
+no counterpart: the dispatch counts above replace its FLOPs, traffic and
+census, the mesh's own census its collectives, and eager PyTorch has no
 while-loop trip counts (``PERF.md`` §3).  A cell whose trace fails (a
 data-dependent shape under fake tensors, say) is recorded with
 ``status: "fail"`` and its error, as the JAX driver records it.
@@ -47,8 +64,9 @@ Artifacts land in ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``
 
 Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
-      --shape train_4k                              # one cell
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--workers 4]
+      --shape train_4k [--mesh pod]                  # one cell
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--workers 4] \\
+      [--mesh single|pod|multi|both]                 # both: pod and multi
   ... --remat full --set moe_impl=dense --tag myexp   # overrides
 """
 from __future__ import annotations
@@ -69,7 +87,12 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.configs import (SHAPES, get_arch, input_specs, list_archs,
                                  shape_applicable)
-from repro_torch.kernels.flash_attention.ref import chunked_attention
+from repro_torch.distributed import sharding
+from repro_torch.distributed.mesh import COLLECTIVES, TraceMesh
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import (chunked_attention,
+                                                     combine_partials,
+                                                     split_partials)
 from repro_torch.models import attention, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import count_params, shape_dtype_tree, tree_map
@@ -81,9 +104,14 @@ PEAK_FLOPS = 989e12          # bf16 dense tensor cores, FLOP/s
 HBM_BW = 3.35e12             # bytes/s
 #: the H100 80GB HBM3's memory as torch reports it (total_memory)
 DEVICE_BYTES = 85_017_493_504
-#: the JAX record's collective kinds; all 0 on one card
-COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-               "collective-permute")
+#: the mesh kinds: None one card; the JAX dry run's production meshes
+MESHES = {"single": None, "pod": dict(data=16, model=16),
+          "multi": dict(pod=2, data=16, model=16)}
+#: link rates a card (bytes/s, one direction; data sheets): NVLink 4
+#: within an 8-card HGX H100 node, 400 Gb/s NDR InfiniBand across nodes
+NVLINK_BW = 450e9
+NDR_BW = 50e9
+NODE_CARDS = 8
 
 
 def active_params(cfg: ModelConfig) -> Dict[str, int]:
@@ -228,15 +256,85 @@ def card_flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return _k6(q, k, v, q_pos, kv_pos, int(window), int(prefix_len))
 
 
+def _n_splits(q, k, total) -> int:
+    B, Sq, KV, G, hd = q
+    if flash_ops.partials_form(Sq, G, hd) == "simt":
+        return 1
+    return -(-k[1] // flash_ops.split_keys(B, KV, total))
+
+
+@torch.library.custom_op(
+    "repro_torch_dryrun::flash_partials", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor q_pos, Tensor kv_pos, "
+           "int window, int prefix_len, int offset, int total) -> "
+           "(Tensor, Tensor, Tensor)")
+def _k6_partials(q, k, v, q_pos, kv_pos, window, prefix_len, offset, total):
+    kps = -(-k.shape[1] // _n_splits(q.shape, k.shape, total))
+    return tuple(t.clone() for t in split_partials(
+        q, k, v, q_pos, kv_pos, window=window, prefix_len=prefix_len,
+        keys_per_split=kps, offset=offset, total=total))
+
+
+@_k6_partials.register_fake
+def _(q, k, v, q_pos, kv_pos, window, prefix_len, offset, total):
+    n = _n_splits(q.shape, k.shape, total)
+    f32 = torch.float32
+    return (q.new_empty((n,) + q.shape[:-1], dtype=f32),
+            q.new_empty((n,) + q.shape[:-1], dtype=f32),
+            q.new_empty((n,) + q.shape, dtype=f32))
+
+
+@torch.library.custom_op(
+    "repro_torch_dryrun::flash_combine", mutates_args=(),
+    schema="(Tensor m, Tensor l, Tensor o, ScalarType dtype) -> Tensor")
+def _k6_combine(m, l, o, dtype):
+    return combine_partials(m, l, o, dtype).clone()
+
+
+@_k6_combine.register_fake
+def _(m, l, o, dtype):
+    return o.new_empty(o.shape[1:], dtype=dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch_dryrun.flash_partials)
+def _k6_partials_flops(q, k, v, q_pos, kv_pos, window, prefix_len, offset,
+                       total, **_):
+    """S = QK^T and PV over this block's share of the allowed pairs (the
+    pairs of the whole cache, :func:`attended_pairs`, times the block's
+    share of its slots)."""
+    B, Sq, KV, G, hd = q
+    pairs = B * KV * G * attended_pairs(Sq, total, window, prefix_len)
+    return 2 * pairs * k[1] // total * (hd + v[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch_dryrun.flash_combine)
+def _k6_combine_flops(m, l, o, dtype, **_):
+    return 2 * o[0] * o[1] * o[2] * o[3] * o[4] * o[5]
+
+
+def card_flash_partials(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                        prefix_len: int = 0, offset: int = 0, total=None):
+    """``flash_partials`` as one operation a trace counts as K6's
+    partials kernel (the plain version on real tensors)."""
+    total = k.shape[1] if total is None else int(total)
+    return _k6_partials(q, k, v, q_pos, kv_pos, int(window),
+                        int(prefix_len), int(offset), total)
+
+
 @contextlib.contextmanager
 def card_attention():
-    """Within: the models call :func:`card_flash_attention`."""
-    saved = attention.flash_attention
+    """Within: the models call :func:`card_flash_attention` (and K6's
+    partials and merge as one operation each)."""
+    saved = (attention.flash_attention, attention.flash_partials,
+             attention.flash_combine)
     attention.flash_attention = card_flash_attention
+    attention.flash_partials = card_flash_partials
+    attention.flash_combine = _k6_combine
     try:
         yield
     finally:
-        attention.flash_attention = saved
+        (attention.flash_attention, attention.flash_partials,
+         attention.flash_combine) = saved
 
 
 def _tensors(tree):
@@ -354,6 +452,73 @@ def build_cell(cfg: ModelConfig, shape, *, remat: str = "none"):
                     fake(ins["cache"]))
 
 
+def _block_like(t, placement, mesh):
+    """An uninitialized tensor of ``t``'s type and of the shape of rank
+    ``mesh.rank``'s block of it under ``placement``."""
+    shape = tuple(s.stop - s.start for s in sharding.block_slices(
+        tuple(t.shape), placement, mesh))
+    return torch.empty(shape, dtype=t.dtype, device="cpu")
+
+
+def build_mesh_cell(cfg: ModelConfig, shape, mesh: TraceMesh, *,
+                    remat: str = "none"):
+    """``(fn, args)`` of one cell as rank ``mesh.rank`` of ``mesh`` runs
+    it, on its blocks (fake CPU tensors: call it under a
+    ``FakeTensorMode``); ``fn`` runs under ``sharding.use_mesh(mesh)``."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    if shape.kind == "train":
+        specs = transformer.model_specs(cfg)
+        place = sharding.train_placements(specs, mesh, cfg)
+    else:
+        cfg, specs, place = transformer.serving_layout(cfg, mesh)
+    whole = shape_dtype_tree(specs, device="cpu")
+    params = sharding.tree_map(
+        lambda t, p: _block_like(t, p, mesh), whole, place)
+    cdt = transformer.as_dtype(cfg.compute_dtype)
+    ins = input_specs(cfg, shape, cdt)
+
+    def blocks(batch):
+        place = sharding.data_placements(batch, mesh, cfg.sharding_profile)
+        return {k: None if v is None else _block_like(v, place[k], mesh)
+                for k, v in batch.items()}
+
+    if shape.kind == "train":
+        master = cfg.param_dtype != "float32"
+        opt = opt_mod.init(params, master_fp32=master, device="cpu")
+        step = ts_mod.make_train_step(
+            cfg, opt_mod.OptConfig(master_fp32=master), remat=remat,
+            mesh=mesh)
+        return step, (params, opt, blocks(ins["batch"]))
+    cache = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                   cdt, "cpu", mesh=mesh)
+    if shape.kind == "prefill":
+        def prefill(params, batch, cache):
+            with sharding.use_mesh(mesh):
+                return transformer.prefill(params, cfg, batch, cache)
+
+        return prefill, (params, blocks(ins["batch"]), cache)
+
+    def decode(params, tokens, index, cache):
+        with sharding.use_mesh(mesh):
+            return transformer.decode_step(params, cfg, tokens, index, cache)
+
+    tokens = blocks(dict(tokens=ins["tokens"]))["tokens"]
+    return decode, (params, tokens, shape.seq_len - 1, cache)
+
+
+def collective_seconds(census: Dict, mesh: TraceMesh) -> float:
+    """The collectives' time at the stated link rates: each (kind, axes)
+    entry's bytes over NVLink's rate where rank 0's group over those axes
+    lies within one node, else over NDR's."""
+    t = 0.0
+    for (_, axes), n in census.items():
+        local = max(mesh.group_ranks(axes)) < NODE_CARDS
+        t += n["bytes"] / (NVLINK_BW if local else NDR_BW)
+    return t
+
+
 def measure(fn, *args) -> Dict:
     """FLOPs, bytes, census and memory of ``fn(*args)``, whose tensor
     arguments are fake (or meta) tensors; call it under the
@@ -382,12 +547,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
              tag: str = "", save: bool = True,
              config: Optional[ModelConfig] = None,
              shape=None) -> Dict:
-    """One cell's record.  ``config`` / ``shape`` replace the arch's
-    published config and the registry's shape (reduced cells in tests)."""
-    if mesh_kind != "single":
-        raise NotImplementedError(
-            f"mesh={mesh_kind!r}: the port runs on one card; a multi-card "
-            "ShardMesh backend is ROADMAP queue 1 item 6")
+    """One cell's record on the mesh ``mesh_kind`` (:data:`MESHES`).
+    ``config`` / ``shape`` replace the arch's published config and the
+    registry's shape (reduced cells in tests)."""
+    if mesh_kind not in MESHES:
+        raise ValueError(f"unknown mesh {mesh_kind!r}; one of "
+                         f"{list(MESHES)}")
     spec = get_arch(arch)
     shape = shape or SHAPES[shape_name]
     ok, why = shape_applicable(arch, shape_name)
@@ -398,24 +563,47 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
             _save(rec, arch, shape_name, mesh_kind, tag)
         return rec
     cfg = apply_overrides(config or spec.config, overrides or {})
+    axes = MESHES[mesh_kind]
+    mesh = None if axes is None else TraceMesh(axes)
     rec: Dict[str, Any] = dict(
-        arch=arch, shape=shape_name, mesh=mesh_kind, status="ok", chips=1,
-        remat=remat, overrides=overrides or {}, params=active_params(cfg),
-        model_flops=model_flops(cfg, shape), device_bytes=DEVICE_BYTES,
-        seq_len=shape.seq_len, global_batch=shape.global_batch)
+        arch=arch, shape=shape_name, mesh=mesh_kind, status="ok",
+        chips=1 if mesh is None else mesh.num_shards,
+        mesh_axes=axes, remat=remat, overrides=overrides or {},
+        params=active_params(cfg), model_flops=model_flops(cfg, shape),
+        device_bytes=DEVICE_BYTES, seq_len=shape.seq_len,
+        global_batch=shape.global_batch)
     try:
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         t0 = time.time()
         with FakeTensorMode(), card_attention():
-            fn, args = build_cell(cfg, shape, remat=remat)
+            if mesh is None:
+                fn, args = build_cell(cfg, shape, remat=remat)
+            else:
+                fn, args = build_mesh_cell(cfg, shape, mesh, remat=remat)
             rec.update(measure(fn, *args))
         rec["trace_s"] = round(time.time() - t0, 2)
         rec["memory"]["fits"] = (rec["memory"]["peak_device_bytes"]
                                  <= DEVICE_BYTES)
-        rec["collectives"] = {k: dict(count=0.0, bytes=0.0)
-                              for k in COLLECTIVES}
-        rec["collective_bytes"] = 0.0
+        if mesh is None:
+            rec["collectives"] = {k: dict(count=0.0, bytes=0.0)
+                                  for k in COLLECTIVES}
+            rec["t_collective_s"] = 0.0
+        else:
+            rec["collectives"] = {k: {f: float(n) for f, n in v.items()}
+                                  for k, v in mesh.census().items()}
+            groups = mesh.census(by_axes=True)
+            rec["collectives_by_group"] = {
+                f"{k}|{','.join(a)}": v for (k, a), v in groups.items()}
+            rec["t_collective_s"] = collective_seconds(groups, mesh)
+            rec["link_rates"] = dict(
+                nvlink_bytes_per_s=NVLINK_BW, ndr_bytes_per_s=NDR_BW,
+                node_cards=NODE_CARDS,
+                source="NVIDIA data sheets: NVLink 4 450 GB/s a direction "
+                       "(HGX H100, 8 cards a node); ConnectX-7 400 Gb/s NDR "
+                       "a card across nodes")
+        rec["collective_bytes"] = float(sum(
+            v["bytes"] for v in rec["collectives"].values()))
         rec["roofline"] = roofline_terms(rec)
     except Exception as e:  # record the failure — these are bugs to fix
         rec["status"] = "fail"
@@ -427,12 +615,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
 
 
 def roofline_terms(rec: Dict) -> Dict:
-    """Three roofline terms in seconds on the card: compute at the bf16
-    dense peak, the counted traffic at the HBM rate, and no collectives
-    on one card."""
+    """Three roofline terms in seconds a card: compute at the bf16 dense
+    peak, the counted traffic at the HBM rate, and the collectives at the
+    stated link rates (none on one card)."""
     t_compute = rec["cost"]["flops"] / PEAK_FLOPS
     t_memory = rec["cost"]["bytes_accessed"] / HBM_BW
-    t_coll = 0.0
+    t_coll = rec.get("t_collective_s", 0.0)
     dominant = max(
         ("compute", t_compute), ("memory", t_memory),
         ("collective", t_coll), key=lambda kv: kv[1])[0]
@@ -472,6 +660,7 @@ def summarize(rec: Dict) -> str:
     return (f"{rec['arch']:>24} {rec['shape']:>12} {rec['mesh']:>7}  "
             f"mem/dev={m:8.2f}GiB flops={rec['cost']['flops']:.3e} "
             f"tc={r['t_compute']*1e3:8.2f}ms tm={r['t_memory']*1e3:8.2f}ms "
+            f"tx={r['t_collective']*1e3:8.2f}ms "
             f"dom={r['dominant']:>8} roofline={r['roofline_frac']*100:5.1f}% "
             f"(trace {rec['trace_s']}s)")
 
@@ -485,9 +674,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="single", choices=["single"],
-                    help="one card (a multi-card mesh: ROADMAP queue 1 "
-                         "item 6)")
+    ap.add_argument("--mesh", default="single",
+                    choices=list(MESHES) + ["both"],
+                    help="one card, the (data 16, model 16) pod, the "
+                         "(pod 2, data 16, model 16) pair of pods, or both "
+                         "of those")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--remat", default="none", choices=transformer.REMATS)
     ap.add_argument("--set", action="append", default=[],
@@ -503,11 +694,13 @@ def main(argv=None):
     else:
         assert args.arch and args.shape, "--arch/--shape or --all"
         cells = [(args.arch, args.shape)]
-    kw = dict(mesh_kind=args.mesh, remat=args.remat, overrides=overrides,
-              tag=args.tag)
-    jobs = [(a, s, kw) for a, s in cells]
+    meshes = ["pod", "multi"] if args.mesh == "both" else [args.mesh]
+    jobs = [(a, s, dict(mesh_kind=m, remat=args.remat, overrides=overrides,
+                        tag=args.tag))
+            for m in meshes for a, s in cells]
     t0 = time.time()
     n_fail = 0
+    status = collections.Counter()
     if args.workers > 1:
         import multiprocessing as mp
 
@@ -518,12 +711,16 @@ def main(argv=None):
             for rec in pool.imap_unordered(_cell, jobs):
                 print(summarize(rec), flush=True)
                 n_fail += rec["status"] == "fail"
+                status[rec["status"]] += 1
     else:
         for job in jobs:
             rec = _cell(job)
             print(summarize(rec), flush=True)
             n_fail += rec["status"] == "fail"
-    print(f"done in {time.time() - t0:.0f}s, {n_fail} failures", flush=True)
+            status[rec["status"]] += 1
+    print(f"done in {time.time() - t0:.0f}s, {len(jobs)} cells: "
+          f"{status['ok']} ok, {status['skip']} skip, {status['fail']} fail",
+          flush=True)
     raise SystemExit(1 if n_fail else 0)
 
 

@@ -167,14 +167,65 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor,
     # einsum gives it
     comb = torch.zeros((B * S, m.num_experts), dtype=dt,
                        device=x.device).scatter_(1, ids.long(), w)
-    hg = torch.matmul(x2d, params["wg"].to(dt))              # (E, T, F)
-    hi = torch.matmul(x2d, params["wi"].to(dt))
-    ye = torch.matmul(F.silu(hg) * hi, params["wo"].to(dt))  # (E, T, D)
-    y = torch.einsum("etd,te->td", ye, comb).reshape(B, S, D)
+    y = _expert_mix(x2d, params, comb).reshape(B, S, D)
     if m.num_shared:
         y = y + _shared(params, cfg, x, dt)
     if collect_stats:
         return y, aux, stats
+    return y, aux
+
+
+def _expert_mix(x2d: torch.Tensor, w: Dict, comb: torch.Tensor):
+    """Every token through every expert of the stacks ``w`` (wi, wg, wo;
+    (E, ...)), mixed by the combine weights ``comb`` (T, E): (T, D)."""
+    dt = x2d.dtype
+    hg = torch.matmul(x2d, w["wg"].to(dt))                   # (E, T, F)
+    hi = torch.matmul(x2d, w["wi"].to(dt))
+    ye = torch.matmul(F.silu(hg) * hi, w["wo"].to(dt))       # (E, T, D)
+    return torch.einsum("etd,te->td", ye, comb)
+
+
+def _dense_blocks(params, cfg: ModelConfig, x: torch.Tensor,
+                  collect_stats: bool, mesh: ProcessMesh):
+    """:func:`moe_dense` over a ``ProcessMesh``, on this rank's blocks:
+    the expert stacks' ``"data"`` (FSDP) blocks gathered, each rank
+    computing its ``"model"`` block of the experts (every expert where the
+    stacks are not split over ``"model"`` alone) for its rows — the same
+    rows on every ``"model"`` member — and the blocks' outputs added over
+    ``"model"`` in member order.  Where the JAX package takes the dense
+    path inside a sharded program: a decode step's one token a row (the
+    sequence does not divide over ``"model"``), or ``impl="dense"``."""
+    m = cfg.moe
+    E = m.num_experts
+    specs = moe_specs(cfg)
+    prof = cfg.sharding_profile
+    split = sharding.filter_spec(specs["wi"].spec, mesh, specs["wi"].shape,
+                                 prof)[0]
+    keep = (MODEL,) if split == MODEL else ()
+    if keep and MODEL in sharding.batch_axes(mesh, prof):
+        raise ValueError(
+            "moe_dense over a ProcessMesh whose \"model\" members hold "
+            f"other rows (profile {prof!r}): E {E} must divide over the EP "
+            f"axes {cfg.ep_axes} and the sequence {x.shape[1]} over "
+            f"{MODEL!r} of {mesh.axes} (the a2a)")
+    w = {n: sharding.gathered(params[n], specs[n], mesh, prof, keep=keep)
+         for n in ("wi", "wg", "wo")}
+    E_loc = w["wi"].shape[0]
+    first = mesh.group_rank(MODEL, mesh.rank) * E_loc if E_loc < E else 0
+    B, S, D = x.shape
+    dt = x.dtype
+    x2d = x.reshape(B * S, D)
+    wts, ids, aux = _router(params, cfg, x2d)
+    comb = torch.zeros((B * S, E), dtype=dt, device=x.device).scatter_(
+        1, ids.long(), wts)[:, first:first + E_loc]
+    y = _expert_mix(x2d, w, comb)
+    if E_loc < E:
+        y = autodiff.tp_out(y, mesh, MODEL)
+    y = y.reshape(B, S, D)
+    if m.num_shared:
+        y = y + _shared(params, cfg, x, dt, mesh)
+    if collect_stats:
+        return y, aux, pair_stats(ids, E)
     return y, aux
 
 
@@ -391,11 +442,7 @@ def moe_a2a(params, cfg: ModelConfig, x: torch.Tensor,
     out = a2a_with_routing(params, cfg, x, mesh=mesh)
     if out is None:
         if isinstance(mesh, ProcessMesh):
-            raise ValueError(
-                f"moe_dense over a ProcessMesh is not ported: E "
-                f"{cfg.moe.num_experts} must divide over the EP axes "
-                f"{cfg.ep_axes} and the sequence {x.shape[1]} over "
-                f"{MODEL!r} of {mesh.axes}")
+            return _dense_blocks(params, cfg, x, collect_stats, mesh)
         return moe_dense(params, cfg, x, collect_stats)
     y, aux, st, _ = out
     return (y, aux, st) if collect_stats else (y, aux)
@@ -413,4 +460,6 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
         mesh = ambient_mesh()
     if mesh is not None and impl != "dense":
         return moe_a2a(params, cfg, x, collect_stats, mesh=mesh)
+    if isinstance(mesh, ProcessMesh):
+        return _dense_blocks(params, cfg, x, collect_stats, mesh)
     return moe_dense(params, cfg, x, collect_stats)

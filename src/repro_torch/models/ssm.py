@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import autodiff
 from repro_torch.kernels import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MODEL
@@ -127,6 +128,41 @@ def mamba_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = decay[..., None] * state + inj
     y = torch.einsum("bhn,bhnd->bhd", Cm[:, 0], h).to(x.dtype)
     return _mamba_out(params, x, y[:, None], xv, z), h
+
+
+# ------------------------------------------ states over a process mesh --
+
+
+def _leaves_map(fn, state, *rest):
+    if isinstance(state, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in state.items()}
+    return fn(state, *rest)
+
+
+def gathered_state(state, mesh, heads: int):
+    """A recurrent state (a tensor or a dict of them, dim 1 the heads) as
+    this rank holds it under the JAX rules (``sharding.cache_placements``:
+    its block of the ``heads`` over ``"model"`` where they divide) made
+    whole for the step, which computes with every head (as the sharded
+    train step computes the SSM cells gathered)."""
+    def leaf(t):
+        if t.shape[1] == heads:
+            return t
+        return autodiff.leave(mesh, t.contiguous(), MODEL, 1)
+
+    return _leaves_map(leaf, state)
+
+
+def state_block(new, held, mesh):
+    """This rank's block of the whole new state ``new``, shaped as the
+    block ``held`` it replaces (dim 1: its heads over ``"model"``)."""
+    def leaf(t, h):
+        if t.shape[1] == h.shape[1]:
+            return t
+        n = h.shape[1]
+        return t.narrow(1, mesh.group_rank(MODEL, mesh.rank) * n, n)
+
+    return _leaves_map(leaf, new, held)
 
 
 # ------------------------------------------------------------------ mLSTM --

@@ -32,6 +32,21 @@ under the JAX rules, and each layer and the vocabulary compute as
 ``d_ff`` columns, vocabulary rows; the CE vocabulary parallel) or
 gathered before use (``sharding.gathered``; FSDP's ``"data"`` blocks).
 
+Serving over ranks: under an ambient ``ProcessMesh`` the cache paths
+(``forward`` with a cache, ``prefill``, ``decode_step``) take the JAX
+rules' "2d" profile where the config says "dp" (:func:`serving_config`,
+as the JAX forward switches it: the KV cache needs its length split over
+``"model"``), so their parameters are placed under it
+(:func:`serving_layout`).  The cache is
+this rank's blocks (:func:`init_cache` with ``mesh``:
+``sharding.cache_placements``, batch over the batch axes, dim 1 — slots
+or recurrent-state heads — over ``"model"``); attention reads it as
+``models.attention`` says (K6's partials merged over ``"model"`` at
+decode), the recurrent cells gather their states for the step and keep
+their block after, and the logits come back whole (every row, every
+vocabulary block), as the JAX package's ``out_shardings=None`` returns
+them.
+
 Rematerialization (``remat``): "none" keeps every layer's activations
 for the backward; "full" runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), so the backward recomputes it.  The JAX package's
@@ -154,10 +169,44 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> List[Dict]:
-    """One cache dict per layer, in ``cfg.all_layers()`` order."""
-    return [init_block_cache(cfg, k, batch, max_len, dtype, device)
-            for k in cfg.all_layers()]
+               dtype=torch.bfloat16, device="cuda", mesh=None) -> List[Dict]:
+    """One cache dict per layer, in ``cfg.all_layers()`` order.
+
+    Over a ``ProcessMesh`` (``mesh``) only this rank's blocks under
+    ``sharding.cache_placements`` (the counterpart of
+    ``params.init_block``): ``batch`` is the global batch, each leaf is
+    allocated at its block's shape, and no whole cache is made.  Every
+    layer's slots must divide over ``"model"`` (each rank a block of
+    them)."""
+    if mesh is None:
+        return [init_block_cache(cfg, k, batch, max_len, dtype, device)
+                for k in cfg.all_layers()]
+    dev = resolve_device(device)
+    whole, place = cache_layout(cfg, batch, max_len, mesh, dtype)
+    M = mesh.axes.get(MODEL, 1)
+    for layer, p in zip(whole, place):
+        if "kv" in layer and M > 1 and p["kv"]["pos"][1] != MODEL:
+            raise ValueError(
+                f"a cache of {layer['kv']['pos'].shape[1]} slots does not "
+                f"divide over the {M} ranks of {MODEL!r}")
+    # every leaf is one value throughout: a one-row, one-slot cache's
+    one = init_cache(cfg, 1, 1, dtype, "cpu")
+
+    def block(t, p, v):
+        shape = tuple(s.stop - s.start
+                      for s in sharding.block_slices(t.shape, p, mesh))
+        return v.reshape(-1)[:1].to(dev).expand(shape).contiguous()
+
+    return sharding.tree_map(block, whole, place, one)
+
+
+def cache_layout(cfg: ModelConfig, batch: int, max_len: int, mesh,
+                 dtype=torch.bfloat16):
+    """``(whole, placements)``: the whole cache on the meta device (no
+    storage) and its placements over ``mesh`` under the JAX rules
+    (``sharding.cache_placements``, the cache paths' "2d" profile)."""
+    whole = init_cache(cfg, batch, max_len, dtype, "meta")
+    return whole, sharding.cache_placements(whole, mesh, "2d")
 
 
 def _store(dst, new) -> None:
@@ -167,6 +216,24 @@ def _store(dst, new) -> None:
             dst[k].copy_(new[k])
     else:
         dst.copy_(new)
+
+
+def _state(cache, key: str, cfg: ModelConfig, mesh):
+    """The layer's recurrent state for its step: whole (over a
+    ``ProcessMesh`` its head blocks gathered, ``ssm.gathered_state``)."""
+    if cache is None:
+        return None
+    if mesh is None:
+        return cache[key]
+    return ssm.gathered_state(cache[key], mesh, cfg.num_heads)
+
+
+def _store_state(cache, key: str, new, mesh) -> None:
+    """Write the step's new state into the cache in place (over a
+    ``ProcessMesh`` this rank's head block of it)."""
+    if mesh is not None:
+        new = ssm.state_block(new, cache[key], mesh)
+    _store(cache[key], new)
 
 
 # ------------------------------------------------------------------ block --
@@ -208,7 +275,9 @@ def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     the a2a takes it (``models.moe``)."""
     plan = sharding.tp_plan(cfg, mesh)[kind]
     if plan.get("attn") == "repeat":
-        T_kv = x.shape[1] if cache is None else cache["kv"]["k"].shape[1]
+        # a cache is this rank's block of slots over "model"
+        T_kv = x.shape[1] if cache is None else (
+            cache["kv"]["pos"].shape[1] * mesh.axes.get(MODEL, 1))
         if T_kv > attn.REPEAT_MAX_KV:
             plan["attn"] = "gather"
     specs = _block_specs(cfg, kind)
@@ -254,7 +323,8 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
               else attn.gqa_attention)
         a, _ = fn(params["attn"], cfg, h, positions, window=window,
                   prefix_len=prefix_len,
-                  cache=None if cache is None else cache["kv"], tp=att_tp)
+                  cache=None if cache is None else cache["kv"], tp=att_tp,
+                  decode=decode)
         x = x + a
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
         if kind.startswith("moe"):
@@ -270,14 +340,15 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         a, _ = attn.gqa_attention(
             params["attn"], cfg, h, positions, window=window,
             prefix_len=prefix_len,
-            cache=None if cache is None else cache["kv"], tp=att_tp)
-        state = None if cache is None else cache["ssm"]
+            cache=None if cache is None else cache["kv"], tp=att_tp,
+            decode=decode)
+        state = _state(cache, "ssm", cfg, mesh)
         if decode:
             m, s_new = ssm.mamba_step(params["mamba"], cfg, h, state)
         else:
             m, s_new = ssm.mamba_forward(params["mamba"], cfg, h, state)
         if cache is not None:
-            _store(cache["ssm"], s_new)
+            _store_state(cache, "ssm", s_new, mesh)
         beta = params["beta"].to(dt)
         x = x + 0.5 * (beta[0] * a + beta[1] * m)
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
@@ -285,14 +356,14 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
     if kind in XLSTM_KINDS:
         h = rms_norm(x, params["norm1"], cfg.norm_eps)
-        state = None if cache is None else cache["state"]
+        state = _state(cache, "state", cfg, mesh)
         if kind == "mlstm":
             fn = ssm.mlstm_step if decode else ssm.mlstm_forward
         else:
             fn = ssm.slstm_step if decode else ssm.slstm_forward
         y, s_new = fn(params["cell"], cfg, h, state)
         if cache is not None:
-            _store(cache["state"], s_new)
+            _store_state(cache, "state", s_new, mesh)
         x = x + y
         if cfg.d_ff:
             h = rms_norm(x, params["norm2"], cfg.norm_eps)
@@ -375,8 +446,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     checkpoints each layer where grad is enabled and there is no cache."""
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
-    x = _embed_inputs(params, cfg, batch)
+    if decode or cache is not None:
+        cfg = serving_config(cfg)
     positions = batch["positions"]
+    if cache is not None and not decode and sharding.rank_mesh() is not None:
+        _prompt_from_zero(positions)
+    x = _embed_inputs(params, cfg, batch)
     prefix_len = cfg.vision_prefix if cfg.prefix_lm else 0
     aux_total = (zero_aux(cfg, collect_router_stats, x.device)
                  if with_aux or collect_router_stats else None)
@@ -401,6 +476,41 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     return h, cache
 
 
+def serving_config(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` as its cache paths run it: the "2d" profile where it says
+    "dp" (the JAX forward's switch on ``decode`` or a cache, and the JAX
+    dry run's on its prefill and decode cells), else ``cfg`` itself."""
+    if cfg.sharding_profile == "dp":
+        return dataclasses.replace(cfg, sharding_profile="2d")
+    return cfg
+
+
+def serving_layout(cfg: ModelConfig, mesh):
+    """``(cfg, specs, placements)`` of a model served over ``mesh``: the
+    config as its cache paths run it (:func:`serving_config`), its
+    parameter specs and their placements (``sharding.train_placements``;
+    this rank's blocks: ``params.init_blocks(specs, seed, placements,
+    mesh)``)."""
+    cfg = serving_config(cfg)
+    specs = model_specs(cfg)
+    return cfg, specs, sharding.train_placements(specs, mesh, cfg)
+
+
+def _prompt_from_zero(positions: torch.Tensor) -> None:
+    """A prefill over ranks stores the prompt's keys and attends over
+    them alone: every row must start at position 0 (a cache holding
+    nothing the prompt does not overwrite).  Raises otherwise (a traced
+    call, whose positions have no values, is not checked)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(positions):
+        return
+    if int(positions.amin()) != 0:
+        raise NotImplementedError(
+            "prefill over a ProcessMesh into a non-empty cache: the prompt "
+            "must start at position 0 (decode steps extend the cache)")
+
+
 def _head(params, cfg: ModelConfig, dt) -> torch.Tensor:
     """The head's (D, V) weight in ``dt``: the tied embedding's transpose
     or ``lm_head`` (a rank's vocabulary block of either)."""
@@ -409,7 +519,23 @@ def _head(params, cfg: ModelConfig, dt) -> torch.Tensor:
 
 
 def logits_head(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return h @ _head(params, cfg, h.dtype)
+    """``h @ head`` in h's type.  Under an ambient ``ProcessMesh`` (the
+    parameters this rank's blocks, ``h`` its rows) the logits of every
+    row and the whole vocabulary, as the JAX package's
+    ``out_shardings=None`` returns them: each rank's vocabulary block
+    where the head runs tensor parallel, gathered over ``"model"``, then
+    the rows gathered over the batch axes."""
+    mesh = sharding.rank_mesh()
+    if mesh is None:
+        return h @ _head(params, cfg, h.dtype)
+    params, vmesh = _vocab_params(params, cfg)
+    out = h @ _head(params, cfg, h.dtype)
+    if vmesh is not None:
+        out = autodiff.leave(mesh, out.contiguous(), MODEL, out.dim() - 1)
+    axes = sharding.batch_axes(mesh, cfg.sharding_profile)
+    if axes and mesh.size(axes) > 1:
+        out = autodiff.leave(mesh, out.contiguous(), axes, 0)
+    return out
 
 
 # ------------------------------------------------------------------- loss --
@@ -593,20 +719,32 @@ def _batch_sum(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
 
 def prefill(params, cfg: ModelConfig, batch: Dict, cache: List[Dict]):
     """Full-sequence forward writing the cache; returns last-position
-    logits (B, 1, V) and the cache."""
-    h, cache = forward(params, cfg, batch, cache=cache)
-    return logits_head(params, cfg, h[:, -1:]), cache
+    logits (B, 1, V) and the cache.  Over an ambient ``ProcessMesh``:
+    ``params``, ``batch`` and ``cache`` are this rank's blocks (under
+    :func:`serving_config`'s profile), the prompt starts at position 0,
+    and the logits are every row's (see :func:`logits_head`)."""
+    return _serve(params, cfg, batch, cache, decode=False)
 
 
 def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                 index: int, cache: List[Dict],
                 embeds: Optional[torch.Tensor] = None):
     """One decode step: tokens (B, 1) (or frontend ``embeds`` (B, 1, D))
-    at position ``index``."""
+    at position ``index``.  Over an ambient ``ProcessMesh`` as
+    :func:`prefill`: ``tokens`` are this rank's rows, the logits every
+    row's."""
     src = tokens if tokens is not None else embeds
     positions = torch.full((src.shape[0], 1), int(index), dtype=torch.int32,
                            device=src.device)
-    h, cache = forward(params, cfg, dict(tokens=tokens, embeds=embeds,
-                                         positions=positions),
-                       cache=cache, decode=True)
-    return logits_head(params, cfg, h), cache
+    return _serve(params, cfg, dict(tokens=tokens, embeds=embeds,
+                                    positions=positions), cache, decode=True)
+
+
+def _serve(params, cfg: ModelConfig, batch: Dict, cache: List[Dict], *,
+           decode: bool):
+    """:func:`forward` over the cache and the logits of the last position
+    (B, 1, V), the rows laid out under :func:`serving_config`'s profile
+    as ``forward`` lays them."""
+    cfg = serving_config(cfg)
+    h, cache = forward(params, cfg, batch, cache=cache, decode=decode)
+    return logits_head(params, cfg, h[:, -1:]), cache

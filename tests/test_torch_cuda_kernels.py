@@ -1146,6 +1146,89 @@ def test_flash_simt_past_the_fast_forms(dev, G, hd):
                      F32)
 
 
+def _blocks(args, M, kps=None, window=0):
+    """K6's partials of the M length blocks of a decode's cache, each at
+    its global offset: [(m, l, o)] on the card and in the plain version."""
+    q, k, v, qp, kp = args
+    T = k.shape[1]
+    n = T // M
+    got, want = [], []
+    for i in range(M):
+        blk = (q, k[:, i * n:(i + 1) * n].contiguous(),
+               v[:, i * n:(i + 1) * n].contiguous(), qp,
+               kp[:, i * n:(i + 1) * n].contiguous())
+        kw = dict(window=window, offset=i * n, total=T, keys_per_split=kps)
+        got.append(fops.flash_partials(*blk, **kw))
+        want.append(fops.flash_partials(*(t.cpu() for t in blk), **kw))
+    return got, want
+
+
+def _cat(parts):
+    return [torch.cat([p[j] for p in parts]) for j in range(3)]
+
+
+@pytest.mark.parametrize("B,T,KV,G,hd,qdt,kvdt,window,ring,last", [
+    # gemma3-27b's decode over (model 4): hd 168 (the FMA split kernel),
+    # the last rank's block past every row's keys
+    (2, 2048, 16, 2, 168, BF16, BF16, 0, False, [959, 1100]),
+    (2, 2048, 16, 2, 168, F32, F32, 0, False, [959, 1100]),
+    (2, 1024, 16, 2, 168, BF16, BF16, 1024, True, [959, 1087]),
+    # bf16 with hd % 16 == 0: the split form's tensor-core partials
+    (3, 1056, 2, 4, 64, BF16, BF16, 0, False, [1055, 600, 31]),
+    # MLA's decode: G 128, hd 576, the simt form's partials
+    (2, 288, 1, 128, 576, BF16, BF16, 0, False, [255, 287]),
+    (2, 288, 1, 128, 576, F32, F32, 0, False, [30, 287]),
+])
+def test_flash_partials_over_length_blocks_match_plain(
+        dev, B, T, KV, G, hd, qdt, kvdt, window, ring, last):
+    """Four length blocks of a decode's cache, each at its offset: every
+    block's partials merged alone equal the plain version's, a block past
+    a row's visited keys gives m = -inf, l = 0, o = 0 exactly, and the
+    blocks' partials merged together (``flash_combine``, rank-major)
+    equal the chunked attention of the whole cache and the plain merge."""
+    args = _decode_inputs(dev, B, T, KV, G, hd, qdt, kvdt, last, ring,
+                          B + G + hd)
+    form = fops.partials_form(1, G, hd)
+    assert form == ("simt" if G > 32 else "split")
+    before = dict(fops.partial_launches)
+    got, want = _blocks(args, 4, window=window)
+    assert fops.partial_launches[form] == before[form] + 4
+    dt = BF16 if BF16 in (qdt, kvdt) else F32
+    for (gm, gl, go), (wm, wl, wo) in zip(got, want):
+        assert gm.shape == wm.shape and go.shape == wo.shape
+        empty = wm == -float("inf")
+        assert torch.equal(gm.cpu() == -float("inf"), empty)
+        assert bool((gl.cpu()[empty] == 0).all())
+        assert bool((go.cpu()[empty] == 0).all())
+        if not bool(empty.all()):
+            _flash_close(fops.flash_combine(gm, gl, go, qdt).cpu(),
+                         fops.flash_combine(wm, wl, wo, qdt), dt)
+    if not ring and max(last) + 64 < 3 * T // 4:   # past every visit end
+        assert bool((want[-1][0] == -float("inf")).all()), \
+            "the last block holds visited keys: no empty block tested"
+    merged = fops.flash_combine(*_cat(got), qdt)
+    assert fops.partial_launches["combine"] > before["combine"]
+    _flash_close(merged, chunked_attention(*args, window=window), dt)
+    _flash_close(merged.cpu(), fops.flash_combine(*_cat(want), qdt), dt)
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+def test_flash_partials_over_aligned_blocks_equal_the_split_form(
+        dev, tensor_cores):
+    """Where each block is a whole number of the one-process call's key
+    splits, the blocks' partials merged rank-major are the one-process
+    split form's output bit for bit (the same splits, one merge)."""
+    args = _decode_inputs(dev, 4, 1024, 2, 4, 64, BF16, BF16,
+                          [1023, 700, 300, 5], False, 11)
+    if not tensor_cores:
+        args = (args[0].float(),) + args[1:]
+    got, _ = _blocks(args, 4, kps=64)
+    merged = fops.flash_combine(*_cat(got), args[0].dtype)
+    one = fops._launch(*args, 0, 0, "split", keys_per_split=64,
+                       tensor_cores=tensor_cores)
+    assert torch.equal(merged, one)
+
+
 @pytest.mark.parametrize("E,R,seed", [(24, 4, 0), (256, 32, 1), (256, 32, 2),
                                       (64, 8, 3)])
 def test_repair_capacity_on_cuda_equals_cpu(dev, E, R, seed):

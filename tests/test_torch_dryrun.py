@@ -10,10 +10,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import SHAPES, get_arch, list_archs
+from repro_torch.configs import SHAPES, Shape, get_arch, list_archs
+from repro_torch.distributed.mesh import TraceMesh
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch import dryrun
 from repro_torch.models import transformer
 from repro_torch.models.params import count_params, shape_dtype_tree, tree_map
@@ -186,8 +189,27 @@ def test_reduced_inference_cells_are_ok(shape_name):
 def test_skip_fail_and_multi(monkeypatch):
     rec = dryrun.run_cell("smollm-135m", "long_500k", save=False)
     assert rec["status"] == "skip" and "sub-quadratic" in rec["reason"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        dryrun.run_cell("smollm-135m", "train_4k", "multi", save=False)
+    # a reduced config's train cell on the two-pod mesh: rank 0's blocks,
+    # its collectives in the JAX record's kinds, their link time
+    spec = get_arch("smollm-135m")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32,
+                                global_batch=64)
+    rec = dryrun.run_cell("smollm-135m", "train_4k", "multi",
+                          config=spec.reduced, shape=shape, save=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["chips"] == 512 and rec["mesh_axes"] == dict(
+        pod=2, data=16, model=16)
+    assert set(rec["collectives"]) == set(dryrun.COLLECTIVES)
+    assert rec["collectives"]["all-gather"]["count"] > 0
+    assert rec["collectives"]["all-reduce"]["count"] == 0
+    assert rec["collective_bytes"] == sum(
+        v["bytes"] for v in rec["collectives"].values()) > 0
+    assert rec["roofline"]["t_collective"] == rec["t_collective_s"] > 0
+    assert rec["memory"]["fits"]
+    N = count_params(transformer.model_specs(spec.reduced))
+    assert rec["memory"]["argument_bytes"] < 12 * N
+    with pytest.raises(ValueError, match="unknown mesh"):
+        dryrun.run_cell("smollm-135m", "train_4k", "torus", save=False)
 
     def data_dependent(cfg, shape, remat):
         return (lambda x: torch.nonzero(x)), (torch.ones(4),)
@@ -254,3 +276,66 @@ def test_roofline_reads_the_artifacts(tmp_path, monkeypatch):
     assert row["note"] == roofline.note_for(ok)
     assert (tmp_path / "bench_torch" / "roofline_single.json").exists()
     assert roofline.NOTES[("memory",)].startswith("fuse/eliminate")
+
+
+def test_roofline_reads_the_multi_mesh_artifacts(tmp_path, monkeypatch):
+    """``roofline.py --mesh multi`` reads the two-pod mesh's records: the
+    collective term from the record's link time, the cells that fit."""
+    from benchmarks_torch import common, roofline
+
+    monkeypatch.setattr(dryrun, "ARTIFACTS", tmp_path / "dryrun_torch")
+    monkeypatch.setattr(roofline, "ARTIFACTS", str(tmp_path / "dryrun_torch"))
+    monkeypatch.setattr(common, "ARTIFACTS", tmp_path / "bench_torch")
+    spec = get_arch("gemma3-1b")
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=64,
+                                global_batch=32)
+    rec = dryrun.run_cell("gemma3-1b", "decode_32k", "multi",
+                          config=spec.reduced, shape=shape)
+    assert rec["status"] == "ok", rec.get("traceback")
+    out = roofline.main(["--mesh", "multi"])
+    row = out["gemma3-1b×decode_32k"]
+    assert row["t_collective"] == rec["t_collective_s"] > 0
+    assert row["chips"] == 512 and row["fits"]
+    assert row["collective_bytes"] == rec["collective_bytes"]
+    assert (tmp_path / "bench_torch" / "roofline_multi.json").exists()
+
+
+CENSUS_AXES = dict(data=2, model=2)
+CENSUS = dict(arch="gemma3-27b", train=(16, 4), decode=(24, 4))
+
+
+@pytest.fixture(scope="module")
+def census_ranks(tmp_path_factory):
+    """Four gloo ranks' collectives in one sharded step and one decode
+    step of a reduced config (``tests/tp_serving_ranks.census_cases``)."""
+    from tests import tp_serving_ranks as rk
+
+    return run_ranks(rk.census_cases, 4, args=(
+        CENSUS["arch"], CENSUS_AXES, CENSUS["train"], CENSUS["decode"]),
+        device="cpu", transport="gloo", timeout=150.0,
+        workdir=str(tmp_path_factory.mktemp("census-ranks")))
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_trace_mesh_census_equals_the_ranks(census_ranks, kind):
+    """The dry run's trace of rank 0 on a ``TraceMesh`` of (data 2, model
+    2) counts the collectives — by kind, count and bytes — that four
+    gloo ranks issue for the same call on their blocks; every rank
+    issues the same ones."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = get_arch(CENSUS["arch"]).reduced
+    S, B = CENSUS[kind]
+    mesh = TraceMesh(CENSUS_AXES)
+    with FakeTensorMode(), dryrun.card_attention():
+        fn, args = dryrun.build_mesh_cell(cfg, Shape("census", S, B, kind),
+                                          mesh)
+        dryrun.measure(fn, *args)
+    want = mesh.census()
+    assert want["all-gather"]["count"] > 0, want
+    for o in census_ranks:
+        assert o[kind] == want, (kind, o["rank"])
+    if kind == "train":
+        assert want["all-to-all"]["count"] > 0     # FSDP's reduce-scatter
+    got = {k: v["bytes"] for k, v in want.items()}
+    assert got["all-reduce"] == 0 and np.isfinite(sum(got.values()))

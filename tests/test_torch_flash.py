@@ -152,3 +152,64 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(fops.flash_attention(*t, window=5),
                        chunked_attention(*t, window=5))
     assert kernels.launch_counts()["flash_attention"] == before
+
+
+def _block_partials(t, M, **kw):
+    """``ops.flash_partials`` of the M length blocks of the keys (CPU: the
+    plain version), each at its global offset."""
+    q, k, v, qpos, kpos = t
+    T = k.shape[1]
+    n = T // M
+    return [fops.flash_partials(q, k[:, i * n:(i + 1) * n],
+                                v[:, i * n:(i + 1) * n], qpos,
+                                kpos[:, i * n:(i + 1) * n], offset=i * n,
+                                total=T, **kw) for i in range(M)]
+
+
+@pytest.mark.parametrize("M,G,hd,window,dtype", [
+    (2, 3, 16, 0, "float32"), (4, 3, 16, 0, "float32"),
+    (4, 3, 16, 24, "float32"), (4, 2, 16, 0, "bfloat16"),
+    (4, 64, 24, 0, "float32"),          # past the split form: simt's one
+])
+def test_plain_partials_over_key_blocks_match_jax(M, G, hd, window, dtype):
+    """Decode rows at positions 63, 50 and 30 of 128 slots cut into M
+    blocks: each block's partials at its offset (the visit bound counted
+    in global slots), merged rank-major, equal JAX's chunked attention of
+    the whole cache; a block past every row's visited keys gives m =
+    -inf, l = 0, o = 0, and merging without it gives the same bits."""
+    B, T, KV = 3, 128, 2
+    q, k, v, _, kpos = _inputs(B, 1, T, KV, G, hd, M + G)
+    qpos = np.array([[63], [50], [30]], np.int32)
+    kpos = np.where(kpos <= qpos, kpos, POS_SENTINEL).astype(np.int32)
+    j, t = _both(q, k, v, qpos, kpos, dtype)
+    parts = _block_partials(t, M, window=window)
+    assert fops.partials_form(1, G, hd) == ("simt" if G > 32 else "split")
+    merged = fops.flash_combine(*(torch.cat([p[i] for p in parts])
+                                  for i in range(3)), t[0].dtype)
+    _close(merged, j_chunked(*j, window=window), dtype)
+    # the last block (96..127) lies past every visit end (at most 96)
+    last = parts[-1] if M == 4 else None
+    if last is not None:
+        assert bool((last[0] == -float("inf")).all())
+        assert bool((last[1] == 0).all()) and bool((last[2] == 0).all())
+        kept = fops.flash_combine(*(torch.cat([p[i] for p in parts[:-1]])
+                                    for i in range(3)), t[0].dtype)
+        assert torch.equal(kept, merged)
+
+
+def test_plain_partials_offset_counts_global_slots():
+    """The visit bound is counted in global slots: a block at offset 64
+    of 128 keeps the keys below a row's global visit end, and the same
+    keys at offset 0 of a 64-slot cache are another bound."""
+    q, k, v, _, kpos = _inputs(1, 1, 128, 1, 2, 8, 4)
+    qpos = np.array([[70]], np.int32)
+    t = [torch.tensor(a) for a in (q, k, v, qpos, kpos)]
+    kb, vb, pb = t[1][:, 64:], t[2][:, 64:], t[4][:, 64:]
+    m, l, _ = fops.flash_partials(t[0], kb, vb, t[3], pb, offset=64,
+                                  total=128, keys_per_split=32)
+    # visit end min((70 + 32) // 32 + 1, 4) * 32 = 128: both splits seen,
+    # keys 64..70 allowed (causal), 71..95 masked (-1e30), 96.. too
+    assert bool(torch.isfinite(m).all())
+    with pytest.raises(ValueError, match="offset"):
+        fops.flash_partials(t[0], kb, vb, t[3], pb, offset=100, total=128)
+    assert float(l[0].min()) >= 1.0

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -867,3 +868,79 @@ def test_chip_smoke_tensor_parallel_phase_rehearses_on_cpu(monkeypatch):
                                "qwen1.5-110b"}
     assert t["dropped_pairs"] > 0
     assert not any(launches.values())                # plain versions
+
+
+def test_serving_ranks_entry_points_default_to_cuda():
+    """Serving over ranks runs on the card unless asked for the CPU: the
+    cache's blocks and the trace mesh's device default to it; a CPU
+    tensor's K6 partials and merge take the plain versions, launching
+    nothing."""
+    import inspect
+
+    from repro_torch import kernels
+    from repro_torch.distributed import mesh
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer
+
+    assert inspect.signature(transformer.init_cache).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(mesh.TraceMesh).parameters[
+        "device"].default == "cpu"          # it traces: no card needed
+    if not torch.cuda.is_available():
+        from repro_torch.configs import get_arch
+
+        cfg = get_arch("gemma3-1b").reduced
+        with pytest.raises(RuntimeError, match="cuda"):
+            transformer.init_cache(cfg, 2, 16, mesh=mesh.TraceMesh(
+                dict(model=2)))
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(1, 1, 1, 2, 8)).astype(np.float32))
+    k = torch.tensor(rng.normal(size=(1, 8, 1, 8)).astype(np.float32))
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    before = kernels.launch_counts()["flash_attention"]
+    m, l, o = fops.flash_partials(q, k, k, pos[:, -1:], pos, offset=8,
+                                  total=16)
+    out = fops.flash_combine(m, l, o, torch.float32)
+    assert out.shape == q.shape
+    assert kernels.launch_counts()["flash_attention"] == before
+
+
+def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 20 runs end to end on the CPU's plain versions
+    at reduced sizes in one spawn of 4 gloo ranks: (a) the reduced
+    gemma3-27b cut to one local and one global layer and (b) the reduced
+    deepseek-v3 cut to two dense MLA layers, over (model 4), each rank
+    holding only its blocks of the parameters and the cache, held to the
+    one-process run in f32 (greedy tokens equal) and bf16 compute; (c)
+    every reduced family over both meshes against the same ranks."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "src"))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "SV_FULL", False)
+    monkeypatch.setattr(chip_smoke, "SV_GEMMA", dict(
+        chip_smoke.SV_GEMMA, prompt=12, ticks=8, max_len=24))
+    monkeypatch.setattr(chip_smoke, "SV_DEEPSEEK", dict(
+        chip_smoke.SV_DEEPSEEK, prompt=12, ticks=4, max_len=16))
+    monkeypatch.setattr(chip_smoke, "SV_SMALL", dict(
+        chip_smoke.SV_SMALL, ticks=2))
+    monkeypatch.setattr(chip_smoke, "SV", {})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, partials = chip_smoke.serving_ranks_phase()
+    finally:
+        torch.set_num_threads(threads)
+    s = chip_smoke.SV
+    assert s["world_size"] == 4 and s["transport"] == "gloo"
+    for w in ("gemma", "deepseek"):
+        assert all(g < s[w]["whole_gib"] for g in s[w]["gib"])
+        for c, run in s[w]["runs"].items():
+            assert max(run["logit_err"]) <= run["tolerance"] * run[
+                "largest_logit"]
+            assert all(g < s[w]["whole_cache_gib"][c]
+                       for g in (x[c] for x in s[w]["cache_gib"]))
+        assert s[w]["runs"]["float32"]["tokens_agree"] == 1.0
+    assert len(s["small"]["archs"]) == 10
+    assert partials == {} and not any(launches.values())   # plain versions
