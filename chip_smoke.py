@@ -536,27 +536,44 @@ TP_KERNELS = dict(step=("flash_attention", "flash_attention_bwd"),
 TP: dict = {}           # phase 19's numbers (one JSON line)
 # phase 20: serving over SV_WORLD ranks on the card (gloo-host), each
 # holding only its blocks of the parameters and of the cache (slots over
-# "model").  (a) SV_GEMMA: gemma3-27b published, cut to one attn_local and
-# one attn layer, mesh (model 4): 960-token prompts, then 128 greedy ticks
-# past the 1024-slot ring; the 2048-slot global cache's last rank block
-# holds no key; (b) SV_DEEPSEEK: deepseek-v3 published, cut to its first
-# two dense MLA layers (decode through the simt form's partials); (c)
-# SV_SMALL: every reduced family on the card's ranks and on as many CPU
-# ranks, over both meshes; (d) K6's partials at (a)'s and (b)'s decode
-# shapes against their plain versions (times in K6's row).  f32 compute:
-# greedy tokens equal the one-process run's; bf16: the ranks fed the
-# one-process tokens.  The logits' bound against the one-process run,
-# relative to its largest |logit| (bf16's stated in PERF.md before the
-# first run)
+# "model" where they divide).  (a) SV_GEMMA: gemma3-27b published, cut to
+# one attn_local and one attn layer, mesh (model 4): 960-token prompts,
+# then 128 greedy ticks past the 1024-slot ring; the 2048-slot global
+# cache's last rank block holds no key; (b) SV_DEEPSEEK: deepseek-v3
+# published, cut to its first two dense MLA layers (decode through the
+# simt form's partials); (c) SV_SMALL: every reduced family on the card's
+# ranks and on as many CPU ranks, in each case of its ``cases``: both
+# meshes, "U" (23 slots: whole on every rank but the 16-slot rings) and
+# "C" (the prompt as 8 positions, then 6 into the cache that holds them);
+# (d) K6's partials at (a)'s and (b)'s decode shapes and at (e)'s and
+# (f)'s second chunks against their plain versions (times in K6's row);
+# (e) SV_GEMMA's ``chunked``: the same model and mesh, a 2050-slot cache
+# (the global layer's whole on every rank, the ring split), the prompt
+# prefilled as two chunks of 480, the second into the cache that holds
+# the first's keys, then 128 ticks past the ring; (f) SV_DEEPSEEK's
+# ``chunked``: the 256-token prompt as two chunks of 128 into the split
+# 288-slot cache, then 32 ticks.
+# The one-process run takes the same chunks; its chunked f32 logits are
+# held to its unchunked run's of the same cache (within SV_TOL["chunks"]
+# of the largest).  f32 compute: greedy tokens equal the
+# one-process run's; bf16: the ranks fed the one-process tokens.  The
+# logits' bound against the one-process run, relative to its largest
+# |logit| (bf16's stated in PERF.md before the first run)
 SV_FULL = True               # the published widths; a rehearsal: reduced
 SV_WORLD = 4
 SV_GEMMA = dict(arch="gemma3-27b", batch=2, prompt=960, ticks=128,
-                max_len=2048, seed=0)
+                max_len=2048, seed=0,
+                chunked=dict(max_len=2050, chunks=(480, 480), ticks=128))
 SV_DEEPSEEK = dict(arch="deepseek-v3-671b", batch=2, prompt=256, ticks=32,
-                   max_len=288, seed=0)
-SV_SMALL = dict(batch=4, prompt=14, ticks=8, max_len=24, seed=0,
-                meshes=((("data", 2), ("model", 2)), (("model", 4),)))
-SV_TOL = dict(float32=1e-4, bfloat16=2e-2, small=1e-5)
+                   max_len=288, seed=0,
+                   chunked=dict(max_len=288, chunks=(128, 128), ticks=32))
+# a case: (name, mesh, cache slots, prompt chunks)
+SV_SMALL = dict(batch=4, prompt=14, ticks=8, seed=0, cases=(
+    ("dm", (("data", 2), ("model", 2)), 24, (14,)),
+    ("m4", (("model", 4),), 24, (14,)),
+    ("U", (("data", 2), ("model", 2)), 23, (14,)),
+    ("C", (("model", 4),), 24, (8, 6))))
+SV_TOL = dict(float32=1e-4, bfloat16=2e-2, small=1e-5, chunks=1e-4)
 SV_TIMEOUT = dict(card=900, cpu=300)
 SV_THREADS = 2
 SV: dict = {}           # phase 20's numbers (one JSON line)
@@ -5196,6 +5213,21 @@ def _sv_prompt(cfg, spec, dev):
                     None].expand(B, S).contiguous())
 
 
+def _sv_runs(spec):
+    """The runs on one model: (a)/(b)'s, named by their compute type, and
+    (e)/(f)'s, "chunked <type>": ``(name, compute type, cache slots,
+    prompt chunks, ticks)``."""
+    c = spec["chunked"]
+    return ([(t, t, spec["max_len"], (spec["prompt"],), spec["ticks"])
+             for t in ("float32", "bfloat16")]
+            + [(f"chunked {t}", t, c["max_len"], tuple(c["chunks"]),
+                c["ticks"]) for t in ("float32", "bfloat16")])
+
+
+def _sv_dir(ref_dir, name):
+    return ref_dir / name.replace(" ", "_")
+
+
 def _tree_gib(tree) -> float:
     from repro_torch.models.params import tree_leaves
 
@@ -5211,19 +5243,36 @@ def _k6_counts():
                    for k, v in fops.partial_launches.items()})
 
 
-def _sv_generate(params, cfg, batch, cache, ticks, *, feed=None,
-                 embeds=None):
-    """``transformer.prefill`` of ``batch`` (positions from 0), then
-    ``ticks`` greedy ``decode_step`` ticks, each fed the argmax of the
-    previous logits, or the tokens ``feed`` (B, ticks) in turn (two runs
-    held to one sequence), or the frame embeddings ``embeds`` (B, ticks,
-    D) (the audio frontend).  Returns the tokens (B, ticks + 1), the
-    logits of the prefill and of every tick (each (B, V) f32), and the
-    prefill's and each tick's seconds, the device synchronized at each
-    end.  Under an ambient ``ProcessMesh`` the inputs are this rank's
-    blocks (``cfg`` as ``transformer.serving_layout`` gives it), the
-    logits and tokens every row's, and each tick feeds this rank's
-    rows."""
+def _rank_helpers():
+    """``tests/tp_serving_ranks.py``, the serving ranks' helpers that the
+    tests share (loaded from its file: no package of that name is
+    looked up)."""
+    import importlib.util
+
+    name = "tp_serving_ranks"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "tests" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+    return sys.modules[name]
+
+
+def _sv_generate(params, cfg, batch, cache, ticks, *, chunks=None,
+                 feed=None, embeds=None):
+    """``transformer.prefill`` of ``batch`` (positions from 0) in
+    ``chunks`` (lengths; default one), each into the cache the ones before
+    wrote, then ``ticks`` greedy ``decode_step`` ticks, each fed the
+    argmax of the previous logits, or the tokens ``feed`` (B, ticks) in
+    turn (two runs held to one sequence), or the frame embeddings
+    ``embeds`` (B, ticks, D) (the audio frontend).  Returns the tokens (B,
+    ticks + 1), the logits of the last chunk and of every tick (each (B,
+    V) f32), and the prefill's (its chunks') and each tick's seconds, the
+    device synchronized at each end.  Under an ambient ``ProcessMesh`` the
+    inputs are this rank's blocks (``cfg`` as
+    ``transformer.serving_layout`` gives it), the logits and tokens every
+    row's, and each tick feeds this rank's rows."""
     import time
 
     import torch
@@ -5239,7 +5288,8 @@ def _sv_generate(params, cfg, batch, cache, ticks, *, feed=None,
 
     index = batch["positions"].shape[1]
     t0 = clock()
-    lg, cache = transformer.prefill(params, cfg, batch, cache)
+    lg, cache = _rank_helpers().prefill_chunks(params, cfg, batch, cache,
+                                               chunks)
     logits = [lg[:, -1].float()]
     tokens = [torch.argmax(logits[-1], dim=-1)]
     t1 = clock()
@@ -5268,7 +5318,7 @@ def _sv_generate(params, cfg, batch, cache, ticks, *, feed=None,
     return torch.stack(tokens, 1), logits, prefill_s, tick_s
 
 
-def _sv_serve(params, cfg, batch, cache, spec, feed, dev):
+def _sv_serve(params, cfg, batch, cache, ticks, chunks, feed, dev):
     """One greedy run under the ambient mesh (if any): the tokens, the
     logits (ticks + 1, B, V) f32 on the host, the prefill's and ticks'
     seconds and the launches of K6 by entry and form."""
@@ -5280,7 +5330,7 @@ def _sv_serve(params, cfg, batch, cache, spec, feed, dev):
     before = _k6_counts()
     with torch.no_grad():
         tokens, logits, prefill_s, tick_s = _sv_generate(
-            params, cfg, batch, cache, spec["ticks"], feed=feed)
+            params, cfg, batch, cache, ticks, chunks=chunks, feed=feed)
     after = _k6_counts()
     return dict(tokens=tokens.cpu(), logits=torch.stack(logits).cpu(),
                 prefill_s=prefill_s,
@@ -5290,10 +5340,12 @@ def _sv_serve(params, cfg, batch, cache, spec, feed, dev):
 
 
 def _sv_reference(which, conf, dev, ref_dir):
-    """(a) or (b) in one process on the card: the whole tree drawn by
-    ``params.init_blocks``, a greedy run in f32 and one in bf16 compute;
-    each run's logits and tokens saved under ``ref_dir / compute`` for
-    the ranks, its numbers returned.  Frees what it made."""
+    """(a)/(e) or (b)/(f) in one process on the card: the whole tree drawn
+    by ``params.init_blocks``, each run of :func:`_sv_runs` (greedy in
+    both types) and an unchunked f32 run of the chunked runs' cache, to
+    which the chunked f32 run is held; each run's logits and tokens saved
+    under ``ref_dir`` for the ranks, its numbers returned.  Frees what it
+    made."""
     import numpy as np
     import torch
     from repro_torch.models import transformer
@@ -5302,35 +5354,48 @@ def _sv_reference(which, conf, dev, ref_dir):
     spec = conf[which]
     specs = transformer.model_specs(_sv_cfg(which, conf, "float32"))
     params = init_blocks(specs, spec["seed"], device=dev)
-    out = dict(elements=count_params(specs), gib=param_gib(params), runs={})
-    for compute in ("float32", "bfloat16"):
+    out = dict(elements=count_params(specs), gib=param_gib(params), runs={},
+               cache_gib={})
+    c = spec["chunked"]
+    f32 = {}
+    for name, compute, max_len, chunks, ticks in _sv_runs(spec) + [(
+            "unchunked float32", "float32", c["max_len"], (spec["prompt"],),
+            c["ticks"])]:
         cfg = _sv_cfg(which, conf, compute)
-        cache = transformer.init_cache(cfg, spec["batch"], spec["max_len"],
+        cache = transformer.init_cache(cfg, spec["batch"], max_len,
                                        _sv_cache_dtype(compute), dev)
-        out.setdefault("cache_gib", {})[compute] = _tree_gib(cache)
+        out["cache_gib"][name] = _tree_gib(cache)
         run = _sv_serve(params, cfg, _sv_prompt(cfg, spec, dev), cache,
-                        spec, None, dev)        # greedy in both types
-        (ref_dir / compute).mkdir(parents=True)
-        np.save(ref_dir / compute / "logits.npy", run["logits"].numpy())
-        np.save(ref_dir / compute / "tokens.npy", run["tokens"].numpy())
-        out["runs"][compute] = dict(
+                        ticks, chunks, None, dev)
+        d = _sv_dir(ref_dir, name)
+        d.mkdir(parents=True)
+        np.save(d / "logits.npy", run["logits"].numpy())
+        np.save(d / "tokens.npy", run["tokens"].numpy())
+        out["runs"][name] = dict(
             tokens=run["tokens"], prefill_s=run["prefill_s"],
             tick_ms=run["tick_ms"], k6_forms=run["k6_forms"],
             scale=float(run["logits"].abs().max()))
+        if name in ("chunked float32", "unchunked float32"):
+            f32[name] = run["logits"]
         del cache, run
-    del params
+    # the chunks change no logit beyond the kernels' summation orders
+    out["chunks_err"] = float((f32["chunked float32"]
+                               - f32["unchunked float32"]).abs().max())
+    out["chunks_scale"] = float(f32["unchunked float32"].abs().max())
+    del params, f32
     if DEV == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
 def _sv_rank_model(which, conf, mesh, dev, ref_dir):
-    """(a) or (b) on this rank: its blocks of the parameters
-    (``init_blocks`` under ``train_placements``) and of the cache
-    (``init_cache(mesh=...)``), a greedy run in f32 and one in bf16 fed
-    the one-process bf16 tokens; its logits against the reference's
-    (largest difference, largest |logit|), their SHA-256, the tokens, the
-    times and the launches."""
+    """(a)/(e) or (b)/(f) on this rank: its blocks of the parameters
+    (``init_blocks`` under ``train_placements``) and of each run's cache
+    (``init_cache(mesh=...)``, which layers of it are split:
+    ``transformer.slots_split``), each run of :func:`_sv_runs` — f32
+    greedy, bf16 fed the one-process tokens; its logits against the
+    reference's (largest difference, largest |logit|), their SHA-256, the
+    tokens, the times and the launches."""
     import dataclasses
 
     import numpy as np
@@ -5348,37 +5413,40 @@ def _sv_rank_model(which, conf, mesh, dev, ref_dir):
     params = init_blocks(specs, spec["seed"], place, mesh, dev)
     out = dict(elements=sum(t.numel() for t in tree_leaves(params)),
                gib=param_gib(params), plan=sharding.tp_plan(base, mesh),
-               runs={}, cache_gib={})
-    for compute in ("float32", "bfloat16"):
+               runs={}, cache_gib={}, split={})
+    for name, compute, max_len, chunks, ticks in _sv_runs(spec):
         cfg = dataclasses.replace(base, compute_dtype=compute)
-        cache = transformer.init_cache(cfg, spec["batch"], spec["max_len"],
+        cache = transformer.init_cache(cfg, spec["batch"], max_len,
                                        _sv_cache_dtype(compute), dev,
                                        mesh=mesh)
-        out["cache_gib"][compute] = _tree_gib(cache)
+        out["cache_gib"][name] = _tree_gib(cache)
+        out["split"][name] = transformer.slots_split(cache, mesh)
+        d = _sv_dir(Path(ref_dir), name)
         feed = None
         if compute == "bfloat16":
-            feed = torch.from_numpy(np.load(
-                ref_dir / compute / "tokens.npy"))[:, :spec["ticks"]]
+            feed = torch.from_numpy(np.load(d / "tokens.npy"))[:, :ticks]
         batch = _sv_prompt(cfg, spec, dev)
         bplace = sharding.data_placements(batch, mesh, cfg.sharding_profile)
         batch = {k: sharding.local_block(v, bplace[k], mesh).contiguous()
                  for k, v in batch.items()}
         with sharding.use_mesh(mesh):
-            run = _sv_serve(params, cfg, batch, cache, spec, feed, dev)
+            run = _sv_serve(params, cfg, batch, cache, ticks, chunks, feed,
+                            dev)
         lg = run.pop("logits").numpy()
-        ref = np.load(ref_dir / compute / "logits.npy", mmap_mode="r")
+        ref = np.load(d / "logits.npy", mmap_mode="r")
         run.update(err=float(np.abs(lg - ref).max()),
                    scale=float(np.abs(ref).max()), sha=_sha(lg))
-        out["runs"][compute] = run
+        out["runs"][name] = run
         del cache, lg, ref
     out["peak_gib"] = _mesh_peak_gib(dev)
     return out
 
 
 def _sv_small(conf, dev):
-    """(c) on this rank: every reduced family (f32) over each mesh of
-    ``SV_SMALL``, its blocks drawn on the CPU (the same bits on the card
-    and on the CPU): the greedy tokens, the logits and the launches."""
+    """(c) on this rank: every reduced family (f32) in each case of
+    ``SV_SMALL["cases"]`` (its mesh, cache slots and prompt chunks), its
+    blocks drawn on the CPU (the same bits on the card and on the CPU):
+    the greedy tokens, the logits and the launches."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import list_archs
@@ -5388,17 +5456,19 @@ def _sv_small(conf, dev):
     from repro_torch.models.params import init_blocks, tree_to
 
     small = conf["small"]
-    out = {}
-    for axes in small["meshes"]:
-        mesh = ProcessMesh(dev, axes=dict(axes))
+    out, meshes = {}, {}
+    ticks = small["ticks"]
+    for case, axes, max_len, chunks in small["cases"]:
+        if axes not in meshes:
+            meshes[axes] = ProcessMesh(dev, axes=dict(axes))
+        mesh = meshes[axes]
         for arch in list_archs():
             cfg, specs, place = transformer.serving_layout(_train_cfg(
                 arch, False, compute_dtype="float32"), mesh)
             params = tree_to(init_blocks(specs, small["seed"], place, mesh,
                                          "cpu"), dev)
-            cache = transformer.init_cache(cfg, small["batch"],
-                                           small["max_len"], "float32", dev,
-                                           mesh=mesh)
+            cache = transformer.init_cache(cfg, small["batch"], max_len,
+                                           "float32", dev, mesh=mesh)
             # drawn on the CPU: the same prompt on the card and the CPU
             batch = {k: None if v is None else v.to(dev)
                      for k, v in frontend_batch(
@@ -5410,24 +5480,23 @@ def _sv_small(conf, dev):
                 v, bplace[k], mesh).contiguous() for k, v in batch.items()}
             embeds = None
             if cfg.frontend == "audio_stub":
-                embeds = torch.ones((batch["positions"].shape[0],
-                                     small["ticks"], cfg.d_model),
-                                    device=dev) * 0.01
+                embeds = torch.ones((batch["positions"].shape[0], ticks,
+                                     cfg.d_model), device=dev) * 0.01
             with sharding.use_mesh(mesh), torch.no_grad():
                 kernels.reset_launch_counts()
                 tokens, logits, _, _ = _sv_generate(
-                    params, cfg, batch, cache, small["ticks"], embeds=embeds)
+                    params, cfg, batch, cache, ticks, chunks=chunks,
+                    embeds=embeds)
                 launches = kernels.launch_counts()
-            out[(arch, axes)] = dict(tokens=tokens.cpu(),
+            out[(arch, case)] = dict(tokens=tokens.cpu(),
                                      logits=torch.stack(logits).cpu(),
                                      launches=launches)
     return out
 
 
 def _rank_sv(world, conf, ref_root):
-    """Phase 20 on a card rank: (a) and (b) over (model W), then (c)."""
-    from pathlib import Path
-
+    """Phase 20 on a card rank: (a)/(e) and (b)/(f) over (model W), then
+    (c)."""
     import torch
     from repro_torch.distributed import sharding
     from repro_torch.distributed.mesh import ProcessMesh
@@ -5451,14 +5520,15 @@ def _rank_sv_cpu(world, conf):
 
 
 def _sv_partials(dev):
-    """(d): K6's partials at (a)'s and (b)'s decode shapes, each rank
-    block of the last tick's cache (f32 and bf16 where the run computes
-    in them), against the plain version on the same card tensors; the
-    merge over the blocks against the plain merge.  Times: the partials
-    of rank 0's block (which holds keys) and the merge of all four,
-    device time (``device_ms``; the plain versions, whose host issue
-    outlasts its sleep, by ``time_ms``); bounds from this run's visited
-    keys."""
+    """(d): K6's partials at (a)'s and (b)'s decode shapes and at (e)'s
+    and (f)'s second chunks (their split layers': (e)'s ring), each rank
+    block of the cache as the call finds it (f32 and bf16 where the run
+    computes in them), against the plain version on the same card
+    tensors; the merge over the blocks against the plain merge.  Times:
+    the partials of rank 0's block (which holds keys) and the merge of
+    all four, device time (``device_ms``; the plain versions, whose host
+    issue outlasts its sleep, by ``time_ms``); bounds from this run's
+    visited keys and pairs."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import (POS_SENTINEL,
@@ -5469,31 +5539,51 @@ def _sv_partials(dev):
     W = SV_WORLD
     gen = torch.Generator(dev).manual_seed(0)
     out = {}
-    for which, dtype in (("gemma", torch.bfloat16), ("gemma", torch.float32),
-                         ("deepseek", torch.bfloat16)):
+    for which, call, dtype in (
+            ("gemma", "decode", torch.bfloat16),
+            ("gemma", "decode", torch.float32),
+            ("deepseek", "decode", torch.bfloat16),
+            ("gemma", "prefill", torch.bfloat16),
+            ("gemma", "prefill", torch.float32),
+            ("deepseek", "prefill", torch.bfloat16)):
         spec = conf[which]
         cfg = _sv_cfg(which, conf, "float32")
-        B, T = spec["batch"], spec["max_len"]
-        last = spec["prompt"] + spec["ticks"] - 1
+        B = spec["batch"]
         if which == "gemma":
             KV, G, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
                 cfg.hd
         else:
             KV, G = 1, cfg.num_heads
             hd = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
-        q = torch.randn((B, 1, KV, G, hd), generator=gen, device=dev).to(
+        window = 0
+        if call == "decode":       # the last tick, over the global layer
+            T = spec["max_len"]
+            lo = spec["prompt"] + spec["ticks"] - 1
+            Sq = 1
+        else:                      # the last chunk, over a split layer
+            c = spec["chunked"]
+            T = c["max_len"]
+            if which == "gemma":   # the ring
+                T, window = min(cfg.sliding_window, T), cfg.sliding_window
+            lo, Sq = sum(c["chunks"][:-1]), c["chunks"][-1]
+        end = lo + Sq              # positions written: [0, end)
+        q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=dev).to(
             dtype)
         k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev).to(
             dtype) for _ in range(2))
-        qp = torch.full((B, 1), last, dtype=torch.int32, device=dev)
-        s = torch.arange(T, dtype=torch.int32, device=dev)[None]
-        kp = torch.where(s <= last, s, POS_SENTINEL).expand(B, T)
-        kp = kp.to(torch.int32).contiguous()
+        qp = torch.arange(lo, end, dtype=torch.int32, device=dev)[
+            None].expand(B, Sq).contiguous()
+        s = torch.arange(T, dtype=torch.int32, device=dev)
+        # a slot holds the last position written to it (a ring wraps)
+        kp = torch.where(s < end, s + T * torch.div(end - 1 - s, T,
+                                                    rounding_mode="floor"),
+                         POS_SENTINEL)[None].expand(B, T).to(
+            torch.int32).contiguous()
         n = T // W
-        form = fops.partials_form(1, G, hd)
+        form = fops.partials_form(Sq, G, hd)
         blocks = [tuple(t[:, i * n:(i + 1) * n].contiguous()
                         for t in (k, v, kp)) for i in range(W)]
-        kw = [dict(offset=i * n, total=T) for i in range(W)]
+        kw = [dict(offset=i * n, total=T, window=window) for i in range(W)]
         got = [fops.flash_partials(q, b[0], b[1], qp, b[2], **a)
                for b, a in zip(blocks, kw)]
         kps = n if form == "simt" else fops.split_keys(B, KV, T)
@@ -5508,7 +5598,7 @@ def _sv_partials(dev):
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
         check(bool(((merged.float() - plain.float()).abs()
                     <= tol + tol * plain.float().abs()).all()),
-              f"K6 partials ({which}, {dtype}): max_abs_err {err}")
+              f"K6 partials ({which} {call}, {dtype}): max_abs_err {err}")
         empty = [bool((g[0] == -float("inf")).all()) for g in got]
         b0 = blocks[0]
         ms = device_ms(lambda: fops.flash_partials(q, b0[0], b0[1], qp,
@@ -5518,20 +5608,25 @@ def _sv_partials(dev):
             **kw[0]))
         comb_ms = device_ms(lambda: fops.flash_combine(*cat, dtype))
         comb_plain_ms = time_ms(lambda: combine_partials(*cat, dtype))
-        # rank 0's block: q, its keys and values once, the partials out;
-        # QK^T and PV over its visited keys
-        vis = min(n, last + 1)
-        nbytes = (q.numel() * q.element_size() + 2 * B * vis * KV * hd
-                  * k.element_size() + 4 * B * vis
+        # rank 0's block: q and its positions, the keys and values some row
+        # visits once, the partials out; QK^T and PV over the visited pairs
+        seen = ((b0[2][:, None, :] <= qp[:, :, None])
+                & (b0[2][:, None, :] != POS_SENTINEL))
+        if window:
+            seen &= qp[:, :, None] - b0[2][:, None, :] < window
+        vis = int(seen.any(1).sum())            # (row of B, key) pairs
+        pairs = int(seen.sum())
+        nbytes = (q.numel() * q.element_size() + 4 * qp.numel()
+                  + vis * (2 * KV * hd * k.element_size() + 4)
                   + sum(t.numel() * 4 for t in got[0]))
-        flops = 4 * hd * G * KV * B * vis
+        flops = 4 * hd * G * KV * pairs
         bms, by = bound_ms(nbytes, flops, PEAK_BF16_PER_S
                            if dtype == torch.bfloat16 else PEAK_F32_PER_S)
         cbytes = sum(t.numel() * 4 for t in cat) + merged.numel() * \
             merged.element_size()
         cms, cby = bound_ms(cbytes, 3 * cat[2].numel(), PEAK_F32_PER_S)
-        out[f"{cfg.name} decode {str(dtype)[6:]} ({form})"] = dict(
-            q=list(q.shape), block=[B, n, KV, hd], blocks=W,
+        out[f"{cfg.name} {call} {str(dtype)[6:]} ({form})"] = dict(
+            q=list(q.shape), block=[B, n, KV, hd], blocks=W, window=window,
             form=form, max_abs_err=err, empty_blocks=empty, ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
             combine=dict(splits=int(cat[0].shape[0]), ms=comb_ms,
@@ -5549,14 +5644,15 @@ def serving_ranks_phase():
     """Phase 20: serving over ``SV_WORLD`` ranks of the card (gloo-host),
     each holding only its blocks: (a) gemma3-27b and (b) deepseek-v3 at
     their published widths, held to the one-process run on the card from
-    the same bits; (c) the reduced families on the card's ranks against
-    the same ranks on the CPU; (d) K6's partials against their plain
-    versions.  Returns the ranks' launches by kernel (summed over ranks
-    and runs) and (d)'s numbers."""
+    the same bits, and (e), (f) the same models with the prompt prefilled
+    in two chunks ((e) into a cache whose global layer is whole on every
+    rank); (c) the reduced families on the card's ranks against the same
+    ranks on the CPU; (d) K6's partials against their plain versions.
+    Returns the ranks' launches by kernel (summed over ranks and runs)
+    and (d)'s numbers."""
     import concurrent.futures
     import shutil
     import tempfile
-    from pathlib import Path
 
     import torch
     from repro_torch.configs import list_archs
@@ -5589,6 +5685,10 @@ def serving_ranks_phase():
         cpu = [dict(rank=o["rank"], small=o["small"]) for o in many]
     partials = _sv_partials(DEV) if DEV == "cuda" else {}
     forms = dict(gemma="split", deepseek="simt" if SV_FULL else "split")
+    for w, want in refs.items():
+        _sv_held(want["chunks_err"], want["chunks_scale"], SV_TOL["chunks"],
+                 f"phase 20 {w}: the one-process chunked f32 run against "
+                 "its unchunked one")
     for r, o in enumerate(many):
         check(o["rank"] == r and o["transport"] == many_t,
               f"phase 20: rank {r} ran {o['transport']}")
@@ -5596,30 +5696,42 @@ def serving_ranks_phase():
             got = o[w]
             check(got["elements"] < want["elements"],
                   f"phase 20 {w}: rank {r} holds every element")
-            for compute, run in got["runs"].items():
-                what = f"phase 20 {w} {compute} rank {r}"
+            for name, run in got["runs"].items():
+                compute = name.split()[-1]
+                chunked = name.startswith("chunked")
+                what = f"phase 20 {w} {name} rank {r}"
                 _sv_held(run["err"], run["scale"], SV_TOL[compute], what)
-                check(run["sha"] == many[0][w]["runs"][compute]["sha"],
+                check(run["sha"] == many[0][w]["runs"][name]["sha"],
                       f"{what}: logits differ from rank 0's")
-                check(got["cache_gib"][compute]
-                      < want["cache_gib"][compute], f"{what}: the whole "
-                      "cache")
+                check(got["cache_gib"][name] < want["cache_gib"][name],
+                      f"{what}: the whole cache")
+                # (e): the ring split, the 2050-slot global layer whole
+                check(got["split"][name] == [True, not (
+                    chunked and w == "gemma")],
+                      f"{what}: layers split {got['split'][name]}")
                 if compute == "float32":
                     check(torch.equal(run["tokens"],
-                                      want["runs"][compute]["tokens"]),
+                                      want["runs"][name]["tokens"]),
                           f"{what}: greedy tokens differ from the one-"
                           "process run's")
                 if DEV == "cuda":
                     f = run["k6_forms"]
-                    check(run["launches"]["flash_attention"] > 0
-                          and f[f"partials {forms[w]}"] > 0
-                          and f["partials combine"] > 0,
-                          f"{what}: K6's partials not launched ({f})")
+                    if chunked:       # a chunk after the first: simt
+                        ok = (f["partials simt"] > 0
+                              and f["forward simt"] > 0
+                              and f["partials combine"] > 0)
+                        if w == "gemma":      # the whole layer's ticks
+                            ok = ok and f["forward split"] > 0
+                    else:
+                        ok = (run["launches"]["flash_attention"] > 0
+                              and f[f"partials {forms[w]}"] > 0
+                              and f["partials combine"] > 0)
+                    check(ok, f"{what}: K6's forms {f}")
         for arch in list_archs():
-            for axes in SV_SMALL["meshes"]:
-                got, want = o["small"][(arch, axes)], cpu[r]["small"][
-                    (arch, axes)]
-                what = f"phase 20 (c) {arch} {dict(axes)} rank {r}"
+            for case, axes, _, _ in SV_SMALL["cases"]:
+                got, want = o["small"][(arch, case)], cpu[r]["small"][
+                    (arch, case)]
+                what = f"phase 20 (c) {arch} {case} {dict(axes)} rank {r}"
                 check(torch.equal(got["tokens"], want["tokens"]),
                       f"{what}: tokens differ from the CPU ranks'")
                 err = float((got["logits"] - want["logits"]).abs().max())
@@ -5642,57 +5754,77 @@ def serving_ranks_phase():
 
     def numbers(w):
         want = refs[w]
+        cfg = _sv_cfg(w, conf, "float32")
         return dict(
-            arch=_sv_cfg(w, conf, "float32").name,
-            layers=list(_sv_cfg(w, conf, "float32").all_layers()),
+            arch=cfg.name, layers=list(cfg.all_layers()),
             mesh=f"model {W}", batch=conf[w]["batch"],
             prompt=conf[w]["prompt"], ticks=conf[w]["ticks"],
-            max_len=conf[w]["max_len"], plan=many[0][w]["plan"],
+            max_len=conf[w]["max_len"], chunked=conf[w]["chunked"],
+            plan=many[0][w]["plan"],
             whole_elements=want["elements"], whole_gib=want["gib"],
             gib=[o[w]["gib"] for o in many],
             whole_cache_gib=want["cache_gib"],
             cache_gib=[o[w]["cache_gib"] for o in many],
+            split=many[0][w]["split"],
             peak_gib=[o[w]["peak_gib"] for o in many],
-            runs={c: dict(
+            one_process_chunks=dict(
+                tolerance=SV_TOL["chunks"], logit_err=want["chunks_err"],
+                largest_logit=want["chunks_scale"],
+                unchunked=want["runs"]["unchunked float32"]),
+            runs={name: dict(
                 tolerance=SV_TOL[c],
                 fed="greedy" if c == "float32" else "one-process tokens",
-                logit_err=[o[w]["runs"][c]["err"] for o in many],
-                largest_logit=many[0][w]["runs"][c]["scale"],
+                logit_err=[o[w]["runs"][name]["err"] for o in many],
+                largest_logit=many[0][w]["runs"][name]["scale"],
                 tokens_agree=float(
-                    (many[0][w]["runs"][c]["tokens"]
-                     == want["runs"][c]["tokens"]).float().mean()),
-                one_process=dict(prefill_s=want["runs"][c]["prefill_s"],
-                                 tick_ms=want["runs"][c]["tick_ms"],
-                                 k6_forms=want["runs"][c]["k6_forms"]),
-                prefill_s=[o[w]["runs"][c]["prefill_s"] for o in many],
-                tick_ms=[o[w]["runs"][c]["tick_ms"] for o in many],
-                k6_forms=[o[w]["runs"][c]["k6_forms"] for o in many])
-                for c in ("float32", "bfloat16")})
+                    (many[0][w]["runs"][name]["tokens"]
+                     == want["runs"][name]["tokens"]).float().mean()),
+                one_process=dict(prefill_s=want["runs"][name]["prefill_s"],
+                                 tick_ms=want["runs"][name]["tick_ms"],
+                                 k6_forms=want["runs"][name]["k6_forms"]),
+                prefill_s=[o[w]["runs"][name]["prefill_s"] for o in many],
+                tick_ms=[o[w]["runs"][name]["tick_ms"] for o in many],
+                k6_forms=[o[w]["runs"][name]["k6_forms"] for o in many])
+                for name, c, _, _, _ in _sv_runs(conf[w])})
 
     SV.update(card=SMI, world_size=W, transport=many_t,
               phase_seconds=time.perf_counter() - t_phase,
               spawn_seconds=spawn, reference_seconds=t_refs,
               gemma=numbers("gemma"), deepseek=numbers("deepseek"),
               small=dict(archs=list(list_archs()),
-                         meshes=[dict(a) for a in SV_SMALL["meshes"]],
+                         ticks=SV_SMALL["ticks"],
+                         cases=[dict(case=n, mesh=dict(a), max_len=m,
+                                     chunks=list(c))
+                                for n, a, m, c in SV_SMALL["cases"]],
                          tolerance=SV_TOL["small"]),
               partials=partials, launches=launches)
-    for w, part in (("gemma", "a"), ("deepseek", "b")):
+    for w, parts in (("gemma", "ae"), ("deepseek", "bf")):
         g = SV[w]
-        print(f"phase 20 ({part}): {g['arch']} {g['layers']} over {W} "
-              f"{many_t} ranks: a rank holds {g['gib'][0]:.3f} of "
-              f"{g['whole_gib']:.3f} GiB of parameters, "
-              f"{g['cache_gib'][0]} of {g['whole_cache_gib']} GiB of "
-              f"cache; " + "; ".join(
-                  f"{c}: logits off by {max(r['logit_err'])} (largest "
-                  f"{r['largest_logit']}), prefill s {r['prefill_s']}, "
-                  f"tick ms {r['tick_ms']} (one process "
-                  f"{r['one_process']['prefill_s']:.3f} s, "
-                  f"{r['one_process']['tick_ms']:.3f} ms), K6 {r['k6_forms'][0]}"
-                  for c, r in g["runs"].items()), flush=True)
-    print(f"phase 20 (c): every reduced family over "
-          f"{SV['small']['meshes']} on the card's ranks equals the CPU "
-          f"ranks; spawn {spawn:.1f} s, phase {SV['phase_seconds']:.1f} s")
+        for part, chunked in zip(parts, (False, True)):
+            runs = {n: r for n, r in g["runs"].items()
+                    if n.startswith("chunked") == chunked}
+            print(f"phase 20 ({part}): {g['arch']} {g['layers']} over {W} "
+                  f"{many_t} ranks: a rank holds {g['gib'][0]:.3f} of "
+                  f"{g['whole_gib']:.3f} GiB of parameters, "
+                  f"{[g['cache_gib'][0][n] for n in runs]} of "
+                  f"{[g['whole_cache_gib'][n] for n in runs]} GiB of "
+                  f"cache, layers split {g['split'][next(iter(runs))]}; "
+                  + "; ".join(
+                      f"{n}: logits off by {max(r['logit_err'])} (largest "
+                      f"{r['largest_logit']}), prefill s {r['prefill_s']}, "
+                      f"tick ms {r['tick_ms']} (one process "
+                      f"{r['one_process']['prefill_s']:.3f} s, "
+                      f"{r['one_process']['tick_ms']:.3f} ms), K6 "
+                      f"{r['k6_forms'][0]}" for n, r in runs.items()),
+                  flush=True)
+        c = g["one_process_chunks"]
+        print(f"phase 20 ({parts[1]}): one process, the chunked f32 logits "
+              f"off the unchunked by {c['logit_err']} (largest "
+              f"{c['largest_logit']})", flush=True)
+    print(f"phase 20 (c): every reduced family in the cases "
+          f"{[c['case'] for c in SV['small']['cases']]} on the card's "
+          f"ranks equals the CPU ranks; spawn {spawn:.1f} s, phase "
+          f"{SV['phase_seconds']:.1f} s")
     return launches, partials
 
 
@@ -6010,6 +6142,21 @@ def kernel_rows(counts, sim_graph, spill, k2_ring):
     return rows
 
 
+PHASE_SECONDS: dict = {}   # wall seconds of each of main's calls, in order
+
+
+def _timed(fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``PHASE_SECONDS`` under its
+    name and printed as it ends."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[fn.__name__] = time.perf_counter() - t0
+        print(f"{fn.__name__}: {PHASE_SECONDS[fn.__name__]:.1f} s",
+              flush=True)
+
+
 def main() -> int:
     global SMI
     import torch
@@ -6036,36 +6183,37 @@ def main() -> int:
     print(f"built {sorted(kernels.registry())} in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    counts, pic_diff, pic_none = main_path()
-    cpu_parity()
-    host_pic_path(dict(steps=PIC["steps"], wall_seconds=pic_diff.wall_seconds,
-                       lb_seconds=pic_diff.lb_seconds), pic_none)
-    sim_counts, snap = sim_path()
-    sim_graph, step_counts = sim_engines(snap)
-    k2_ring = k2_ring_phase()
-    k4_ordered_check(snap)
-    paper_scripts_and_small_replay()
-    host_and_batched_replays()
-    paper_scripts_host()
-    serve_counts = serve_path()
-    serve_cpu_parity()
-    spill_counts = serve_spill()
-    spill = spill_sizes()
-    fleet_counts = fleet_path()
-    serve_bench_gates()
-    fleet_cpu_parity()
-    two_level(snap)
-    sharded_counts = sharded_pic(pic_diff)
-    sharded_series(RESULTS["sim"])
-    resilience_phase()
-    exchange_phase()
-    sharded_fleet(RESULTS["fleet"])
-    fig5_sharded()
-    sharded_k = sharded_kernel_checks()
-    fam_counts = families_path()
-    ep_counts = ep_replay_phase()
-    ep_sharded_phase()
-    ep_bench_gates()
+    counts, pic_diff, pic_none = _timed(main_path)
+    _timed(cpu_parity)
+    _timed(host_pic_path, dict(steps=PIC["steps"],
+                               wall_seconds=pic_diff.wall_seconds,
+                               lb_seconds=pic_diff.lb_seconds), pic_none)
+    sim_counts, snap = _timed(sim_path)
+    sim_graph, step_counts = _timed(sim_engines, snap)
+    k2_ring = _timed(k2_ring_phase)
+    _timed(k4_ordered_check, snap)
+    _timed(paper_scripts_and_small_replay)
+    _timed(host_and_batched_replays)
+    _timed(paper_scripts_host)
+    serve_counts = _timed(serve_path)
+    _timed(serve_cpu_parity)
+    spill_counts = _timed(serve_spill)
+    spill = _timed(spill_sizes)
+    fleet_counts = _timed(fleet_path)
+    _timed(serve_bench_gates)
+    _timed(fleet_cpu_parity)
+    _timed(two_level, snap)
+    sharded_counts = _timed(sharded_pic, pic_diff)
+    _timed(sharded_series, RESULTS["sim"])
+    _timed(resilience_phase)
+    _timed(exchange_phase)
+    _timed(sharded_fleet, RESULTS["fleet"])
+    _timed(fig5_sharded)
+    sharded_k = _timed(sharded_kernel_checks)
+    fam_counts = _timed(families_path)
+    ep_counts = _timed(ep_replay_phase)
+    _timed(ep_sharded_phase)
+    _timed(ep_bench_gates)
     K3_LAUNCHES.update(PIC=counts["scatter_dest"],
                        serving=serve_counts["scatter_dest"],
                        serving_spill=spill_counts["scatter_dest"],
@@ -6090,12 +6238,12 @@ def main() -> int:
           f"{counts['diffusion_sweep']}; K3 calls by "
           f"form on each path: {K3_PATH_FORMS}, launches {K3_LAUNCHES}; "
           f"K4 calls by form on each path: {K4_PATH_FORMS}")
-    rows = kernel_rows(counts, sim_graph, spill, k2_ring)
-    rows.append(flash_row(counts))
+    rows = _timed(kernel_rows, counts, sim_graph, spill, k2_ring)
+    rows.append(_timed(flash_row, counts))
     # phases 15 and 16 after the kernel checks; their launches join the
     # rows below
-    training_phase()
-    benches_phase()
+    _timed(training_phase)
+    _timed(benches_phase)
     # K6 on phase 15's training paths too; its backward only there and in
     # phase 16
     train_k6 = {p: n["flash_attention"] for p, n in TRAIN_LAUNCHES.items()}
@@ -6107,7 +6255,7 @@ def main() -> int:
         n["flash_attention_bwd"] for n in TRAIN_LAUNCHES.values())
     # K6's backward, listed under K6's row: its own row beside it, and its
     # numbers inside K6's row
-    rows.append(flash_bwd_row(counts))
+    rows.append(_timed(flash_bwd_row, counts))
     # the forward at the training path's shape, measured there
     rows[-2]["training"] = rows[-1].pop("training_forward")
     rows[-2]["backward"] = {k: v for k, v in rows[-1].items()
@@ -6138,21 +6286,21 @@ def main() -> int:
             r.setdefault("launches_by_path", {})[
                 "benches and examples"] = n
     # phase 17's launches (the ranks' runs, summed over the ranks)
-    ranks = ranks_phase(int(RESULTS["sim"].lb_fired.nonzero()[0][0]))
+    ranks = _timed(ranks_phase, int(RESULTS["sim"].lb_fired.nonzero()[0][0]))
     for r in rows:
         n = ranks.get(r["name"], 0)
         if n:
             r["launches"] += n
             r.setdefault("launches_by_path", {})["ranks"] = n
     # phase 18's launches (the model mesh's ranks, summed over the ranks)
-    mesh_launches = model_mesh_phase()
+    mesh_launches = _timed(model_mesh_phase)
     for r in rows:
         n = mesh_launches.get(r["name"], 0)
         if n:
             r["launches"] += n
             r.setdefault("launches_by_path", {})["model mesh"] = n
     # phase 19's launches (the tensor-parallel ranks, summed over them)
-    tp_launches = tensor_parallel_phase()
+    tp_launches = _timed(tensor_parallel_phase)
     for r in rows:
         n = tp_launches.get(r["name"], 0)
         if n:
@@ -6160,7 +6308,7 @@ def main() -> int:
             r.setdefault("launches_by_path", {})["tensor parallel"] = n
     # phase 20's launches (the serving ranks, summed over them) and K6's
     # partials at its decode shapes
-    sv_launches, sv_partials = serving_ranks_phase()
+    sv_launches, sv_partials = _timed(serving_ranks_phase)
     for r in rows:
         n = sv_launches.get(r["name"], 0)
         if n:
@@ -6181,6 +6329,7 @@ def main() -> int:
     print(json.dumps({"model_mesh": MESH}))
     print(json.dumps({"tensor_parallel": TP}))
     print(json.dumps({"serving_ranks": SV}, default=str))
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

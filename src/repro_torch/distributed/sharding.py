@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.distributed import autodiff
 from repro_torch.distributed.mesh import ProcessMesh, ShardMesh
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, rebuild
 
 BATCH = ("pod", "data")
 PROFILES = ("2d", "dp")
@@ -72,11 +72,8 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
-    parts = [tree_map(fn, v, *(r[i] for r in rest))
-             for i, v in enumerate(tree)]
-    if hasattr(tree, "_fields"):                 # a NamedTuple
-        return type(tree)(*parts)
-    return type(tree)(parts)
+    return rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree)])
 
 
 def translate(a, profile: str):

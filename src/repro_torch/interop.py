@@ -150,16 +150,17 @@ def cache_from_numpy(tree: Dict, cfg, device="cuda", mesh=None) -> list:
     from the JAX package's stacked cache tree of NumPy arrays, on
     ``device``; over a ``ProcessMesh`` (``mesh``) only this rank's blocks
     under ``sharding.cache_placements`` (the whole arrays are read, only
-    the blocks copied)."""
+    the blocks copied), a ``transformer.RankCache``."""
     dev = resolve_device(device)
     layers = _layers_from_tree(tree, cfg)
     if mesh is None:
         return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
                         layers)
     from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import RankCache
 
     place = sharding.cache_placements(tree_map(np.asarray, layers), mesh,
                                       "2d")
-    return sharding.tree_map(
+    return RankCache(sharding.tree_map(
         lambda a, p: torch.tensor(np.asarray(a)[sharding.block_slices(
-            np.shape(a), p, mesh)], device=dev), layers, place)
+            np.shape(a), p, mesh)], device=dev), layers, place), place)

@@ -50,10 +50,13 @@ with its source — NVLink 4 at 450 GB/s a direction within an 8-card HGX
 H100 node, 400 Gb/s NDR InfiniBand (50 GB/s) a card across nodes (data
 sheet figures, not measurements; rank 0's group over an axis is within
 one node where its members are ranks 0-7).  ``fits`` is the peak against
-one 80 GB card's memory.  ``remat`` is the training launcher's, "none",
-unless asked.  The JAX package's ``launch/hlo.py`` (an HLO text parser:
-loop-aware FLOPs and traffic, collectives, while-loop trip counts) has
-no counterpart: the dispatch counts above replace its FLOPs, traffic and
+one 80 GB card's memory.  ``remat`` "auto" (the default) is the JAX dry
+run's on the pod meshes — "full" for a train shape, "none" otherwise —
+and on the one-card mesh the training launcher's "none" (the first
+ledger cell's setting); an explicit ``--remat`` wins on every mesh.
+The JAX package's ``launch/hlo.py`` (an HLO text parser: loop-aware
+FLOPs and traffic, collectives, while-loop trip counts) has no
+counterpart: the dispatch counts above replace its FLOPs, traffic and
 census, the mesh's own census its collectives, and eager PyTorch has no
 while-loop trip counts (``PERF.md`` §3).  A cell whose trace fails (a
 data-dependent shape under fake tensors, say) is recorded with
@@ -66,7 +69,7 @@ Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
       --shape train_4k [--mesh pod]                  # one cell
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--workers 4] \\
-      [--mesh single|pod|multi|both]                 # both: pod and multi
+      [--mesh single|pod|multi|both] [--shape train_4k]  # both: pod, multi
   ... --remat full --set moe_impl=dense --tag myexp   # overrides
 """
 from __future__ import annotations
@@ -543,11 +546,13 @@ def measure(fn, *args) -> Dict:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
-             remat: str = "none", overrides: Optional[Dict] = None,
+             remat: str = "auto", overrides: Optional[Dict] = None,
              tag: str = "", save: bool = True,
              config: Optional[ModelConfig] = None,
              shape=None) -> Dict:
     """One cell's record on the mesh ``mesh_kind`` (:data:`MESHES`).
+    ``remat`` "auto": "full" for a train shape on the pod meshes (the
+    JAX dry run's), else "none" (on one card, the training launcher's).
     ``config`` / ``shape`` replace the arch's published config and the
     registry's shape (reduced cells in tests)."""
     if mesh_kind not in MESHES:
@@ -565,6 +570,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
     cfg = apply_overrides(config or spec.config, overrides or {})
     axes = MESHES[mesh_kind]
     mesh = None if axes is None else TraceMesh(axes)
+    if remat == "auto":
+        remat = ("full" if mesh is not None and shape.kind == "train"
+                 else "none")
     rec: Dict[str, Any] = dict(
         arch=arch, shape=shape_name, mesh=mesh_kind, status="ok",
         chips=1 if mesh is None else mesh.num_shards,
@@ -680,7 +688,10 @@ def main(argv=None):
                          "(pod 2, data 16, model 16) pair of pods, or both "
                          "of those")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--remat", default="none", choices=transformer.REMATS)
+    ap.add_argument("--remat", default="auto",
+                    choices=("auto",) + transformer.REMATS,
+                    help='"auto": "full" for a train shape on pod and '
+                         'multi, else "none"')
     ap.add_argument("--set", action="append", default=[],
                     help="cfg override key=value")
     ap.add_argument("--tag", default="")
@@ -689,8 +700,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     overrides = dict(kv.split("=", 1) for kv in args.set)
-    if args.all:
-        cells = [(a, s) for a in list_archs() for s in SHAPES]
+    if args.all:                # --arch / --shape narrow it
+        cells = [(a, s) for a in list_archs() for s in SHAPES
+                 if args.arch in (None, a) and args.shape in (None, s)]
     else:
         assert args.arch and args.shape, "--arch/--shape or --all"
         cells = [(args.arch, args.shape)]

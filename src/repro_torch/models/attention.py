@@ -22,21 +22,28 @@ each rank attends with G = 1.
 With a cache over a ``ProcessMesh`` of ``"model"`` size M > 1 each rank
 holds its block of the cache as the JAX rules place it
 (``sharding.cache_placements``: dim 1, the slots, over ``"model"``, all
-heads): rank i of ``"model"`` holds global slots ``[i T/M, (i+1) T/M)``
-(:func:`length_block`).  A prefill attends over the prompt's own keys
-(the cache holds nothing before it) and stores them into the slots'
-owners: under the plain head split one ``all_to_all`` over ``"model"``
-turns (every slot, this rank's KV heads) into (this rank's slots, every
-KV head); where the keys are whole on every rank (the head-repeat
-branch, gathered layers, MLA's latents) each rank keeps its slots.  A
-decode step gathers the new token's query (and key and value) heads
-over ``"model"`` — a few KB — writes the keys into the slot's owner,
-computes K6's partials over this rank's block for every head
-(``flash_partials``, the slots counted globally), and merges the
-ranks' partials (``flash_combine``): where the heads are split, one
-``all_to_all`` over ``"model"`` sends each rank only its heads' partials
-of every member, and its merged heads go on through the row-parallel
-``wo``; else the partials are gathered whole.
+heads, where they divide; ``split``, which ``transformer.slots_split``
+reads off the layer's placement): rank i of ``"model"`` holds global
+slots ``[i T/M, (i+1) T/M)`` (:func:`length_block`).  A prefill from
+position 0 (``fresh``) attends over the prompt's own keys (the cache
+holds no other key it may see) and stores them into the slots' owners:
+under the plain head split one ``all_to_all`` over ``"model"`` turns
+(every slot, this rank's KV heads) into (this rank's slots, every KV
+head); where the keys are whole on every rank (the head-repeat branch,
+gathered layers, MLA's latents) each rank keeps its slots.  Any other
+call — a decode step, a prefill into a cache that already holds keys —
+gathers its queries' (and keys' and values') heads over ``"model"``,
+writes the keys into their slots' owners, computes K6's partials over
+this rank's block for every head (``flash_partials``, the slots counted
+globally), and merges the ranks' partials (``flash_combine``): where the
+heads are split, one ``all_to_all`` over ``"model"`` sends each rank
+only its heads' partials of every member, and its merged heads go on
+through the row-parallel ``wo``; else the partials are gathered whole.
+A layer whose slots do not divide over ``"model"`` keeps its cache whole
+on every rank (the rules' ``_filter``), every head: it is read as in one
+process, a ``"tp"`` layer's new keys and values gathered over
+``"model"`` before they are written and its KV heads' slice of the cache
+attended.
 """
 from __future__ import annotations
 
@@ -108,21 +115,10 @@ REPEAT_MAX_KV = 16384
 # ------------------------------------------- a cache split by length --
 
 
-def cache_mesh(cache: Optional[Dict]):
-    """The ambient ``ProcessMesh`` where ``cache`` is this rank's block of
-    a cache split by length over ``"model"`` (M > 1), else None."""
-    if cache is None:
-        return None
-    mesh = sharding.rank_mesh()
-    if mesh is None or mesh.axes.get(MODEL, 1) == 1:
-        return None
-    return mesh
-
-
 def length_block(cache: Dict, mesh) -> Tuple[int, int, int]:
     """``(T_local, offset, T)``: this rank's slots of a cache of T slots
     split over ``"model"`` (its block holds ``[offset, offset +
-    T_local)``)."""
+    T_local)``; a layer whose placement splits its slots)."""
     T_loc = cache["pos"].shape[1]
     M = mesh.axes[MODEL]
     return T_loc, mesh.group_rank(MODEL, mesh.rank) * T_loc, T_loc * M
@@ -223,7 +219,8 @@ def _block_attention(q, k, v, q_pos, kv_pos, cache: Dict, mesh, *,
 def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   prefix_len: int = 0, cache: Optional[Dict] = None,
-                  tp: Optional[str] = None, decode: bool = False
+                  tp: Optional[str] = None, split: bool = False,
+                  fresh: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, D), positions (B, S) → (y (B, S, D), cache).
 
@@ -237,14 +234,15 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``wv`` (and biases) are this rank's column blocks of whole heads and
     ``wo`` its row block; ``"repeat"`` — ``wq``/``bq``/``wo`` so, ``wk``/
     ``wv``/``bk``/``bv`` whole (each rank uses its part of them).  None:
-    the weights whole.  A cache over the ambient ``ProcessMesh`` is this
-    rank's block of slots (:func:`cache_mesh`; the module's head): a
-    prefill (``decode`` False) from position 0, or ``decode`` steps
-    through K6's partials."""
+    the weights whole.  ``split``: the cache is this rank's block of
+    slots over the ambient ``ProcessMesh`` (the module's head); a prefill
+    ``fresh`` from position 0 attends over its own keys, any other call
+    through K6's partials (:func:`_gqa_block`).  A cache over it that is
+    not split is whole on this rank, every KV head."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     G = H // KV
-    cmesh = cache_mesh(cache)
+    cmesh = sharding.rank_mesh() if split else None
     mesh = sharding.rank_mesh() if tp else None
     if mesh is not None:
         M = mesh.axes[MODEL]
@@ -269,9 +267,9 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     if cmesh is not None:
         T = length_block(cache, cmesh)[2]
         slot = torch.remainder(positions, T) if window else positions
-        if decode:
-            out = _gqa_block_decode(q, k, v, positions, slot, cache, cmesh,
-                                    tp, window=window, prefix_len=prefix_len)
+        if not fresh:
+            out = _gqa_block(q, k, v, positions, slot, cache, cmesh, tp,
+                             window=window, prefix_len=prefix_len)
             if mesh is not None:
                 return autodiff.row_parallel(out, params["wo"].to(dt), mesh,
                                              MODEL), cache
@@ -280,6 +278,9 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                cmesh, exchange=("k", "v") if tp == "tp" else ())
         kv_pos = positions
     elif cache is not None:
+        if tp == "tp":                # a whole cache holds every KV head
+            k = autodiff.leave(mesh, k, MODEL, 2)
+            v = autodiff.leave(mesh, v, MODEL, 2)
         T = cache["k"].shape[1]
         slot = (torch.remainder(positions, T) if window
                 else positions).long()                        # (B, S)
@@ -288,6 +289,9 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         cache["v"][bidx, slot] = v.to(cache["v"].dtype)
         cache["pos"][bidx, slot] = positions.to(torch.int32)
         k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
+        if tp == "tp":                # this rank's KV heads of it
+            first = mesh.group_rank(MODEL, mesh.rank) * KV
+            k, v = k[:, :, first:first + KV], v[:, :, first:first + KV]
     else:
         kv_pos = positions
 
@@ -306,14 +310,15 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return out @ params["wo"].to(dt), cache
 
 
-def _gqa_block_decode(q, k, v, positions, slot, cache: Dict, mesh,
-                      tp: Optional[str], *, window: int,
-                      prefix_len: int) -> torch.Tensor:
-    """A decode step over this rank's block of the cache: the new token's
-    heads gathered over ``"model"`` where this rank holds a block of them
-    (``tp``), its keys and values written into the slot's owner, every
-    head's attention from the ranks' partials; returns this rank's heads
-    of it, (B, S, heads · hd)."""
+def _gqa_block(q, k, v, positions, slot, cache: Dict, mesh,
+               tp: Optional[str], *, window: int,
+               prefix_len: int) -> torch.Tensor:
+    """S new positions (a decode step, or a prefill into a cache that
+    already holds keys) over this rank's block of the cache: their heads
+    gathered over ``"model"`` where this rank holds a block of them
+    (``tp``), their keys and values written into the slots' owners, every
+    head's attention over the whole cache from the ranks' partials;
+    returns this rank's heads of it, (B, S, heads · hd)."""
     B, S = positions.shape
     hd = q.shape[-1]
     if tp == "tp":
@@ -352,7 +357,8 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   prefix_len: int = 0, cache: Optional[Dict] = None,
-                  tp: Optional[str] = None, decode: bool = False
+                  tp: Optional[str] = None, split: bool = False,
+                  fresh: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Multi-head latent attention in the absorbed form: x (B, S, D),
     positions (B, S) → (y (B, S, D), cache).
@@ -367,16 +373,19 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``tp="tp"`` (over the ambient ``ProcessMesh``): ``wq_b``, ``wk_b``,
     ``wv_b`` are this rank's column blocks of whole heads and ``wo`` its
     row block; the replicated query latent and the keys' latents enter
-    this rank's heads by ``autodiff.tp_in``.  A cache over the ambient
-    ``ProcessMesh`` is this rank's block of slots: each rank keeps its
-    slots of the (replicated) per-token latents, and a ``decode`` step
-    gathers the absorbed queries of every head and merges the ranks'
-    partials (the simt form's at MLA's published G = 128, hd = 576)."""
+    this rank's heads by ``autodiff.tp_in``.  ``split``: the cache is
+    this rank's block of slots over the ambient ``ProcessMesh``: each
+    rank keeps its slots of the (replicated) per-token latents; a prefill
+    ``fresh`` from position 0 attends over its own latents, any other
+    call gathers the absorbed queries of every head and merges the
+    ranks' partials over the cache's latents (the simt form's at MLA's
+    published G = 128, hd = 576).  A cache over it that is not split is
+    whole on this rank and read as in one process."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
     dt = x.dtype
-    cmesh = cache_mesh(cache)
+    cmesh = sharding.rank_mesh() if split else None
     mesh = sharding.rank_mesh() if tp else None
     if mesh is not None:
         H //= mesh.axes[MODEL]
@@ -397,11 +406,11 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     if cmesh is not None:
         _store(cache, dict(ckv=ckv, krope=k_rope,
                            pos=positions.to(torch.int32)), positions, cmesh)
-        if decode:
+        if fresh:                     # a prefill from 0: its own latents
+            ckv_all, krope_all, kv_pos = ckv, k_rope, positions
+        else:
             ckv_all, krope_all, kv_pos = (cache["ckv"], cache["krope"],
                                           cache["pos"])
-        else:                         # a prefill: the prompt's own latents
-            ckv_all, krope_all, kv_pos = ckv, k_rope, positions
     elif cache is not None:
         slot = positions.long()
         bidx = torch.arange(B, device=x.device)[:, None]
@@ -428,7 +437,7 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     k_full = torch.cat([ckv_all, krope_all], dim=-1)[:, :, None, :]
     v_lat = torch.cat([ckv_all, torch.zeros_like(krope_all)],
                       dim=-1)[:, :, None, :]
-    if cmesh is not None and decode:
+    if cmesh is not None and not fresh:
         if mesh is not None:                             # every head's query
             q_r = autodiff.leave(mesh, q_r, MODEL, 3)
         o = _block_attention(q_r, k_full, v_lat, positions,

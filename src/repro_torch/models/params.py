@@ -36,8 +36,20 @@ def tree_map(fn: Callable[[Any], Any], tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return rebuild(tree, [tree_map(fn, v) for v in tree])
     return None if tree is None else fn(tree)
+
+
+def rebuild(tree, parts):
+    """A list or tuple of ``tree``'s type holding ``parts``, with the
+    attributes of a list subclass carried across (a cache over a mesh
+    keeps its ``placements``)."""
+    if hasattr(tree, "_fields"):                 # a NamedTuple
+        return type(tree)(*parts)
+    out = type(tree)(parts)
+    if hasattr(tree, "__dict__"):
+        vars(out).update(vars(tree))
+    return out
 
 
 def tree_leaves(tree) -> list:

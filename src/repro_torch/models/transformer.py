@@ -38,14 +38,16 @@ rules' "2d" profile where the config says "dp" (:func:`serving_config`,
 as the JAX forward switches it: the KV cache needs its length split over
 ``"model"``), so their parameters are placed under it
 (:func:`serving_layout`).  The cache is
-this rank's blocks (:func:`init_cache` with ``mesh``:
-``sharding.cache_placements``, batch over the batch axes, dim 1 — slots
-or recurrent-state heads — over ``"model"``); attention reads it as
-``models.attention`` says (K6's partials merged over ``"model"`` at
-decode), the recurrent cells gather their states for the step and keep
-their block after, and the logits come back whole (every row, every
-vocabulary block), as the JAX package's ``out_shardings=None`` returns
-them.
+this rank's blocks (:func:`init_cache` with ``mesh``, a
+:class:`RankCache`: ``sharding.cache_placements``, batch over the batch
+axes, dim 1 — slots or recurrent-state heads — over ``"model"`` where it
+divides, else whole); attention reads it as ``models.attention`` says
+(a prefill from position 0 over its own keys, any other call through
+K6's partials merged over ``"model"``; a cache whose slots do not divide
+whole on every rank), the recurrent cells gather their states for the
+step and keep their block after, and the logits come back whole (every
+row, every vocabulary block), as the JAX package's
+``out_shardings=None`` returns them.
 
 Rematerialization (``remat``): "none" keeps every layer's activations
 for the backward; "full" runs each layer under ``torch.utils.checkpoint``
@@ -175,20 +177,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     Over a ``ProcessMesh`` (``mesh``) only this rank's blocks under
     ``sharding.cache_placements`` (the counterpart of
     ``params.init_block``): ``batch`` is the global batch, each leaf is
-    allocated at its block's shape, and no whole cache is made.  Every
-    layer's slots must divide over ``"model"`` (each rank a block of
-    them)."""
+    allocated at its block's shape, and no whole cache is made.  A
+    layer whose slots do not divide over ``"model"`` is whole on every
+    rank, as the rules leave it.  Returns a :class:`RankCache`."""
     if mesh is None:
         return [init_block_cache(cfg, k, batch, max_len, dtype, device)
                 for k in cfg.all_layers()]
     dev = resolve_device(device)
     whole, place = cache_layout(cfg, batch, max_len, mesh, dtype)
-    M = mesh.axes.get(MODEL, 1)
-    for layer, p in zip(whole, place):
-        if "kv" in layer and M > 1 and p["kv"]["pos"][1] != MODEL:
-            raise ValueError(
-                f"a cache of {layer['kv']['pos'].shape[1]} slots does not "
-                f"divide over the {M} ranks of {MODEL!r}")
     # every leaf is one value throughout: a one-row, one-slot cache's
     one = init_cache(cfg, 1, 1, dtype, "cpu")
 
@@ -197,7 +193,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                       for s in sharding.block_slices(t.shape, p, mesh))
         return v.reshape(-1)[:1].to(dev).expand(shape).contiguous()
 
-    return sharding.tree_map(block, whole, place, one)
+    return RankCache(sharding.tree_map(block, whole, place, one), place)
+
+
+class RankCache(list):
+    """A cache over a ``ProcessMesh``: this rank's blocks, one dict per
+    layer (a list, the one-process cache's tree), and ``placements``, the
+    placements under the JAX rules they were cut by — which the blocks'
+    shapes cannot tell: a whole 23-slot cache on a rank of (model 4) has
+    the shape of a quarter of a 92-slot one (:func:`slots_split`)."""
+
+    def __init__(self, layers=(), placements=None):
+        super().__init__(layers)
+        self.placements = placements
+
+
+def slots_split(cache: List[Dict], mesh) -> List[bool]:
+    """For each layer of a cache over ``mesh``, whether it is this rank's
+    block of slots over ``"model"``: its ``kv`` placement splits dim 1
+    there (a cache whose slots do not divide is whole on every rank).
+    None split where ``"model"`` has one member."""
+    if mesh is None or mesh.axes.get(MODEL, 1) == 1:
+        return [False] * len(cache)
+    place = getattr(cache, "placements", None)
+    if place is None:
+        raise ValueError("a cache over a ProcessMesh of several 'model' "
+                         "members is a RankCache (init_cache(mesh=...), "
+                         "interop.cache_from_numpy(mesh=...))")
+    return [p.get("kv") is not None and p["kv"]["pos"][1] == MODEL
+            for p in place]
+
+
+def kv_slots(cache: Dict, split: bool, mesh) -> int:
+    """The global slot count of a layer's attention cache (``cache``:
+    this rank's block of it, its ``kv`` dict), as the JAX package reads
+    it off the whole array (``T_kv = k.shape[1]``)."""
+    T = cache["pos"].shape[1]
+    return T * mesh.axes[MODEL] if split else T
 
 
 def cache_layout(cfg: ModelConfig, batch: int, max_len: int, mesh,
@@ -265,21 +297,30 @@ def _aux_add(a, b):
 REPEAT_PARTIAL = ("wk", "wv", "bk", "bv")
 
 
-def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                cache: Optional[Dict], mesh: ProcessMesh):
-    """One layer's blocks on this rank as its compute uses them, and the
-    layer's plan (``sharding.tp_plan``; the head-repeat branch only for
-    keys no longer than ``attention.REPEAT_MAX_KV``, as the JAX gate):
-    each part's leaves gathered over their axes (``sharding.gathered``)
-    but ``"model"`` where the part runs tensor parallel; the MoE part as
-    the a2a takes it (``models.moe``)."""
+def layer_plan(cfg: ModelConfig, kind: str, mesh, T_kv: int
+               ) -> Dict[str, str]:
+    """``sharding.tp_plan(cfg, mesh)[kind]`` under the JAX gate of the
+    head-repeat branch: keys of more than ``attention.REPEAT_MAX_KV``
+    slots (``T_kv``: the cache's global slot count, :func:`kv_slots`, or
+    the prompt's length without a cache) run gathered."""
     plan = sharding.tp_plan(cfg, mesh)[kind]
-    if plan.get("attn") == "repeat":
-        # a cache is this rank's block of slots over "model"
-        T_kv = x.shape[1] if cache is None else (
-            cache["kv"]["pos"].shape[1] * mesh.axes.get(MODEL, 1))
-        if T_kv > attn.REPEAT_MAX_KV:
-            plan["attn"] = "gather"
+    if plan.get("attn") == "repeat" and T_kv > attn.REPEAT_MAX_KV:
+        plan["attn"] = "gather"
+    return plan
+
+
+def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                cache: Optional[Dict], mesh: ProcessMesh, split: bool):
+    """One layer's blocks on this rank as its compute uses them, and the
+    layer's plan (:func:`layer_plan`): each part's leaves gathered over
+    their axes (``sharding.gathered``) but ``"model"`` where the part
+    runs tensor parallel; the MoE part as the a2a takes it
+    (``models.moe``).  ``split``: the layer's cache is a block of slots
+    (:func:`slots_split`)."""
+    T_kv = x.shape[1]
+    if cache is not None and "kv" in cache:
+        T_kv = kv_slots(cache["kv"], split, mesh)
+    plan = layer_plan(cfg, kind, mesh, T_kv)
     specs = _block_specs(cfg, kind)
     out = dict(params)
     for part, mode in plan.items():
@@ -297,7 +338,8 @@ def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict], *,
                 prefix_len: int = 0, decode: bool = False,
-                collect_router_stats: bool = False):
+                collect_router_stats: bool = False, split: bool = False,
+                fresh: bool = False):
     """One block; returns ``(x_out, aux)`` and updates the cache, if any,
     in place.  A MoE block's aux is its router loss, or ``(loss,
     RouterStats)`` with ``collect_router_stats``; other blocks add none
@@ -305,7 +347,10 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
     Under an ambient ``ProcessMesh`` (``sharding.use_mesh``) ``params``
     are this rank's blocks: the block runs as ``sharding.tp_plan`` says
-    (:func:`_rank_layer`)."""
+    (:func:`_rank_layer`).  ``split``: the layer's cache is this rank's
+    block of slots over ``"model"`` (:func:`slots_split`); ``fresh``: a
+    prefill whose rows all start at position 0 (the attention modes of
+    ``models.attention``)."""
     dt = x.dtype
     aux = None
     window = cfg.sliding_window if kind in ("attn_local", "moe_local",
@@ -313,7 +358,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     mesh = sharding.rank_mesh()
     att_tp = mlp_mesh = None
     if mesh is not None:
-        params, plan = _rank_layer(params, cfg, kind, x, cache, mesh)
+        params, plan = _rank_layer(params, cfg, kind, x, cache, mesh, split)
         att_tp = plan.get("attn") if plan.get("attn") != "gather" else None
         mlp_mesh = mesh if plan.get("mlp") == "tp" else None
 
@@ -324,7 +369,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         a, _ = fn(params["attn"], cfg, h, positions, window=window,
                   prefix_len=prefix_len,
                   cache=None if cache is None else cache["kv"], tp=att_tp,
-                  decode=decode)
+                  split=split, fresh=fresh)
         x = x + a
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
         if kind.startswith("moe"):
@@ -341,7 +386,7 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
             params["attn"], cfg, h, positions, window=window,
             prefix_len=prefix_len,
             cache=None if cache is None else cache["kv"], tp=att_tp,
-            decode=decode)
+            split=split, fresh=fresh)
         state = _state(cache, "ssm", cfg, mesh)
         if decode:
             m, s_new = ssm.mamba_step(params["mamba"], cfg, h, state)
@@ -449,17 +494,20 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     if decode or cache is not None:
         cfg = serving_config(cfg)
     positions = batch["positions"]
-    if cache is not None and not decode and sharding.rank_mesh() is not None:
-        _prompt_from_zero(positions)
+    layers = cfg.all_layers()
+    split = ([False] * len(layers) if cache is None
+             else slots_split(cache, sharding.rank_mesh()))
+    fresh = not decode and any(split) and _from_zero(positions)
     x = _embed_inputs(params, cfg, batch)
     prefix_len = cfg.vision_prefix if cfg.prefix_lm else 0
     aux_total = (zero_aux(cfg, collect_router_stats, x.device)
                  if with_aux or collect_router_stats else None)
     recompute = (remat != "none" and cache is None
                  and torch.is_grad_enabled())
-    for i, kind in enumerate(cfg.all_layers()):
+    for i, kind in enumerate(layers):
         kw = dict(prefix_len=prefix_len, decode=decode,
-                  collect_router_stats=collect_router_stats)
+                  collect_router_stats=collect_router_stats, split=split[i],
+                  fresh=fresh)
         if recompute:
             x, aux = checkpoint(apply_block, params["layers"][i], cfg, kind,
                                 x, positions, None, use_reentrant=False,
@@ -496,19 +544,16 @@ def serving_layout(cfg: ModelConfig, mesh):
     return cfg, specs, sharding.train_placements(specs, mesh, cfg)
 
 
-def _prompt_from_zero(positions: torch.Tensor) -> None:
-    """A prefill over ranks stores the prompt's keys and attends over
-    them alone: every row must start at position 0 (a cache holding
-    nothing the prompt does not overwrite).  Raises otherwise (a traced
-    call, whose positions have no values, is not checked)."""
+def _from_zero(positions: torch.Tensor) -> bool:
+    """Whether every row of a prefill starts at position 0, so that the
+    cache holds no key it may see but those it writes (a key left at a
+    later position is masked).  A traced call, whose positions have no
+    values, is taken to (the dry run's prefill cells).  One host sync."""
     from torch._subclasses.fake_tensor import is_fake
 
     if is_fake(positions):
-        return
-    if int(positions.amin()) != 0:
-        raise NotImplementedError(
-            "prefill over a ProcessMesh into a non-empty cache: the prompt "
-            "must start at position 0 (decode steps extend the cache)")
+        return True
+    return bool((positions[:, 0] == 0).all())
 
 
 def _head(params, cfg: ModelConfig, dt) -> torch.Tensor:
@@ -721,8 +766,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache: List[Dict]):
     """Full-sequence forward writing the cache; returns last-position
     logits (B, 1, V) and the cache.  Over an ambient ``ProcessMesh``:
     ``params``, ``batch`` and ``cache`` are this rank's blocks (under
-    :func:`serving_config`'s profile), the prompt starts at position 0,
-    and the logits are every row's (see :func:`logits_head`)."""
+    :func:`serving_config`'s profile), ``cache`` a :class:`RankCache`,
+    the prompt from any position (a chunk after others, a turn after a
+    conversation), and the logits are every row's (see
+    :func:`logits_head`)."""
     return _serve(params, cfg, batch, cache, decode=False)
 
 

@@ -1212,6 +1212,41 @@ def test_flash_partials_over_length_blocks_match_plain(
     _flash_close(merged.cpu(), fops.flash_combine(*_cat(want), qdt), dt)
 
 
+@pytest.mark.parametrize("B,lo,Sq,T,KV,G,hd,dt,window", [
+    # a prompt's second chunk over a split cache: gemma3-27b's heads, the
+    # simt form's partials in both types, a window; MLA's latent "head";
+    # a short chunk of few heads: the split form's (tensor cores in bf16)
+    (2, 96, 64, 256, 2, 2, 168, BF16, 0),
+    (2, 96, 64, 256, 2, 2, 168, F32, 48),
+    (2, 32, 24, 96, 1, 16, 576, BF16, 0),
+    (2, 40, 6, 64, 2, 4, 64, BF16, 0),
+    (3, 40, 6, 64, 1, 4, 72, F32, 16),
+])
+def test_flash_partials_of_a_chunk_over_length_blocks_match_plain(
+        dev, B, lo, Sq, T, KV, G, hd, dt, window):
+    """A prefill chunk at positions ``[lo, lo + Sq)`` into a cache that
+    holds positions ``[0, lo + Sq)``: the partials of four length blocks
+    (the simt form's past 32 pairs, else the split form's), each at its
+    offset, merged together equal the chunked attention of the whole
+    cache and the plain version's merge."""
+    q, k, v, _, _ = _flash_inputs(dev, B, Sq, T, KV, G, hd, dt, dt,
+                                  lo + Sq + hd)
+    qp = torch.arange(lo, lo + Sq, dtype=torch.int32, device=dev)[
+        None].expand(B, Sq).contiguous()
+    s = torch.arange(T, dtype=torch.int32, device=dev)
+    kp = torch.where(s < lo + Sq, s, POS_SENTINEL)[None].expand(
+        B, T).to(torch.int32).contiguous()
+    form = fops.partials_form(Sq, G, hd)
+    assert form == ("simt" if Sq * G > 32 else "split")
+    before = fops.partial_launches[form]
+    got, want = _blocks((q, k, v, qp, kp), 4, window=window)
+    assert fops.partial_launches[form] == before + 4
+    merged = fops.flash_combine(*_cat(got), dt)
+    _flash_close(merged, chunked_attention(q, k, v, qp, kp, window=window),
+                 dt)
+    _flash_close(merged.cpu(), fops.flash_combine(*_cat(want), dt), dt)
+
+
 @pytest.mark.parametrize("tensor_cores", [True, False])
 def test_flash_partials_over_aligned_blocks_equal_the_split_form(
         dev, tensor_cores):

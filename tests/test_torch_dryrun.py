@@ -197,6 +197,7 @@ def test_skip_fail_and_multi(monkeypatch):
     rec = dryrun.run_cell("smollm-135m", "train_4k", "multi",
                           config=spec.reduced, shape=shape, save=False)
     assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["remat"] == "full"            # the JAX dry run's "auto"
     assert rec["chips"] == 512 and rec["mesh_axes"] == dict(
         pod=2, data=16, model=16)
     assert set(rec["collectives"]) == set(dryrun.COLLECTIVES)
@@ -208,6 +209,13 @@ def test_skip_fail_and_multi(monkeypatch):
     assert rec["memory"]["fits"]
     N = count_params(transformer.model_specs(spec.reduced))
     assert rec["memory"]["argument_bytes"] < 12 * N
+    # an explicit remat wins on the pod meshes: fewer recomputed FLOPs
+    none = dryrun.run_cell("smollm-135m", "train_4k", "multi",
+                           config=spec.reduced, shape=shape, save=False,
+                           remat="none")
+    assert none["status"] == "ok", none.get("traceback")
+    assert none["remat"] == "none"
+    assert none["cost"]["flops"] < rec["cost"]["flops"]
     with pytest.raises(ValueError, match="unknown mesh"):
         dryrun.run_cell("smollm-135m", "train_4k", "torus", save=False)
 

@@ -911,8 +911,11 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
     gemma3-27b cut to one local and one global layer and (b) the reduced
     deepseek-v3 cut to two dense MLA layers, over (model 4), each rank
     holding only its blocks of the parameters and the cache, held to the
-    one-process run in f32 (greedy tokens equal) and bf16 compute; (c)
-    every reduced family over both meshes against the same ranks."""
+    one-process run in f32 (greedy tokens equal) and bf16 compute; (e)
+    and (f) the same with the prompt prefilled in two chunks, (e)'s
+    26-slot global cache whole on every rank; (c) every reduced family in
+    each case (both meshes, a cache whole on the ranks, a chunked
+    prefill) against the same ranks."""
     monkeypatch.syspath_prepend(str(ROOT))
     monkeypatch.syspath_prepend(str(ROOT / "src"))
     import chip_smoke
@@ -920,9 +923,11 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
     monkeypatch.setattr(chip_smoke, "SV_FULL", False)
     monkeypatch.setattr(chip_smoke, "SV_GEMMA", dict(
-        chip_smoke.SV_GEMMA, prompt=12, ticks=8, max_len=24))
+        chip_smoke.SV_GEMMA, prompt=12, ticks=8, max_len=24,
+        chunked=dict(max_len=26, chunks=(6, 6), ticks=8)))
     monkeypatch.setattr(chip_smoke, "SV_DEEPSEEK", dict(
-        chip_smoke.SV_DEEPSEEK, prompt=12, ticks=4, max_len=16))
+        chip_smoke.SV_DEEPSEEK, prompt=12, ticks=4, max_len=16,
+        chunked=dict(max_len=16, chunks=(6, 6), ticks=4)))
     monkeypatch.setattr(chip_smoke, "SV_SMALL", dict(
         chip_smoke.SV_SMALL, ticks=2))
     monkeypatch.setattr(chip_smoke, "SV", {})
@@ -941,6 +946,15 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
                 "largest_logit"]
             assert all(g < s[w]["whole_cache_gib"][c]
                        for g in (x[c] for x in s[w]["cache_gib"]))
-        assert s[w]["runs"]["float32"]["tokens_agree"] == 1.0
+        assert set(s[w]["runs"]) == {"float32", "bfloat16",
+                                     "chunked float32", "chunked bfloat16"}
+        for c in ("float32", "chunked float32"):
+            assert s[w]["runs"][c]["tokens_agree"] == 1.0
+        ch = s[w]["one_process_chunks"]
+        assert ch["logit_err"] <= ch["tolerance"] * ch["largest_logit"]
+    assert s["gemma"]["split"]["chunked float32"] == [True, False]
+    assert s["deepseek"]["split"]["chunked float32"] == [True, True]
     assert len(s["small"]["archs"]) == 10
+    assert [c["case"] for c in s["small"]["cases"]] == ["dm", "m4", "U",
+                                                       "C"]
     assert partials == {} and not any(launches.values())   # plain versions

@@ -304,3 +304,64 @@ def test_tp_plan_follows_heads_widths_and_the_profile(arch):
                     assert p.get(part, "gather") == "gather"
             assert plan["embed"]["vocab"] == (
                 "tp" if c.vocab_size % M == 0 else "gather")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-110b", "gemma3-27b"])
+def test_repeat_gate_reads_a_whole_cache_as_its_slots(arch):
+    """The head-repeat gate over (model 4) against the JAX gate, ``T_kv =
+    k.shape[1] <= 16384`` of the whole cache JAX makes: a cache whose
+    slots do not divide over "model" is whole on the rank (16383 and
+    16386 slots), one that divides is a quarter (16384, 16388), and each
+    layer's plan is "repeat" exactly where JAX's global slot count passes
+    the gate — which no block's shape tells (16383 whole and 65532 split
+    are 16383 slots a rank)."""
+    from repro_torch.distributed.mesh import TraceMesh
+    from repro_torch.models import attention
+
+    cfg = get_arch(arch).reduced
+    jcfg = j_get_arch(arch).reduced
+    mesh = TraceMesh(dict(model=4))
+    assert attention.REPEAT_MAX_KV == 16384
+    assert {p["attn"] for k, p in sharding.tp_plan(cfg, mesh).items()
+            if k != "embed"} == {"repeat"}
+    for T in (16383, 16384, 16386, 16388):
+        cache = transformer.init_cache(cfg, 2, T, torch.bfloat16, "meta",
+                                       mesh=mesh)
+        split = transformer.slots_split(cache, mesh)
+        jcache = jax.eval_shape(lambda: jt.init_cache(jcfg, 2, T,
+                                                      jnp.bfloat16))
+        # JAX's T_kv a layer: its whole k's slots (the unit's leaves carry
+        # the group axis first)
+        jslots = [c["kv"]["k"].shape[-3] for c in _port_layout(
+            jcache, jcfg, lambda t: t)["layers"]]
+        assert len(jslots) == len(cache)
+        for kind, layer, s, want in zip(cfg.all_layers(), cache, split,
+                                        jslots):
+            assert s == (want % 4 == 0), (arch, T, kind)
+            assert layer["kv"]["pos"].shape[1] == (want // 4 if s
+                                                   else want)
+            got = transformer.layer_plan(
+                cfg, kind, mesh, transformer.kv_slots(layer["kv"], s, mesh))
+            assert got["attn"] == ("repeat" if want <= 16384
+                                   else "gather"), (arch, T, kind)
+
+
+def test_a_rank_cache_keeps_its_placements_through_the_tree_maps():
+    """``params.tree_map`` (``tree_to``) and ``sharding.tree_map`` rebuild
+    a cache over a mesh with the placements it was cut by, so a cache
+    moved between devices still tells its whole layers (23 slots over
+    (model 4)) from its split rings."""
+    from repro_torch.distributed.mesh import TraceMesh
+    from repro_torch.models import params as P
+
+    cfg = get_arch("gemma3-27b").reduced
+    mesh = TraceMesh(dict(model=4))
+    cache = transformer.init_cache(cfg, 2, 23, torch.float32, "cpu",
+                                   mesh=mesh)
+    want = transformer.slots_split(cache, mesh)
+    assert any(want) and not all(want)
+    for moved in (P.tree_to(cache, "cpu"),
+                  sharding.tree_map(torch.clone, cache)):
+        assert type(moved) is transformer.RankCache
+        assert moved.placements is cache.placements
+        assert transformer.slots_split(moved, mesh) == want

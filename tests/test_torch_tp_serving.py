@@ -9,13 +9,19 @@ the cache paths' profile, ``transformer.serving_layout``) and of the
 cache (``transformer.init_cache(mesh=...)``: the JAX rules' cache
 placement, batch over ``"data"``, slots and recurrent-state heads over
 ``"model"``), prefills 14 positions from 0 and decodes 8 greedy ticks
-past the 16-slot rings (``tp_serving_ranks.greedy_generate``).  Held here:
+past the 16-slot rings (``tp_serving_ranks.greedy_generate``).  Two more
+cases (``tp_serving_ranks.SERVE``): "U", a cache of 23 slots on (data 2,
+model 2), whole on every rank of ``"model"`` but for the 16-slot rings;
+"C", on (model 4), the prompt prefilled as 8 positions and then 6 into
+the cache that holds them (paligemma: its image prefix, then its text).
+Held here:
 
   * the prefill's and every tick's logits (every row, every vocabulary
     block, on every rank) within 1e-5 of the largest magnitude, against
     the one-process port and the JAX package's unsharded ``prefill`` /
     ``decode_step`` fed the same tokens;
-  * the greedy tokens equal the one-process port's on every rank;
+  * the greedy tokens equal the one-process port's on every rank (the
+    one-process port and JAX fed the same chunks);
   * each rank's cache equals its ``local_block`` of the one-process
     cache after the same ticks (positions exactly, the rest within 1e-5);
     the ranks' blocks gathered into the JAX layout
@@ -55,7 +61,7 @@ MESHES = {"dm": dict(data=2, model=2), "m4": dict(model=4)}
 ARCHS = ["deepseek-v3-671b", "gemma3-1b", "gemma3-27b", "hymba-1.5b",
          "llama4-scout-17b-a16e", "musicgen-medium", "paligemma-3b",
          "qwen1.5-110b", "smollm-135m", "xlstm-125m"]
-CASES = [(a, m) for a in ARCHS for m in MESHES]
+CASES = [(a, c) for a in ARCHS for c in rk.SERVE]
 KPS = 32                 # the partials case's key split: T / M is whole
 
 j_prefill = jax.jit(jt.prefill, static_argnums=1)
@@ -109,36 +115,41 @@ def _torch(d):
 
 
 @functools.lru_cache(maxsize=None)
-def _one_process(arch):
-    """The one-process port: tokens, logits and the cache after."""
+def _one_process(arch, max_len, chunks):
+    """The one-process port, a cache of ``max_len`` slots, the prompt
+    prefilled in ``chunks``: tokens, logits and the cache after."""
     cfg = rk.serve_cfg(arch)
     inp = _inputs()
     params = interop.params_from_numpy(inp["params"][arch], cfg, device=CPU)
     prompt = inp["prompts"][arch]
-    cache = transformer.init_cache(cfg, rk.B, rk.MAX_LEN, torch.float32, CPU)
+    cache = transformer.init_cache(cfg, rk.B, max_len, torch.float32, CPU)
     emb = prompt["embeds"]
     with torch.no_grad():
         tokens, logits = rk.greedy_generate(
             params, cfg, _torch(prompt["batch"]), cache, rk.TICKS,
-            embeds=None if emb is None else torch.tensor(emb))
+            embeds=None if emb is None else torch.tensor(emb),
+            chunks=chunks)
     return tokens.numpy(), torch.stack(logits).numpy(), cache
 
 
 @functools.lru_cache(maxsize=None)
-def _jax(arch):
-    """The JAX package's unsharded prefill and decode steps, fed the
-    one-process port's greedy tokens: the logits, (ticks + 1, B, V), and
-    the cache after (NumPy)."""
+def _jax(arch, max_len, chunks):
+    """The JAX package's unsharded prefill of the same chunks and decode
+    steps, fed the one-process port's greedy tokens: the logits, (ticks +
+    1, B, V), and the cache after (NumPy)."""
     jcfg = dataclasses.replace(j_get_arch(arch).reduced,
                                compute_dtype="float32")
     inp = _inputs()
-    tokens, _, _ = _one_process(arch)
+    tokens, _, _ = _one_process(arch, max_len, chunks)
     p = jax.tree.map(jnp.asarray, inp["params"][arch])
     prompt = inp["prompts"][arch]
-    batch = {k: jnp.asarray(v) for k, v in prompt["batch"].items()}
-    batch.setdefault("tokens", None)
-    cache = jt.init_cache(jcfg, rk.B, rk.MAX_LEN, jnp.float32)
-    lg, cache = j_prefill(p, jcfg, batch, cache)
+    cache = jt.init_cache(jcfg, rk.B, max_len, jnp.float32)
+    lo = 0
+    for n in chunks:
+        batch = {k: None if v is None else jnp.asarray(v) for k, v in
+                 rk.chunk_of(prompt["batch"], lo, lo + n).items()}
+        lg, cache = j_prefill(p, jcfg, batch, cache)
+        lo += n
     out = [np.asarray(lg[:, -1])]
     for i in range(rk.TICKS):
         index = jnp.int32(rk.PLEN + i)
@@ -157,7 +168,10 @@ def ranks(tmp_path_factory):
     """(inputs, every rank's results): one spawn of 4 ranks for all."""
     inputs = _inputs()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        refs = [pool.submit(_one_process, a) for a in ARCHS]
+        # the references (the one-process port's, then JAX's fed its
+        # tokens) while the ranks run; "m4" shares "dm"'s
+        refs = [pool.submit(_jax, a, *rk.SERVE[c][1:])
+                for a in ARCHS for c in ("dm", "U", "C")]
         out = run_ranks(rk.all_cases, W, args=(inputs,), device=CPU,
                         transport="gloo", timeout=TIMEOUT,
                         workdir=str(tmp_path_factory.mktemp("serve-ranks")))
@@ -175,57 +189,62 @@ def _close(a, b, rel, what):
     assert err <= rel * max(np.abs(b).max(), 1e-6), f"{what}: {err}"
 
 
-@pytest.mark.parametrize("arch,mesh", CASES)
-def test_logits_and_tokens_equal_the_one_process_port(ranks, arch, mesh):
+@pytest.mark.parametrize("arch,case", CASES)
+def test_logits_and_tokens_equal_the_one_process_port(ranks, arch, case):
     _, out = ranks
-    tokens, logits, _ = _one_process(arch)
+    tokens, logits, _ = _one_process(arch, *rk.SERVE[case][1:])
     for r, o in enumerate(out):
-        got = o["serve"][(arch, mesh)]
-        _close(got["logits"], logits, 1e-5, (arch, mesh, r))
+        got = o["serve"][(arch, case)]
+        _close(got["logits"], logits, 1e-5, (arch, case, r))
         np.testing.assert_array_equal(got["tokens"], tokens,
-                                      err_msg=(arch, mesh, r))
+                                      err_msg=(arch, case, r))
 
 
-@pytest.mark.parametrize("arch,mesh", CASES)
-def test_logits_equal_the_jax_package(ranks, arch, mesh):
-    """Against JAX's unsharded prefill and decode steps fed the same
-    tokens (or frame embeddings)."""
+@pytest.mark.parametrize("arch,case", CASES)
+def test_logits_equal_the_jax_package(ranks, arch, case):
+    """Against JAX's unsharded prefill of the same chunks and decode
+    steps fed the same tokens (or frame embeddings)."""
     _, out = ranks
-    want, _ = _jax(arch)
+    want, _ = _jax(arch, *rk.SERVE[case][1:])
     for r, o in enumerate(out):
-        _close(o["serve"][(arch, mesh)]["logits"], want, 1e-5,
-               (arch, mesh, "jax", r))
+        _close(o["serve"][(arch, case)]["logits"], want, 1e-5,
+               (arch, case, "jax", r))
 
 
-@pytest.mark.parametrize("arch,mesh", CASES)
-def test_each_rank_holds_its_block_of_the_cache(ranks, arch, mesh):
+@pytest.mark.parametrize("arch,case", CASES)
+def test_each_rank_holds_its_block_of_the_cache(ranks, arch, case):
     """After the ticks each rank's cache is its block of the one-process
     cache under ``cache_placements``: the blocks' shapes, positions
-    exactly, k/v, latents and recurrent states within 1e-5; every
-    attention cache is split by its slots over "model", and a cache leaf
+    exactly, k/v, latents and recurrent states within 1e-5; an attention
+    cache is split by its slots over "model" — in "U" only the 16-slot
+    rings, the 23-slot caches whole on every member — and a cache leaf
     the rules split is held whole by no rank."""
     _, out = ranks
-    _, _, whole = _one_process(arch)
+    mesh, max_len, chunks = rk.SERVE[case]
+    _, _, whole = _one_process(arch, max_len, chunks)
     smesh = ShardMesh(device=CPU, axes=MESHES[mesh])
     place = sharding.cache_placements(whole, smesh, "2d")
     leaves = tree_leaves(whole)
     places = []
     sharding.tree_map(lambda _, p: places.append(p), whole, place)
-    kv = [p for layer in place for p in layer.get("kv", {}).values()]
-    assert all("model" in p.axes() for p in kv), (arch, mesh)
+    for layer, p in zip(whole, place):
+        if "kv" in layer:
+            ring = layer["kv"]["pos"].shape[1] < max_len
+            assert all(("model" in q.axes()) == (ring or case != "U")
+                       for q in p["kv"].values()), (arch, case)
     for r, o in enumerate(out):
-        got = o["serve"][(arch, mesh)]["cache"]
+        got = o["serve"][(arch, case)]["cache"]
         assert len(got) == len(leaves)
         for i, (g, w, p) in enumerate(zip(got, leaves, places)):
             want = sharding.local_block(w, p, smesh, shard=r).numpy()
-            assert g.shape == want.shape, (arch, mesh, r, i)
+            assert g.shape == want.shape, (arch, case, r, i)
             if p.axes():
-                assert g.shape != tuple(w.shape), (arch, mesh, r, i)
+                assert g.shape != tuple(w.shape), (arch, case, r, i)
             if w.dtype == torch.int32:
                 np.testing.assert_array_equal(g, want,
-                                              err_msg=(arch, mesh, r, i))
+                                              err_msg=(arch, case, r, i))
             else:
-                _close(g, want, 1e-5, (arch, mesh, r, i))
+                _close(g, want, 1e-5, (arch, case, r, i))
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -243,46 +262,22 @@ def test_decode_partials_over_rank_blocks_equal_the_split_form(ranks, mesh):
                                       err_msg=(mesh, r))
 
 
-@pytest.mark.parametrize("arch,mesh", CASES)
-def test_gathered_cache_equals_the_jax_package(ranks, arch, mesh):
+@pytest.mark.parametrize("arch,case", CASES)
+def test_gathered_cache_equals_the_jax_package(ranks, arch, case):
     """The ranks' cache blocks gathered whole in the JAX package's stacked
     layout equal the JAX cache after the same steps (positions exactly,
     the rest within 1e-5), and cut back into blocks they are each rank's
     own bit for bit."""
     _, out = ranks
-    _, want = _jax(arch)
-    got = out[0]["serve"][(arch, mesh)]["whole"]
+    _, want = _jax(arch, *rk.SERVE[case][1:])
+    got = out[0]["serve"][(arch, case)]["whole"]
     assert jax.tree.structure(got) == jax.tree.structure(want)
     for path, w in jax.tree_util.tree_leaves_with_path(want):
         g = got
         for key in path:
             g = g[key.key if hasattr(key, "key") else key.idx]
         if path[-1].key == "pos":
-            np.testing.assert_array_equal(g, w, err_msg=(arch, mesh, path))
+            np.testing.assert_array_equal(g, w, err_msg=(arch, case, path))
         else:
-            _close(g, w, 1e-5, (arch, mesh, path))
-    assert all(o["serve"][(arch, mesh)]["round_trip"] for o in out)
-
-
-def test_prefill_over_ranks_into_a_used_cache_raises():
-    """A prefill over ranks attends over the prompt's own keys, so its
-    rows must start at position 0; one that starts later (a cache already
-    holding keys) raises rather than miss them.  Rank 0 of a trace mesh
-    runs the rank code on real tensors."""
-    from repro_torch.distributed.mesh import TraceMesh
-
-    cfg = rk.serve_cfg("gemma3-1b")
-    mesh = TraceMesh(dict(model=2))
-    params = interop.params_from_numpy(_jax_params("gemma3-1b"), cfg,
-                                       device=CPU, mesh=mesh)
-    cache = transformer.init_cache(cfg, 2, 16, torch.float32, CPU,
-                                   mesh=mesh)
-    pos = torch.arange(3, 9, dtype=torch.int32)[None].expand(2, 6)
-    batch = dict(tokens=torch.ones((2, 6), dtype=torch.int32),
-                 positions=pos.contiguous())
-    with torch.no_grad(), sharding.use_mesh(mesh):
-        with pytest.raises(NotImplementedError, match="position 0"):
-            transformer.prefill(params, cfg, batch, cache)
-        batch["positions"] = batch["positions"] - 3
-        logits, _ = transformer.prefill(params, cfg, batch, cache)
-    assert logits.shape == (2, 1, cfg.vocab_size)
+            _close(g, w, 1e-5, (arch, case, path))
+    assert all(o["serve"][(arch, case)]["round_trip"] for o in out)

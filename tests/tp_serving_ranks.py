@@ -19,7 +19,13 @@ from repro_torch.models import transformer
 from repro_torch.models.params import tree_leaves
 
 CPU = "cpu"
-B, PLEN, TICKS, MAX_LEN = 4, 14, 8, 24     # decode passes the 16-slot rings
+B, PLEN, TICKS = 4, 14, 8                  # decode passes the 16-slot rings
+#: the serving cases: the mesh (``MESHES`` of the test), the cache's
+#: slots and the prompt's chunks.  "U": 23 slots, whole on every rank of
+#: "model" but the 16-slot rings; "C": the prompt prefilled as 8
+#: positions, then 6 into the cache that holds them
+SERVE = dict(dm=("dm", 24, (14,)), m4=("m4", 24, (14,)),
+             U=("dm", 23, (14,)), C=("m4", 24, (8, 6)))
 
 
 def serve_cfg(arch):
@@ -29,16 +35,51 @@ def serve_cfg(arch):
         get_arch(arch).reduced, compute_dtype="float32"))
 
 
-def greedy_generate(params, cfg, batch, cache, ticks, *, embeds=None):
-    """``transformer.prefill`` of ``batch`` (positions from 0), then
-    ``ticks`` greedy ``decode_step`` ticks, each fed the argmax of the
-    previous logits (the audio frontend: the frame embeddings ``embeds``
-    (B, ticks, D) in turn).  Returns the tokens (B, ticks + 1) and the
-    logits of the prefill and of every tick, each (B, V).  Under an
-    ambient ``ProcessMesh`` the inputs are this rank's blocks, the logits
-    and tokens every row's, and each tick feeds this rank's rows."""
+def chunk_of(batch, lo, hi):
+    """Positions ``[lo, hi)`` of a prompt batch (tensors or arrays): the
+    frontend embeddings, which come first, and the tokens in that
+    range."""
+    n = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
+    out = dict(positions=batch["positions"][:, lo:hi], embeds=None,
+               tokens=None)
+    if lo < n:
+        out["embeds"] = batch["embeds"][:, lo:min(hi, n)]
+    if hi > n and batch.get("tokens") is not None:
+        out["tokens"] = batch["tokens"][:, max(lo - n, 0):hi - n]
+    return out
+
+
+def prefill_chunks(params, cfg, batch, cache, chunks=None):
+    """``transformer.prefill`` of a prompt ``batch`` (tensors) in
+    ``chunks`` (lengths summing to its positions; default one), each
+    into the cache the ones before wrote: the last chunk's logits and
+    the cache."""
     index = batch["positions"].shape[1]
-    lg, cache = transformer.prefill(params, cfg, batch, cache)
+    chunks = chunks or (index,)
+    if sum(chunks) != index:
+        raise ValueError(f"chunks {chunks} of a {index}-position prompt")
+    lo = 0
+    for n in chunks:
+        part = {k: None if v is None else v.contiguous()
+                for k, v in chunk_of(batch, lo, lo + n).items()}
+        lg, cache = transformer.prefill(params, cfg, part, cache)
+        lo += n
+    return lg, cache
+
+
+def greedy_generate(params, cfg, batch, cache, ticks, *, embeds=None,
+                    chunks=None):
+    """``transformer.prefill`` of ``batch`` (positions from 0) in the
+    ``chunks`` (lengths; default one), each into the cache the ones
+    before wrote, then ``ticks`` greedy ``decode_step`` ticks, each fed
+    the argmax of the previous logits (the audio frontend: the frame
+    embeddings ``embeds`` (B, ticks, D) in turn).  Returns the tokens (B,
+    ticks + 1) and the logits of the last chunk and of every tick, each
+    (B, V).  Under an ambient ``ProcessMesh`` the inputs are this rank's
+    blocks, the logits and tokens every row's, and each tick feeds this
+    rank's rows."""
+    index = batch["positions"].shape[1]
+    lg, cache = prefill_chunks(params, cfg, batch, cache, chunks)
     logits = [lg[:, -1].float()]
     tokens = [torch.argmax(logits[-1], dim=-1)]
     rows = slice(None)
@@ -68,23 +109,24 @@ def local_rows(x, mesh, cfg):
     return sharding.local_block(torch.tensor(x), place, mesh).contiguous()
 
 
-def _serve_case(mesh, arch, params_np, prompt):
-    """The reduced ``arch`` served on this rank's blocks: the prefill and
+def _serve_case(mesh, arch, params_np, prompt, max_len, chunks):
+    """The reduced ``arch`` served on this rank's blocks: a cache of
+    ``max_len`` slots, the prefill of the prompt in ``chunks`` and
     ``TICKS`` greedy ticks; the tokens, logits, the cache blocks after,
-    their shapes, the plan and the launches of K6's partials."""
+    the gathered cache, its round trip and the plan."""
     cfg = serve_cfg(arch)
     params = interop.params_from_numpy(params_np, cfg, device=CPU,
                                        mesh=mesh)
     batch = {k: local_rows(v, mesh, cfg) for k, v in prompt["batch"].items()}
     embeds = (None if prompt["embeds"] is None
               else local_rows(prompt["embeds"], mesh, cfg))
-    cache = transformer.init_cache(cfg, B, MAX_LEN, torch.float32, CPU,
+    cache = transformer.init_cache(cfg, B, max_len, torch.float32, CPU,
                                    mesh=mesh)
     with torch.no_grad(), sharding.use_mesh(mesh):
         tokens, logits = greedy_generate(params, cfg, batch, cache, TICKS,
-                                         embeds=embeds)
+                                         embeds=embeds, chunks=chunks)
     # the whole cache out of the ranks' blocks, and back into them
-    whole = interop.cache_to_numpy(cache, cfg, mesh, B, MAX_LEN)
+    whole = interop.cache_to_numpy(cache, cfg, mesh, B, max_len)
     back = interop.cache_from_numpy(whole, cfg, CPU, mesh=mesh)
     return dict(tokens=tokens.numpy(),
                 logits=torch.stack(logits).numpy(),
@@ -115,14 +157,17 @@ def _partials_case(mesh, inp):
 
 
 def all_cases(world, inputs):
-    """Every case on this rank: the serving cases on each mesh of
-    ``inputs["meshes"]``, and the partials case on each."""
+    """Every case on this rank: the serving cases of ``SERVE`` on their
+    meshes (``inputs["meshes"]``), and the partials case on each mesh."""
     out = dict(rank=world.rank, serve={}, partials={})
-    for name, axes in inputs["meshes"].items():
-        mesh = ProcessMesh(CPU, axes=axes)
+    meshes = {name: ProcessMesh(CPU, axes=axes)
+              for name, axes in inputs["meshes"].items()}
+    for case, (name, max_len, chunks) in SERVE.items():
         for arch in inputs["archs"]:
-            out["serve"][(arch, name)] = _serve_case(
-                mesh, arch, inputs["params"][arch], inputs["prompts"][arch])
+            out["serve"][(arch, case)] = _serve_case(
+                meshes[name], arch, inputs["params"][arch],
+                inputs["prompts"][arch], max_len, chunks)
+    for name, mesh in meshes.items():
         with torch.no_grad():
             out["partials"][name] = _partials_case(mesh, inputs["partials"])
     out["ambient"] = sharding.ambient_mesh() is None
