@@ -210,7 +210,8 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      the in-process ``ShardMesh(1)`` bit for bit; (b) 4 ranks on the one
      card over the named host-staged gloo transport replay the series
      (the simulator path's configuration) and the PIC configuration of 1.
-     at the tight slab capacity of the in-process 4-shard run, every
+     cut to 50 steps (LB every 10) at the tight slab capacity of the
+     in-process 4-shard run, every
      rank equal to the in-process ``ShardMesh(4)`` on the card in every
      field (SHA-256 of each); each rank's K3/K4/K5 launches counted on
      its own runs, every spawn under a time limit.
@@ -249,20 +250,42 @@ It builds the seven CUDA kernels from ``src/repro_torch/csrc``, then:
      GiB against the whole tree's, peak, step walls and K6 launches; (b)
      smollm-135m at its
      published width and depth under its "dp" profile over (data 2, model
-     2), batch 8 x 512, FSDP over "data", held alike; (c) reduced configs
+     2), batch 8 x 512, FSDP over "data", held alike; (c') xlstm-125m at
+     its published width (d_model 768, 4 heads of 192, vocabulary 50304,
+     tied) cut to its unit (one mLSTM, one sLSTM layer) over (model 4):
+     one head a rank, the cells head parallel (asserted), 2 x 512 tokens,
+     held alike; (c) reduced configs
      on the card's ranks against the same ranks on the CPU: gemma3-27b on
      (model 4) (the head-repeat branch, asserted taken), deepseek-v3 under
      "dp" on (data 2, model 2) (the MoE boundary: routing, slots, keeps
-     and statistics exact) and qwen1.5-110b on (data 2, model 2)
-     (``qkv_bias`` under TP).  The one-process references are built, run
+     and statistics exact), qwen1.5-110b on (data 2, model 2)
+     (``qkv_bias`` under TP), xlstm-125m on (data 2, model 2) and a
+     4-head hymba on (model 4) (head-parallel cells and mamba, asserted;
+     the hymba through K6).  The one-process references are built, run
      and freed before the ranks start; their updated leaves go to the
      ranks through files under the temporary directory.
+
+ 20. serving over 4 ranks on the card (gloo-host), each holding only its
+     blocks of the parameters and the cache, held to the one-process run
+     from the same bits (f32: greedy tokens equal, logits within 1e-4 of
+     the largest; bf16, fed the one-process tokens: 2e-2): (a)
+     gemma3-27b's one ``attn_local`` and one ``attn`` layer, 2 x 960
+     prompts and 80 ticks past the 1024-slot ring, (e) the same prompts as
+     two chunks of 480 into a 2050-slot cache; (b) deepseek-v3's two dense
+     MLA layers, 2 x 256 and 32 ticks, (f) as two chunks of 128; (g)
+     xlstm-125m's unit at its published width, 2 x 256 and 32 ticks, each
+     rank's final f32 state block within 1e-5 of its one-process block's
+     largest magnitude; (c) every reduced family and the 4-head hymba in
+     four cases on both meshes, card ranks against CPU ranks; (d) K6's
+     partials at the decode and second-chunk shapes against their plain
+     versions.
 
 It prints the card's name and power limit, one JSON line of the sharded
 phases' numbers, one of the model families', one of expert balancing,
 one of training, one of the benches and examples, one of the ranks
 (phase 17: walls, transports, launches by rank), one of the model mesh
-(phase 18), one of tensor parallelism (phase 19), one JSON line of
+(phase 18), one of tensor parallelism (phase 19), one of serving over
+ranks (phase 20), one of each call's seconds, one JSON line of
 per-kernel numbers (K6's backward beside K6, and inside its row), and as
 its last line
 ``{"ok": true, "device": {...}}``.  Any
@@ -482,7 +505,7 @@ BENCH_LAUNCHES: dict = {}   # launches on phase 16's run, by kernel
 # a spawn (seconds), intra-op threads a rank, and the kernels each run
 # must launch on every rank
 RANKS_WORLD = 4
-RANKS_PIC = dict(PIC)
+RANKS_PIC = dict(PIC, steps=50)      # half the PIC path's depth, LB every 10
 RANKS_TIMEOUT = dict(one=180, many=300)
 RANKS_THREADS = 2
 RANKS_KERNELS = dict(series=("histogram",),
@@ -511,18 +534,30 @@ MESH: dict = {}         # phase 18's numbers (one JSON line)
 # phase 19: tensor parallelism and FSDP over TP_WORLD ranks on the card
 # (gloo-host).  (a) TP_GEMMA: gemma3-27b published, its first ``layers``
 # layers, mesh (model 4); (b) TP_SMOLLM: smollm-135m published under its
-# "dp" profile, mesh (data 2, model 2); both with f32 parameters; (c)
-# TP_SMALL: the reduced configs (f32) on the card's ranks and on as many
-# CPU ranks.  Time limits a spawn (seconds), intra-op threads a rank, and
-# the kernels each run launches
+# "dp" profile, mesh (data 2, model 2); (c') TP_XLSTM: xlstm-125m
+# published, cut to its layer unit (one mLSTM, one sLSTM layer), mesh
+# (model 4): its 4 heads one a rank, the cells head parallel; each with
+# f32 parameters; (c) TP_SMALL: the reduced configs (f32; "hymba-h4" the
+# 4-head hymba of ``tests/tp_serving_ranks.VARIANTS``) on the card's
+# ranks and on as many CPU ranks.  Time limits a spawn (seconds),
+# intra-op threads a rank, and the kernels each run launches
 TP_FULL = True               # the published configs; a rehearsal: reduced
 TP_WORLD = 4
 TP_GEMMA = dict(arch="gemma3-27b", layers=2, batch=2, seq=512, seed=0)
 TP_SMOLLM = dict(arch="smollm-135m", batch=8, seq=512, seed=0)
+# a rehearsal's reduced xlstm takes the published 4 heads (``reduced``),
+# one a rank as on the card
+TP_XLSTM = dict(arch="xlstm-125m", layers=2, batch=2, seq=512, seed=0,
+                reduced=dict(num_heads=4, num_kv_heads=4))
+# the big runs and their meshes: (a) and (c') over (model W), (b) over
+# (data 2, model W/2)
+TP_MODELS = dict(gemma="a", smollm="b", xlstm="c'")
 TP_SMALL = dict(batch=4, seq=16, seed=0, cases=(
     ("gemma3-27b", (("model", 4),), "2d"),
     ("deepseek-v3-671b", (("data", 2), ("model", 2)), "dp"),
-    ("qwen1.5-110b", (("data", 2), ("model", 2)), "2d")))
+    ("qwen1.5-110b", (("data", 2), ("model", 2)), "2d"),
+    ("xlstm-125m", (("data", 2), ("model", 2)), "2d"),
+    ("hymba-h4", (("model", 4),), "2d")))
 # (a) and (b) step in each compute type, held to the one-process step
 # within its tolerances (relative): f32 the model mesh's; bf16, the
 # configs' own, at bf16's resolution (a data- or tensor-parallel split
@@ -538,21 +573,26 @@ TP: dict = {}           # phase 19's numbers (one JSON line)
 # holding only its blocks of the parameters and of the cache (slots over
 # "model" where they divide).  (a) SV_GEMMA: gemma3-27b published, cut to
 # one attn_local and one attn layer, mesh (model 4): 960-token prompts,
-# then 128 greedy ticks past the 1024-slot ring; the 2048-slot global
+# then 80 greedy ticks past the 1024-slot ring; the 2048-slot global
 # cache's last rank block holds no key; (b) SV_DEEPSEEK: deepseek-v3
 # published, cut to its first two dense MLA layers (decode through the
 # simt form's partials); (c) SV_SMALL: every reduced family on the card's
 # ranks and on as many CPU ranks, in each case of its ``cases``: both
 # meshes, "U" (23 slots: whole on every rank but the 16-slot rings) and
-# "C" (the prompt as 8 positions, then 6 into the cache that holds them);
+# "C" (the prompt as 8 positions, then 6 into the cache that holds them),
+# and "hymba-h4", the 4-head hymba of ``tests/tp_serving_ranks.VARIANTS``;
 # (d) K6's partials at (a)'s and (b)'s decode shapes and at (e)'s and
 # (f)'s second chunks against their plain versions (times in K6's row);
 # (e) SV_GEMMA's ``chunked``: the same model and mesh, a 2050-slot cache
 # (the global layer's whole on every rank, the ring split), the prompt
 # prefilled as two chunks of 480, the second into the cache that holds
-# the first's keys, then 128 ticks past the ring; (f) SV_DEEPSEEK's
+# the first's keys, then 80 ticks past the ring; (f) SV_DEEPSEEK's
 # ``chunked``: the 256-token prompt as two chunks of 128 into the split
-# 288-slot cache, then 32 ticks.
+# 288-slot cache, then 32 ticks; (g) SV_XLSTM: xlstm-125m published, cut
+# to its layer unit, mesh (model 4), its cells head parallel on each
+# rank's head block of the state: 256-token prompts, 32 greedy ticks,
+# each rank's final f32 state block held to its block of the one-process
+# state (within SV_TOL["state"] of that block's largest magnitude).
 # The one-process run takes the same chunks; its chunked f32 logits are
 # held to its unchunked run's of the same cache (within SV_TOL["chunks"]
 # of the largest).  f32 compute: greedy tokens equal the
@@ -561,19 +601,25 @@ TP: dict = {}           # phase 19's numbers (one JSON line)
 # |logit| (bf16's stated in PERF.md before the first run)
 SV_FULL = True               # the published widths; a rehearsal: reduced
 SV_WORLD = 4
-SV_GEMMA = dict(arch="gemma3-27b", batch=2, prompt=960, ticks=128,
+SV_GEMMA = dict(arch="gemma3-27b", batch=2, prompt=960, ticks=80,
                 max_len=2048, seed=0,
-                chunked=dict(max_len=2050, chunks=(480, 480), ticks=128))
+                chunked=dict(max_len=2050, chunks=(480, 480), ticks=80))
 SV_DEEPSEEK = dict(arch="deepseek-v3-671b", batch=2, prompt=256, ticks=32,
                    max_len=288, seed=0,
                    chunked=dict(max_len=288, chunks=(128, 128), ticks=32))
+SV_XLSTM = dict(arch="xlstm-125m", batch=2, prompt=256, ticks=32,
+                max_len=288, seed=0, state=True,
+                reduced=dict(num_heads=4, num_kv_heads=4))
+# the big runs: (a)/(e), (b)/(f) and (g), each over (model W)
+SV_MODELS = dict(gemma="ae", deepseek="bf", xlstm="g")
 # a case: (name, mesh, cache slots, prompt chunks)
 SV_SMALL = dict(batch=4, prompt=14, ticks=8, seed=0, cases=(
     ("dm", (("data", 2), ("model", 2)), 24, (14,)),
     ("m4", (("model", 4),), 24, (14,)),
     ("U", (("data", 2), ("model", 2)), 23, (14,)),
     ("C", (("model", 4),), 24, (8, 6))))
-SV_TOL = dict(float32=1e-4, bfloat16=2e-2, small=1e-5, chunks=1e-4)
+SV_TOL = dict(float32=1e-4, bfloat16=2e-2, small=1e-5, chunks=1e-4,
+              state=1e-5)
 SV_TIMEOUT = dict(card=900, cpu=300)
 SV_THREADS = 2
 SV: dict = {}           # phase 20's numbers (one JSON line)
@@ -4758,16 +4804,39 @@ def _tp_conf():
     """Phase 19's sizes, passed to its ranks (which import this module
     afresh)."""
     return dict(full=TP_FULL, gemma=dict(TP_GEMMA), smollm=dict(TP_SMOLLM),
-                small=dict(TP_SMALL))
+                xlstm=dict(TP_XLSTM), small=dict(TP_SMALL))
+
+
+def _small_cfg(arch, **kw):
+    """The reduced config of ``arch`` or of a variant
+    (``tests/tp_serving_ranks.VARIANTS``), with ``kw`` replaced."""
+    import dataclasses
+
+    return dataclasses.replace(_rank_helpers().reduced(arch), **kw)
+
+
+def _has_attention(cfg) -> bool:
+    """Whether ``cfg``'s layers run attention (launch K6)."""
+    return any(k in ("attn", "attn_local", "moe", "moe_local", "hymba",
+                     "hymba_g") for k in cfg.all_layers())
+
+
+def _ssm_modes(plan) -> set:
+    """The modes a plan gives hymba's mamba part and the xLSTM cells."""
+    return {p[part] for p in plan.values() for part in ("mamba", "cell")
+            if part in p}
 
 
 def _tp_cfg(which, conf, compute):
     """(a) gemma3-27b published with its first layers, (b) smollm-135m
-    published (its "dp" profile), f32 parameters, ``compute`` the compute
-    type; a rehearsal: the reduced configs."""
+    published (its "dp" profile), (c') xlstm-125m published with its
+    first layers (its unit), f32 parameters, ``compute`` the compute
+    type; a rehearsal: the reduced configs (with the spec's ``reduced``
+    changes)."""
     spec = conf[which]
     if not conf["full"]:
-        return _train_cfg(spec["arch"], False, compute_dtype=compute)
+        return _train_cfg(spec["arch"], False, compute_dtype=compute,
+                          **spec.get("reduced", {}))
     cut = dict(num_layers=spec["layers"]) if "layers" in spec else {}
     return _train_cfg(spec["arch"], True, compute_dtype=compute, **cut)
 
@@ -4777,8 +4846,7 @@ def _tp_small_cfg(arch, profile):
     with the a2a at its capacity factor)."""
     import dataclasses
 
-    cfg = _train_cfg(arch, False, compute_dtype="float32",
-                     sharding_profile=profile)
+    cfg = _small_cfg(arch, compute_dtype="float32", sharding_profile=profile)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, impl="a2a"))
@@ -4786,8 +4854,10 @@ def _tp_small_cfg(arch, profile):
 
 
 def _tp_step(cfg, params, batch, mesh, dev):
-    """One train step (deterministic algorithms), its wall seconds and
-    the launches: ``(new params, metrics, wall, launches)``."""
+    """One train step (deterministic algorithms where PyTorch has them:
+    the SSM scans' ``cumsum`` on the card has none, and only warns), its
+    wall seconds and the launches: ``(new params, metrics, wall,
+    launches)``."""
     import torch
     from repro_torch import kernels
     from repro_torch.train import optimizer as opt_mod
@@ -4797,7 +4867,7 @@ def _tp_step(cfg, params, batch, mesh, dev):
         cfg, opt_mod.OptConfig(warmup_steps=1, total_steps=10),
         collect_router_stats=cfg.moe is not None, mesh=mesh)
     opt = opt_mod.init(params, device=dev)
-    torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         _rank_sync(torch.device(dev))
         kernels.reset_launch_counts()
@@ -4946,9 +5016,15 @@ def _tp_small(conf, dev):
     return out
 
 
+def _tp_mesh(which, W) -> dict:
+    """The axes of a big run of phase 19: (b) over (data 2, model W/2),
+    (a) and (c') over (model W)."""
+    return dict(data=2, model=W // 2) if which == "smollm" else dict(model=W)
+
+
 def _rank_tp(world, conf, ref_root):
-    """Phase 19 on a card rank: (a) over (model W), (b) over (data 2,
-    model W/2), then (c)."""
+    """Phase 19 on a card rank: (a), (b) and (c') over their meshes
+    (:func:`_tp_mesh`), then (c)."""
     from pathlib import Path
 
     import torch
@@ -4957,16 +5033,16 @@ def _rank_tp(world, conf, ref_root):
 
     W, dev = world.num_shards, world.device
     out = dict(rank=world.rank, transport=world.transport, device=str(dev))
-    out["gemma"] = _tp_rank_step("gemma", conf,
-                                 ProcessMesh(dev, axes=dict(model=W)), dev,
-                                 Path(ref_root) / "gemma")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    out["smollm"] = _tp_rank_step(
-        "smollm", conf, ProcessMesh(dev, axes=dict(data=2, model=W // 2)),
-        dev, Path(ref_root) / "smollm")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    meshes = {}
+    for which in TP_MODELS:
+        axes = _tp_mesh(which, W)
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = ProcessMesh(dev, axes=axes)
+        out[which] = _tp_rank_step(which, conf, meshes[key], dev,
+                                   Path(ref_root) / which)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     out["small"] = _tp_small(conf, dev)
     check(moe_mod.ambient_mesh() is None, "phase 19: a mesh left ambient")
     return out
@@ -5027,7 +5103,7 @@ def tensor_parallel_phase():
                                timeout=TP_TIMEOUT["cpu"], threads=1)
                    if DEV == "cuda" else None)
             refs = {w: _tp_reference(w, conf, DEV, ref_root / w)
-                    for w in ("gemma", "smollm")}
+                    for w in TP_MODELS}
             t_refs = time.perf_counter() - t_phase
             cpu = None if cpu is None else cpu.result()
         t0 = time.perf_counter()
@@ -5039,7 +5115,7 @@ def tensor_parallel_phase():
         shutil.rmtree(ref_root, ignore_errors=True)
     if cpu is None:           # a rehearsal: its ranks ran on the CPU
         cpu = [dict(rank=o["rank"], small=o["small"]) for o in many]
-    cfgs = {w: _tp_cfg(w, conf, "float32") for w in ("gemma", "smollm")}
+    cfgs = {w: _tp_cfg(w, conf, "float32") for w in TP_MODELS}
     for w, want in refs.items():
         for compute, run in want["runs"].items():
             got = [o[w]["runs"][compute] for o in many]
@@ -5066,12 +5142,15 @@ def tensor_parallel_phase():
                 check(got["replicated_sha"]
                       == many[0][w]["runs"][compute]["replicated_sha"],
                       f"{what}: whole leaves differ from rank 0's")
-                for name in TP_KERNELS["step"] if DEV == "cuda" else ():
+                for name in (TP_KERNELS["step"] if DEV == "cuda"
+                             and _has_attention(cfgs[w]) else ()):
                     check(got["launches"][name] > 0,
                           f"{what}: launched no {name}")
         check(o["gemma"]["plan"][cfgs["gemma"].all_layers()[0]]["attn"]
               == ("tp" if TP_FULL else "repeat"),
               f"phase 19 (a): rank {r} ran {o['gemma']['plan']}")
+        check(_ssm_modes(o["xlstm"]["plan"]) == {"tp"},
+              f"phase 19 (c'): rank {r} ran {o['xlstm']['plan']}")
         for arch, axes, profile in TP_SMALL["cases"]:
             got, want = o["small"][arch], cpu[r]["small"][arch]
             lr = float(want["metrics"]["lr"])
@@ -5084,7 +5163,13 @@ def tensor_parallel_phase():
                 check(got["plan"]["attn"]["attn"] == "repeat",
                       "phase 19 (c): gemma3-27b on (model 4) did not take "
                       "the head-repeat branch")
-            for name in TP_KERNELS["step"] if DEV == "cuda" else ():
+            cfg = _tp_small_cfg(arch, profile)
+            if arch in ("xlstm-125m", "hymba-h4"):
+                check(_ssm_modes(got["plan"]) == {"tp"},
+                      f"phase 19 (c) {arch}: its heads dividing over "
+                      f"{dict(axes)}, the plan {got['plan']}")
+            for name in (TP_KERNELS["step"] if DEV == "cuda"
+                         and _has_attention(cfg) else ()):
                 check(got["launches"][name] > 0,
                       f"phase 19 (c) {arch}: rank {r} launched no {name}")
             if "layer" in want:
@@ -5100,7 +5185,7 @@ def tensor_parallel_phase():
           "its capacity factor")
     launches = {}
     for o in many:
-        runs = [run for w in ("gemma", "smollm")
+        runs = [run for w in TP_MODELS
                 for run in o[w]["runs"].values()] + [
             x for res in o["small"].values()
             for x in (res, res.get("layer", dict(launches={})))]
@@ -5129,7 +5214,8 @@ def tensor_parallel_phase():
         return dict(
             arch=cfgs[w].name, layers=cfgs[w].num_layers,
             profile=cfgs[w].sharding_profile,
-            mesh=("model 4" if w == "gemma" else "data 2, model 2"),
+            mesh=", ".join(f"{a} {n}" for a, n in _tp_mesh(w, W).items()),
+            plan=many[0][w]["plan"],
             tokens=conf[w]["batch"] * conf[w]["seq"],
             whole_elements=refs[w]["elements"], whole_gib=refs[w]["gib"],
             one_process_peak_gib=refs[w]["peak_gib"],
@@ -5142,7 +5228,7 @@ def tensor_parallel_phase():
               phase_seconds=time.perf_counter() - t_phase,
               spawn_seconds=spawn, reference_seconds=t_refs,
               held_at_start_gib=held_gib,
-              gemma=numbers("gemma"), smollm=numbers("smollm"),
+              **{w: numbers(w) for w in TP_MODELS},
               small={arch: dict(
                   mesh=dict(axes), profile=profile,
                   plan=many[0]["small"][arch]["plan"],
@@ -5152,7 +5238,7 @@ def tensor_parallel_phase():
                                 for o in many])
                   for arch, axes, profile in TP_SMALL["cases"]},
               dropped_pairs=dropped, launches=launches)
-    for w, part in (("gemma", "a"), ("smollm", "b")):
+    for w, part in TP_MODELS.items():
         g = TP[w]
         print(f"phase 19 ({part}): {g['arch']} {g['layers']} layers "
               f"\"{g['profile']}\" over {W} {many_t} ranks ({g['mesh']}): a "
@@ -5175,18 +5261,23 @@ def tensor_parallel_phase():
 def _sv_conf():
     """Phase 20's sizes, passed to its ranks."""
     return dict(full=SV_FULL, gemma=dict(SV_GEMMA),
-                deepseek=dict(SV_DEEPSEEK), small=dict(SV_SMALL))
+                deepseek=dict(SV_DEEPSEEK), xlstm=dict(SV_XLSTM),
+                small=dict(SV_SMALL))
 
 
 def _sv_cfg(which, conf, compute):
     """(a) gemma3-27b cut to one attn_local and one attn layer, (b)
-    deepseek-v3 cut to its first two (dense, MLA) layers, no MTP;
-    ``compute`` the compute type; a rehearsal: the reduced configs cut
-    alike."""
+    deepseek-v3 cut to its first two (dense, MLA) layers, no MTP, (g)
+    xlstm-125m cut to its unit (one mLSTM, one sLSTM layer); ``compute``
+    the compute type; a rehearsal: the reduced configs cut alike (with
+    the spec's ``reduced`` changes)."""
     arch = conf[which]["arch"]
     if which == "gemma":
         cut = dict(num_layers=2, prefix_layers=(),
                    layer_unit=("attn_local", "attn"), suffix_layers=())
+    elif which == "xlstm":
+        cut = dict(num_layers=2,
+                   **({} if conf["full"] else conf[which]["reduced"]))
     else:
         cut = dict(num_layers=2, prefix_layers=("attn", "attn"),
                    layer_unit=("moe",), suffix_layers=(), mtp=False)
@@ -5214,14 +5305,16 @@ def _sv_prompt(cfg, spec, dev):
 
 
 def _sv_runs(spec):
-    """The runs on one model: (a)/(b)'s, named by their compute type, and
-    (e)/(f)'s, "chunked <type>": ``(name, compute type, cache slots,
-    prompt chunks, ticks)``."""
-    c = spec["chunked"]
-    return ([(t, t, spec["max_len"], (spec["prompt"],), spec["ticks"])
-             for t in ("float32", "bfloat16")]
-            + [(f"chunked {t}", t, c["max_len"], tuple(c["chunks"]),
-                c["ticks"]) for t in ("float32", "bfloat16")])
+    """The runs on one model: (a)/(b)/(g)'s, named by their compute type,
+    and where it has ``chunked`` (e)/(f)'s, "chunked <type>": ``(name,
+    compute type, cache slots, prompt chunks, ticks)``."""
+    runs = [(t, t, spec["max_len"], (spec["prompt"],), spec["ticks"])
+            for t in ("float32", "bfloat16")]
+    c = spec.get("chunked")
+    if c:
+        runs += [(f"chunked {t}", t, c["max_len"], tuple(c["chunks"]),
+                  c["ticks"]) for t in ("float32", "bfloat16")]
+    return runs
 
 
 def _sv_dir(ref_dir, name):
@@ -5340,27 +5433,29 @@ def _sv_serve(params, cfg, batch, cache, ticks, chunks, feed, dev):
 
 
 def _sv_reference(which, conf, dev, ref_dir):
-    """(a)/(e) or (b)/(f) in one process on the card: the whole tree drawn
-    by ``params.init_blocks``, each run of :func:`_sv_runs` (greedy in
-    both types) and an unchunked f32 run of the chunked runs' cache, to
-    which the chunked f32 run is held; each run's logits and tokens saved
-    under ``ref_dir`` for the ranks, its numbers returned.  Frees what it
-    made."""
+    """(a)/(e), (b)/(f) or (g) in one process on the card: the whole tree
+    drawn by ``params.init_blocks``, each run of :func:`_sv_runs` (greedy
+    in both types) and, with chunked runs, an unchunked f32 run of their
+    cache, to which the chunked f32 run is held; each run's logits and
+    tokens saved under ``ref_dir`` for the ranks (with ``state``, the f32
+    run's final cache too, a file a leaf), its numbers returned.  Frees
+    what it made."""
     import numpy as np
     import torch
     from repro_torch.models import transformer
     from repro_torch.models.params import count_params, init_blocks
+    from repro_torch.models.params import tree_leaves
 
     spec = conf[which]
     specs = transformer.model_specs(_sv_cfg(which, conf, "float32"))
     params = init_blocks(specs, spec["seed"], device=dev)
     out = dict(elements=count_params(specs), gib=param_gib(params), runs={},
                cache_gib={})
-    c = spec["chunked"]
+    c = spec.get("chunked")
     f32 = {}
-    for name, compute, max_len, chunks, ticks in _sv_runs(spec) + [(
+    for name, compute, max_len, chunks, ticks in _sv_runs(spec) + ([(
             "unchunked float32", "float32", c["max_len"], (spec["prompt"],),
-            c["ticks"])]:
+            c["ticks"])] if c else []):
         cfg = _sv_cfg(which, conf, compute)
         cache = transformer.init_cache(cfg, spec["batch"], max_len,
                                        _sv_cache_dtype(compute), dev)
@@ -5371,6 +5466,9 @@ def _sv_reference(which, conf, dev, ref_dir):
         d.mkdir(parents=True)
         np.save(d / "logits.npy", run["logits"].numpy())
         np.save(d / "tokens.npy", run["tokens"].numpy())
+        if spec.get("state") and name == "float32":
+            for i, t in enumerate(tree_leaves(cache)):
+                np.save(d / f"cache{i}.npy", t.cpu().numpy())
         out["runs"][name] = dict(
             tokens=run["tokens"], prefill_s=run["prefill_s"],
             tick_ms=run["tick_ms"], k6_forms=run["k6_forms"],
@@ -5378,10 +5476,10 @@ def _sv_reference(which, conf, dev, ref_dir):
         if name in ("chunked float32", "unchunked float32"):
             f32[name] = run["logits"]
         del cache, run
-    # the chunks change no logit beyond the kernels' summation orders
-    out["chunks_err"] = float((f32["chunked float32"]
-                               - f32["unchunked float32"]).abs().max())
-    out["chunks_scale"] = float(f32["unchunked float32"].abs().max())
+    if c:     # the chunks change no logit beyond the kernels' orders
+        out["chunks_err"] = float((f32["chunked float32"]
+                                   - f32["unchunked float32"]).abs().max())
+        out["chunks_scale"] = float(f32["unchunked float32"].abs().max())
     del params, f32
     if DEV == "cuda":
         torch.cuda.empty_cache()
@@ -5389,13 +5487,15 @@ def _sv_reference(which, conf, dev, ref_dir):
 
 
 def _sv_rank_model(which, conf, mesh, dev, ref_dir):
-    """(a)/(e) or (b)/(f) on this rank: its blocks of the parameters
+    """(a)/(e), (b)/(f) or (g) on this rank: its blocks of the parameters
     (``init_blocks`` under ``train_placements``) and of each run's cache
     (``init_cache(mesh=...)``, which layers of it are split:
     ``transformer.slots_split``), each run of :func:`_sv_runs` — f32
     greedy, bf16 fed the one-process tokens; its logits against the
     reference's (largest difference, largest |logit|), their SHA-256, the
-    tokens, the times and the launches."""
+    tokens, the times and the launches; with ``state``, the f32 run's
+    final cache blocks against their blocks of the reference's (each
+    leaf's largest difference and largest magnitude)."""
     import dataclasses
 
     import numpy as np
@@ -5436,20 +5536,41 @@ def _sv_rank_model(which, conf, mesh, dev, ref_dir):
         ref = np.load(d / "logits.npy", mmap_mode="r")
         run.update(err=float(np.abs(lg - ref).max()),
                    scale=float(np.abs(ref).max()), sha=_sha(lg))
+        if spec.get("state") and name == "float32":
+            places = []
+            sharding.tree_map(lambda _, p: places.append(p), cache,
+                              cache.placements)
+            run["state"] = []
+            for i, (t, p) in enumerate(zip(tree_leaves(cache), places)):
+                want = np.load(d / f"cache{i}.npy")
+                want = want[sharding.block_slices(want.shape, p, mesh)]
+                run["state"].append(dict(
+                    err=float(np.abs(t.cpu().numpy() - want).max()),
+                    scale=float(np.abs(want).max()),
+                    block=list(t.shape), whole=list(np.load(
+                        d / f"cache{i}.npy", mmap_mode="r").shape)))
         out["runs"][name] = run
         del cache, lg, ref
     out["peak_gib"] = _mesh_peak_gib(dev)
     return out
 
 
+def _small_archs() -> list:
+    """(c)'s configs: every family's reduced one, then the variants of
+    ``tests/tp_serving_ranks.VARIANTS``."""
+    from repro_torch.configs import list_archs
+
+    return list(list_archs()) + sorted(_rank_helpers().VARIANTS)
+
+
 def _sv_small(conf, dev):
-    """(c) on this rank: every reduced family (f32) in each case of
-    ``SV_SMALL["cases"]`` (its mesh, cache slots and prompt chunks), its
-    blocks drawn on the CPU (the same bits on the card and on the CPU):
-    the greedy tokens, the logits and the launches."""
+    """(c) on this rank: every reduced family and variant (f32) in each
+    case of ``SV_SMALL["cases"]`` (its mesh, cache slots and prompt
+    chunks), its blocks drawn on the CPU (the same bits on the card and
+    on the CPU): the greedy tokens, the logits, the plan and the
+    launches."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import list_archs
     from repro_torch.distributed import sharding
     from repro_torch.distributed.mesh import ProcessMesh
     from repro_torch.models import transformer
@@ -5462,9 +5583,9 @@ def _sv_small(conf, dev):
         if axes not in meshes:
             meshes[axes] = ProcessMesh(dev, axes=dict(axes))
         mesh = meshes[axes]
-        for arch in list_archs():
-            cfg, specs, place = transformer.serving_layout(_train_cfg(
-                arch, False, compute_dtype="float32"), mesh)
+        for arch in _small_archs():
+            cfg, specs, place = transformer.serving_layout(_small_cfg(
+                arch, compute_dtype="float32"), mesh)
             params = tree_to(init_blocks(specs, small["seed"], place, mesh,
                                          "cpu"), dev)
             cache = transformer.init_cache(cfg, small["batch"], max_len,
@@ -5490,13 +5611,14 @@ def _sv_small(conf, dev):
                 launches = kernels.launch_counts()
             out[(arch, case)] = dict(tokens=tokens.cpu(),
                                      logits=torch.stack(logits).cpu(),
+                                     plan=sharding.tp_plan(cfg, mesh),
                                      launches=launches)
     return out
 
 
 def _rank_sv(world, conf, ref_root):
-    """Phase 20 on a card rank: (a)/(e) and (b)/(f) over (model W), then
-    (c)."""
+    """Phase 20 on a card rank: (a)/(e), (b)/(f) and (g) over (model W),
+    then (c)."""
     import torch
     from repro_torch.distributed import sharding
     from repro_torch.distributed.mesh import ProcessMesh
@@ -5504,7 +5626,7 @@ def _rank_sv(world, conf, ref_root):
     W, dev = world.num_shards, world.device
     out = dict(rank=world.rank, transport=world.transport, device=str(dev))
     mesh = ProcessMesh(dev, axes=dict(model=W))
-    for which in ("gemma", "deepseek"):
+    for which in SV_MODELS:
         out[which] = _sv_rank_model(which, conf, mesh, dev,
                                     Path(ref_root) / which)
         if dev.type == "cuda":
@@ -5655,7 +5777,6 @@ def serving_ranks_phase():
     import tempfile
 
     import torch
-    from repro_torch.configs import list_archs
     from repro_torch.launch.mesh import run_ranks
 
     W = SV_WORLD
@@ -5671,7 +5792,7 @@ def serving_ranks_phase():
                                timeout=SV_TIMEOUT["cpu"], threads=1)
                    if DEV == "cuda" else None)
             refs = {w: _sv_reference(w, conf, DEV, ref_root / w)
-                    for w in ("gemma", "deepseek")}
+                    for w in SV_MODELS}
             t_refs = time.perf_counter() - t_phase
             cpu = None if cpu is None else cpu.result()
         t0 = time.perf_counter()
@@ -5686,9 +5807,10 @@ def serving_ranks_phase():
     partials = _sv_partials(DEV) if DEV == "cuda" else {}
     forms = dict(gemma="split", deepseek="simt" if SV_FULL else "split")
     for w, want in refs.items():
-        _sv_held(want["chunks_err"], want["chunks_scale"], SV_TOL["chunks"],
-                 f"phase 20 {w}: the one-process chunked f32 run against "
-                 "its unchunked one")
+        if "chunks_err" in want:
+            _sv_held(want["chunks_err"], want["chunks_scale"],
+                     SV_TOL["chunks"], f"phase 20 {w}: the one-process "
+                     "chunked f32 run against its unchunked one")
     for r, o in enumerate(many):
         check(o["rank"] == r and o["transport"] == many_t,
               f"phase 20: rank {r} ran {o['transport']}")
@@ -5705,16 +5827,23 @@ def serving_ranks_phase():
                       f"{what}: logits differ from rank 0's")
                 check(got["cache_gib"][name] < want["cache_gib"][name],
                       f"{what}: the whole cache")
-                # (e): the ring split, the 2050-slot global layer whole
-                check(got["split"][name] == [True, not (
-                    chunked and w == "gemma")],
+                # (e): the ring split, the 2050-slot global layer whole;
+                # (g): no attention cache, the states split by heads
+                check(got["split"][name] == ([False, False] if w == "xlstm"
+                                             else [True, not (
+                                                 chunked and w == "gemma")]),
                       f"{what}: layers split {got['split'][name]}")
                 if compute == "float32":
                     check(torch.equal(run["tokens"],
                                       want["runs"][name]["tokens"]),
                           f"{what}: greedy tokens differ from the one-"
                           "process run's")
-                if DEV == "cuda":
+                for i, st in enumerate(run.get("state", ())):
+                    _sv_held(st["err"], st["scale"], SV_TOL["state"],
+                             f"{what}: state leaf {i} {st['block']}")
+                    check(st["block"] != st["whole"],
+                          f"{what}: state leaf {i} whole on the rank")
+                if DEV == "cuda" and w != "xlstm":
                     f = run["k6_forms"]
                     if chunked:       # a chunk after the first: simt
                         ok = (f["partials simt"] > 0
@@ -5727,7 +5856,10 @@ def serving_ranks_phase():
                               and f[f"partials {forms[w]}"] > 0
                               and f["partials combine"] > 0)
                     check(ok, f"{what}: K6's forms {f}")
-        for arch in list_archs():
+        check(_ssm_modes(o["xlstm"]["plan"]) == {"tp"},
+              f"phase 20 (g): rank {r} ran {o['xlstm']['plan']}")
+        for arch in _small_archs():
+            cfg = _small_cfg(arch)
             for case, axes, _, _ in SV_SMALL["cases"]:
                 got, want = o["small"][(arch, case)], cpu[r]["small"][
                     (arch, case)]
@@ -5737,16 +5869,19 @@ def serving_ranks_phase():
                 err = float((got["logits"] - want["logits"]).abs().max())
                 _sv_held(err, float(want["logits"].abs().max()),
                          SV_TOL["small"], what)
+                check(got["plan"] == want["plan"], f"{what}: plan")
+                if arch in ("xlstm-125m", "hymba-h4"):
+                    M = dict(axes)["model"]
+                    check(_ssm_modes(got["plan"]) == {
+                        "tp" if cfg.num_heads % M == 0 else "gather"},
+                        f"{what}: the SSM parts ran {got['plan']}")
                 if DEV == "cuda":
                     check(got["launches"]["flash_attention"] > 0
-                          or not any(k in ("attn", "attn_local", "moe",
-                                           "moe_local", "hymba", "hymba_g")
-                                     for k in _train_cfg(
-                                         arch, False).all_layers()),
+                          or not _has_attention(cfg),
                           f"{what}: K6 not launched")
     launches = {}
     for o in many:
-        runs = [run for w in ("gemma", "deepseek")
+        runs = [run for w in SV_MODELS
                 for run in o[w]["runs"].values()] + list(o["small"].values())
         for run in runs:
             for name, n in run["launches"].items():
@@ -5755,22 +5890,19 @@ def serving_ranks_phase():
     def numbers(w):
         want = refs[w]
         cfg = _sv_cfg(w, conf, "float32")
-        return dict(
+        out = dict(
             arch=cfg.name, layers=list(cfg.all_layers()),
             mesh=f"model {W}", batch=conf[w]["batch"],
             prompt=conf[w]["prompt"], ticks=conf[w]["ticks"],
-            max_len=conf[w]["max_len"], chunked=conf[w]["chunked"],
+            max_len=conf[w]["max_len"], chunked=conf[w].get("chunked"),
             plan=many[0][w]["plan"],
             whole_elements=want["elements"], whole_gib=want["gib"],
+            elements=[o[w]["elements"] for o in many],
             gib=[o[w]["gib"] for o in many],
             whole_cache_gib=want["cache_gib"],
             cache_gib=[o[w]["cache_gib"] for o in many],
             split=many[0][w]["split"],
             peak_gib=[o[w]["peak_gib"] for o in many],
-            one_process_chunks=dict(
-                tolerance=SV_TOL["chunks"], logit_err=want["chunks_err"],
-                largest_logit=want["chunks_scale"],
-                unchunked=want["runs"]["unchunked float32"]),
             runs={name: dict(
                 tolerance=SV_TOL[c],
                 fed="greedy" if c == "float32" else "one-process tokens",
@@ -5784,21 +5916,30 @@ def serving_ranks_phase():
                                  k6_forms=want["runs"][name]["k6_forms"]),
                 prefill_s=[o[w]["runs"][name]["prefill_s"] for o in many],
                 tick_ms=[o[w]["runs"][name]["tick_ms"] for o in many],
-                k6_forms=[o[w]["runs"][name]["k6_forms"] for o in many])
+                k6_forms=[o[w]["runs"][name]["k6_forms"] for o in many],
+                **({} if "state" not in many[0][w]["runs"][name] else dict(
+                    state_tolerance=SV_TOL["state"],
+                    state=[o[w]["runs"][name]["state"] for o in many])))
                 for name, c, _, _, _ in _sv_runs(conf[w])})
+        if "chunks_err" in want:
+            out["one_process_chunks"] = dict(
+                tolerance=SV_TOL["chunks"], logit_err=want["chunks_err"],
+                largest_logit=want["chunks_scale"],
+                unchunked=want["runs"]["unchunked float32"])
+        return out
 
     SV.update(card=SMI, world_size=W, transport=many_t,
               phase_seconds=time.perf_counter() - t_phase,
               spawn_seconds=spawn, reference_seconds=t_refs,
-              gemma=numbers("gemma"), deepseek=numbers("deepseek"),
-              small=dict(archs=list(list_archs()),
+              **{w: numbers(w) for w in SV_MODELS},
+              small=dict(archs=_small_archs(),
                          ticks=SV_SMALL["ticks"],
                          cases=[dict(case=n, mesh=dict(a), max_len=m,
                                      chunks=list(c))
                                 for n, a, m, c in SV_SMALL["cases"]],
                          tolerance=SV_TOL["small"]),
               partials=partials, launches=launches)
-    for w, parts in (("gemma", "ae"), ("deepseek", "bf")):
+    for w, parts in SV_MODELS.items():
         g = SV[w]
         for part, chunked in zip(parts, (False, True)):
             runs = {n: r for n, r in g["runs"].items()
@@ -5817,10 +5958,20 @@ def serving_ranks_phase():
                       f"{r['one_process']['tick_ms']:.3f} ms), K6 "
                       f"{r['k6_forms'][0]}" for n, r in runs.items()),
                   flush=True)
-        c = g["one_process_chunks"]
-        print(f"phase 20 ({parts[1]}): one process, the chunked f32 logits "
-              f"off the unchunked by {c['logit_err']} (largest "
-              f"{c['largest_logit']})", flush=True)
+        c = g.get("one_process_chunks")
+        if c:
+            print(f"phase 20 ({parts[1]}): one process, the chunked f32 "
+                  f"logits off the unchunked by {c['logit_err']} (largest "
+                  f"{c['largest_logit']})", flush=True)
+        for name, run in g["runs"].items():
+            if "state" in run:
+                errs = [[(x["err"], x["scale"]) for x in st]
+                        for st in run["state"]]
+                print(f"phase 20 ({parts}) {name}: a rank holds "
+                      f"{g['elements'][0]} of {g['whole_elements']} "
+                      "parameter elements; its final state blocks off the "
+                      "one-process blocks by (largest difference, largest "
+                      f"magnitude) a leaf, by rank: {errs}", flush=True)
     print(f"phase 20 (c): every reduced family in the cases "
           f"{[c['case'] for c in SV['small']['cases']]} on the card's "
           f"ranks equals the CPU ranks; spawn {spawn:.1f} s, phase "

@@ -231,8 +231,16 @@ def tp_plan(cfg, mesh) -> Dict[str, Dict[str, str]]:
         at most 16384, which the caller checks);
       * ``"gather"`` — every block gathered over its axes before use
         (:func:`gathered`) and the compute replicated: a split mid-head
-        (smollm-135m's 9 heads over 2), the SSM cells, anything under
-        ``"dp"`` (no tensor parallelism) or without a ``"model"`` axis.
+        (smollm-135m's 9 heads over 2), SSM heads that do not divide over
+        ``"model"`` (hymba-1.5b's 25 over 4), anything under ``"dp"`` (no
+        tensor parallelism) or without a ``"model"`` axis.
+
+    Hymba's ``"mamba"`` part and the xLSTM ``"cell"`` are ``"tp"`` where
+    ``"model"`` is active under the profile, has several members and
+    divides ``cfg.num_heads``: every ``"model"`` block of their leaves is
+    then whole heads (checked: a ValueError otherwise), so each rank
+    computes its heads on its own blocks and its head block of the
+    recurrent state, as the JAX package's head constraints let XLA.
 
     The MoE experts run expert parallel (``models.moe``) under every
     mode; ``"moe"`` kinds give the shared expert's mode as ``"shared"``."""
@@ -246,7 +254,7 @@ def _tp_plan(cfg, axes) -> Dict[str, Dict[str, str]]:
     computed once a (config, axes)."""
     from repro_torch.models import attention as attn
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer
+    from repro_torch.models import ssm, transformer
     from repro_torch.models.layers import embed_specs, mlp_specs
 
     p = cfg.sharding_profile
@@ -274,6 +282,12 @@ def _tp_plan(cfg, axes) -> Dict[str, Dict[str, str]]:
         return mode(_model_split(mlp_specs(cfg.d_model, width)["wi"], 1,
                                  sizes, p))
 
+    def ssm_mode(specs: Dict[str, ParamSpec]) -> str:
+        m = mode(cfg.num_heads % M == 0)
+        if m == "tp":
+            _check_head_blocks(specs, cfg.num_heads, M, sizes, p)
+        return m
+
     plan: Dict[str, Dict[str, str]] = {}
     kinds = list(dict.fromkeys(cfg.all_layers()))
     if cfg.mtp and "attn" not in kinds:
@@ -288,15 +302,35 @@ def _tp_plan(cfg, axes) -> Dict[str, Dict[str, str]]:
             else:
                 plan[kind]["mlp"] = mlp_mode(cfg.d_ff_dense or cfg.d_ff)
         elif kind in transformer.HYMBA_KINDS:
-            plan[kind] = dict(attn=att, mamba="gather",
+            plan[kind] = dict(attn=att, mamba=ssm_mode(ssm.mamba_specs(cfg)),
                               mlp=mlp_mode(cfg.d_ff))
         else:
-            plan[kind] = dict(cell="gather")
+            plan[kind] = dict(cell=ssm_mode(
+                ssm.mlstm_specs(cfg) if kind == "mlstm"
+                else ssm.slstm_specs(cfg)))
             if cfg.d_ff:
                 plan[kind]["mlp"] = mlp_mode(cfg.d_ff)
     plan["embed"] = dict(vocab=mode(_model_split(
         embed_specs(cfg.vocab_size, cfg.d_model), 0, sizes, p)))
     return plan
+
+
+def _check_head_blocks(specs: Dict[str, ParamSpec], heads: int, M: int,
+                       sizes, profile: str) -> None:
+    """Every leaf of an SSM part that declares ``"model"`` is split over
+    it alone, in blocks of whole heads (the dim is ``heads`` runs of one
+    head's extent); raise otherwise."""
+    for name, spec in specs.items():
+        for dim, a in enumerate(spec.spec):
+            if translate(a, profile) != "model":
+                continue
+            n = spec.shape[dim]
+            split = _split(spec, sizes, profile).get(dim)
+            if split != ("model",) or n % heads or (n // M) % (n // heads):
+                raise ValueError(
+                    f"SSM leaf {name} {spec.shape}: dim {dim} splits over "
+                    f"{split}, not in blocks of whole heads of {heads} over "
+                    f"{M} 'model' members")
 
 
 def gathered(w: torch.Tensor, spec: ParamSpec, mesh: ProcessMesh,

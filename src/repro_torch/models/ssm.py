@@ -6,6 +6,17 @@ Each has a full-sequence form for prefill (chunkwise for mamba and mLSTM,
 a step loop for sLSTM, whose hidden state feeds back into its gates) and
 a single-step form for decode on a carried state.  States are f32 and
 O(heads · state) in size, whatever the sequence length.
+
+Head parallel over ``"model"`` (``mesh``, a ``ProcessMesh``, as the JAX
+package's head constraints let XLA compute each member's heads): the
+parameters are this rank's blocks of whole heads, the head count is read
+off them, the state is this rank's head block, the in-projections are
+column parallel (the input enters by ``autodiff.tp_in``) and the
+out-projection row parallel (``autodiff.row_parallel``); everything per
+head (the gates, the scans, the head-wise norms, sLSTM's recurrence)
+stays on the rank.  sLSTM's output gate reads its weight by columns from
+the leaf it shares with the out-projection, whose rows the rank holds:
+one all-to-all of that block over ``"model"`` (:func:`_gate_columns`).
 """
 from __future__ import annotations
 
@@ -56,18 +67,33 @@ def mamba_specs(cfg: ModelConfig) -> Dict:
     )
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int,
-                     device="cuda") -> torch.Tensor:
-    """(batch, H, N, hd) f32 zeros, whatever the cache's type."""
-    H, hd, N = cfg.num_heads, cfg.hd, cfg.ssm_state
+def mamba_init_state(cfg: ModelConfig, batch: int, device="cuda",
+                     heads: Optional[int] = None) -> torch.Tensor:
+    """(batch, H, N, hd) f32 zeros, whatever the cache's type; ``heads``:
+    H (default ``cfg.num_heads``)."""
+    H, hd, N = heads or cfg.num_heads, cfg.hd, cfg.ssm_state
     return torch.zeros((batch, H, N, hd), dtype=f32,
                        device=resolve_device(device))
+
+
+def _out(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """The out-projection ``y @ w`` in y's type; over ``mesh`` y's last
+    dim and w's rows are this rank's heads, the partials added over
+    ``"model"``."""
+    if mesh is None:
+        return y @ w
+    return autodiff.row_parallel(y, w, mesh, MODEL)
+
+
+def _enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of the column-parallel in-projections (over ``mesh``)."""
+    return x if mesh is None else autodiff.tp_in(x, mesh, MODEL)
 
 
 def _mamba_inputs(params, cfg: ModelConfig, x: torch.Tensor):
     dt_ = x.dtype
     B, S, _ = x.shape
-    H, hd, N = cfg.num_heads, cfg.hd, cfg.ssm_state
+    H, hd, N = params["wdt"].shape[-1], cfg.hd, cfg.ssm_state
     xv = (x @ params["wx"].to(dt_)).reshape(B, S, H, hd)
     z = (x @ params["wz"].to(dt_)).reshape(B, S, H, hd)
     Bm = (x @ params["wB"].to(dt_)).reshape(B, S, H, N).to(f32)
@@ -78,29 +104,30 @@ def _mamba_inputs(params, cfg: ModelConfig, x: torch.Tensor):
     return xv, z, Bm, Cm, dt, A
 
 
-def _mamba_out(params, x: torch.Tensor, y: torch.Tensor, xv, z):
+def _mamba_out(params, x: torch.Tensor, y: torch.Tensor, xv, z, mesh):
     """y (B, S, H, hd) in x's type → D skip, SiLU gate, output projection."""
     dt_ = x.dtype
     B, S, H, hd = xv.shape
     y = y + params["Ddiag"].to(dt_)[None, None, :, None] * xv
     y = (y * F.silu(z)).reshape(B, S, H * hd)
-    return y @ params["wo"].to(dt_)
+    return _out(y, params["wo"].to(dt_), mesh)
 
 
 def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  state: Optional[torch.Tensor] = None, *, chunk: int = 256
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence selective scan, x (B, S, D) → (y, final state).
+                  state: Optional[torch.Tensor] = None, *, chunk: int = 256,
+                  mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence selective scan, x (B, S, D) → (y, final state);
+    ``mesh``: head parallel over its ``"model"`` axis (module docstring).
 
     Chunkwise: within a chunk the recurrence h_t = exp(dt_t A) h_{t-1} +
     dt_t B_t x_t unrolls through cumulative log decays (A < 0, so decays
     are at most 1); inputs are scaled by the inverse decay, guarded at
     1e-30, summed and rescaled."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.hd
+    x = _enter(x, mesh)
     xv, z, Bm, Cm, dt, A = _mamba_inputs(params, cfg, x)
-    h = (mamba_init_state(cfg, B, device=x.device) if state is None
-         else state)
+    h = (mamba_init_state(cfg, B, x.device, heads=A.shape[0])
+         if state is None else state)
     c = min(chunk, S)
     pad = -S % c
     ys = []
@@ -115,54 +142,22 @@ def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         ys.append(torch.einsum("bchn,bchnd->bchd", Cc, h_all))
         h = h_all[:, -1]
     y = torch.cat(ys, dim=1)[:, :S].to(x.dtype)
-    return _mamba_out(params, x, y, xv, z), h
+    return _mamba_out(params, x, y, xv, z, mesh), h
 
 
 def mamba_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-               state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-token decode: x (B, 1, D), state (B, H, N, hd)."""
+               state: torch.Tensor, *, mesh=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token decode: x (B, 1, D), state (B, H, N, hd); ``mesh`` as
+    :func:`mamba_forward`'s."""
+    x = _enter(x, mesh)
     xv, z, Bm, Cm, dt, A = _mamba_inputs(params, cfg, x)
     decay = torch.exp(dt[:, 0, :, None] * A)                   # (B, H, N)
     inj = (dt[:, 0, :, None] * Bm[:, 0])[..., None] * \
         xv[:, 0].to(f32)[..., None, :]                          # (B,H,N,hd)
     h = decay[..., None] * state + inj
     y = torch.einsum("bhn,bhnd->bhd", Cm[:, 0], h).to(x.dtype)
-    return _mamba_out(params, x, y[:, None], xv, z), h
-
-
-# ------------------------------------------ states over a process mesh --
-
-
-def _leaves_map(fn, state, *rest):
-    if isinstance(state, dict):
-        return {k: fn(v, *(r[k] for r in rest)) for k, v in state.items()}
-    return fn(state, *rest)
-
-
-def gathered_state(state, mesh, heads: int):
-    """A recurrent state (a tensor or a dict of them, dim 1 the heads) as
-    this rank holds it under the JAX rules (``sharding.cache_placements``:
-    its block of the ``heads`` over ``"model"`` where they divide) made
-    whole for the step, which computes with every head (as the sharded
-    train step computes the SSM cells gathered)."""
-    def leaf(t):
-        if t.shape[1] == heads:
-            return t
-        return autodiff.leave(mesh, t.contiguous(), MODEL, 1)
-
-    return _leaves_map(leaf, state)
-
-
-def state_block(new, held, mesh):
-    """This rank's block of the whole new state ``new``, shaped as the
-    block ``held`` it replaces (dim 1: its heads over ``"model"``)."""
-    def leaf(t, h):
-        if t.shape[1] == h.shape[1]:
-            return t
-        n = h.shape[1]
-        return t.narrow(1, mesh.group_rank(MODEL, mesh.rank) * n, n)
-
-    return _leaves_map(leaf, new, held)
+    return _mamba_out(params, x, y[:, None], xv, z, mesh), h
 
 
 # ------------------------------------------------------------------ mLSTM --
@@ -186,10 +181,11 @@ def mlstm_specs(cfg: ModelConfig) -> Dict:
     )
 
 
-def mlstm_init_state(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
+def mlstm_init_state(cfg: ModelConfig, batch: int, device="cuda",
+                     heads: Optional[int] = None) -> Dict:
     """``C`` (batch, H, hd, hd), ``n`` (batch, H, hd), ``m`` (batch, H),
-    f32; m starts at -1e30."""
-    H, hd = cfg.num_heads, cfg.hd
+    f32; m starts at -1e30.  ``heads``: H (default ``cfg.num_heads``)."""
+    H, hd = heads or cfg.num_heads, cfg.hd
     device = resolve_device(device)
     return dict(C=torch.zeros((batch, H, hd, hd), dtype=f32, device=device),
                 n=torch.zeros((batch, H, hd), dtype=f32, device=device),
@@ -199,7 +195,7 @@ def mlstm_init_state(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
 def _mlstm_inputs(params, cfg: ModelConfig, x: torch.Tensor):
     dt_ = x.dtype
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.hd
+    H, hd = params["wi"].shape[-1], cfg.hd
     q = (x @ params["wq"].to(dt_)).reshape(B, S, H, hd)
     k = (x @ params["wk"].to(dt_)).reshape(B, S, H, hd) / torch.sqrt(
         torch.tensor(hd, dtype=f32)).to(dt_)
@@ -217,22 +213,25 @@ def _headwise_rmsnorm(y: torch.Tensor, w: torch.Tensor,
     return (y32 * torch.rsqrt(var + eps) * w.to(f32)).to(y.dtype)
 
 
-def _mlstm_out(params, x: torch.Tensor, y: torch.Tensor, o: torch.Tensor):
+def _mlstm_out(params, x: torch.Tensor, y: torch.Tensor, o: torch.Tensor,
+               mesh):
     """y (B, S, H, hd) → head-wise norm, output gate, projection."""
     B, S, H, hd = y.shape
     y = _headwise_rmsnorm(y, params["norm"]).reshape(B, S, H * hd)
-    return (y * o.reshape(B, S, H * hd)) @ params["wo"].to(x.dtype)
+    return _out(y * o.reshape(B, S, H * hd), params["wo"].to(x.dtype), mesh)
 
 
 def mlstm_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  state: Optional[Dict] = None, *, chunk: int = 256
-                  ) -> Tuple[torch.Tensor, Dict]:
-    """Chunkwise-parallel mLSTM (stabilized log-space gates)."""
+                  state: Optional[Dict] = None, *, chunk: int = 256,
+                  mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """Chunkwise-parallel mLSTM (stabilized log-space gates); ``mesh``:
+    head parallel over its ``"model"`` axis (module docstring)."""
     B, S, _ = x.shape
     dt_ = x.dtype
+    x = _enter(x, mesh)
     q, k, v, o, ig, fg = _mlstm_inputs(params, cfg, x)
-    st = (mlstm_init_state(cfg, B, device=x.device) if state is None
-          else state)
+    st = (mlstm_init_state(cfg, B, x.device, heads=ig.shape[-1])
+          if state is None else state)
     C0, n0, m0 = st["C"], st["n"], st["m"]
     c = min(chunk, S)
     pad = -S % c
@@ -273,12 +272,14 @@ def mlstm_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                                   decay_all, kc)
         m0 = mT
     y = torch.cat(ys, dim=1)[:, :S]
-    return _mlstm_out(params, x, y, o), dict(C=C0, n=n0, m=m0)
+    return _mlstm_out(params, x, y, o, mesh), dict(C=C0, n=n0, m=m0)
 
 
 def mlstm_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-               state: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Single-token recurrent mLSTM update."""
+               state: Dict, *, mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """Single-token recurrent mLSTM update; ``mesh`` as
+    :func:`mlstm_forward`'s."""
+    x = _enter(x, mesh)
     q, k, v, o, ig, fg = _mlstm_inputs(params, cfg, x)
     q1, k1, v1 = (a[:, 0].to(f32) for a in (q, k, v))
     i1, f1 = ig[:, 0], fg[:, 0]
@@ -292,7 +293,7 @@ def mlstm_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     nrm = torch.einsum("bhd,bhd->bh", q1, n)
     denom = torch.maximum(nrm.abs(), torch.exp(-m_new))[..., None]
     y = (y / denom).to(x.dtype)[:, None]                     # (B, 1, H, hd)
-    return _mlstm_out(params, x, y, o), dict(C=C, n=n, m=m_new)
+    return _mlstm_out(params, x, y, o, mesh), dict(C=C, n=n, m=m_new)
 
 
 # ------------------------------------------------------------------ sLSTM --
@@ -311,13 +312,17 @@ def slstm_specs(cfg: ModelConfig) -> Dict:
         p[f"b{g}"] = ParamSpec((inner,), (MODEL,),
                                init="ones" if g == "f" else "zeros")
     p["norm"] = ParamSpec((hd,), (None,), init="ones")
+    # as in the JAX package, the out-projection takes the name of the
+    # output gate's weight: one (inner, D) leaf serves both (D == inner)
     p["wo"] = ParamSpec((inner, D), (MODEL, "data"))
     return p
 
 
-def slstm_init_state(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
-    """``c``, ``n``, ``h`` zeros and ``m`` -1e30, each (batch, H, hd) f32."""
-    H, hd = cfg.num_heads, cfg.hd
+def slstm_init_state(cfg: ModelConfig, batch: int, device="cuda",
+                     heads: Optional[int] = None) -> Dict:
+    """``c``, ``n``, ``h`` zeros and ``m`` -1e30, each (batch, H, hd) f32;
+    ``heads``: H (default ``cfg.num_heads``)."""
+    H, hd = heads or cfg.num_heads, cfg.hd
     device = resolve_device(device)
 
     def full(v):
@@ -327,16 +332,23 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
 
 
 def slstm_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+                  state: Optional[Dict] = None, *, mesh=None
+                  ) -> Tuple[torch.Tensor, Dict]:
     """A step loop over the sequence: the hidden state feeds back into
     the gates through R, so the steps run one after another (one host
-    iteration a token)."""
+    iteration a token); ``mesh``: head parallel over its ``"model"`` axis
+    (module docstring; R is block diagonal by head, so the loop needs no
+    other rank's heads)."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.hd
+    H, hd = params["ri"].shape[0], cfg.hd
     dt_ = x.dtype
-    st = (slstm_init_state(cfg, B, device=x.device) if state is None
+    x = _enter(x, mesh)
+    st = (slstm_init_state(cfg, B, x.device, heads=H) if state is None
           else state)
-    pre = [((x @ params[f"w{g}"].to(dt_)).to(f32) + params[f"b{g}"])
+    w = {g: params[f"w{g}"] for g in GATES}
+    if mesh is not None:
+        w["o"] = _gate_columns(w["o"], mesh)
+    pre = [((x @ w[g].to(dt_)).to(f32) + params[f"b{g}"])
            .reshape(B, S, H, hd) for g in GATES]
     # the four recurrent matrices side by side: one (H, hd, 4 hd) product
     R = torch.cat([params[f"r{g}"].to(f32) for g in GATES], dim=-1)
@@ -360,9 +372,25 @@ def slstm_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         hs.append(h.to(dt_))
     y = torch.stack(hs, dim=1)                                # (B, S, H, hd)
     y = _headwise_rmsnorm(y, params["norm"]).reshape(B, S, H * hd)
-    return y @ params["wo"].to(dt_), dict(c=c, n=n, h=h, m=m)
+    return _out(y, params["wo"].to(dt_), mesh), dict(c=c, n=n, h=h, m=m)
+
+
+def _gate_columns(wo: torch.Tensor, mesh) -> torch.Tensor:
+    """The output gate's columns of this rank's heads, (D, inner / M),
+    from ``wo``, this rank's row block (inner / M, D) of the leaf the
+    gate shares with the out-projection (:func:`slstm_specs`): each
+    member sends member j the block of columns j of its rows — an
+    all-to-all over ``"model"`` (its backward the reverse exchange); no
+    member gathers the whole leaf."""
+    M = mesh.size(MODEL)
+    n, D = wo.shape
+    if D != n * M:
+        raise ValueError(f"sLSTM's shared wo block {tuple(wo.shape)}: its "
+                         f"gate needs D == inner over {M} 'model' members")
+    blocks = wo.reshape(n, M, n).transpose(0, 1).unsqueeze(0).contiguous()
+    return autodiff.all_to_all(mesh, blocks, MODEL).reshape(M * n, n)
 
 
 def slstm_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-               state: Dict) -> Tuple[torch.Tensor, Dict]:
-    return slstm_forward(params, cfg, x, state)
+               state: Dict, *, mesh=None) -> Tuple[torch.Tensor, Dict]:
+    return slstm_forward(params, cfg, x, state, mesh=mesh)

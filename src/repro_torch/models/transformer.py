@@ -44,9 +44,11 @@ axes, dim 1 — slots or recurrent-state heads — over ``"model"`` where it
 divides, else whole); attention reads it as ``models.attention`` says
 (a prefill from position 0 over its own keys, any other call through
 K6's partials merged over ``"model"``; a cache whose slots do not divide
-whole on every rank), the recurrent cells gather their states for the
-step and keep their block after, and the logits come back whole (every
-row, every vocabulary block), as the JAX package's
+whole on every rank), the recurrent cells compute their own heads on
+their head block of the state where the heads divide over ``"model"``
+(their plan's ``"tp"``; the rules split a state's heads only there) and
+every head on the whole state elsewhere, and the logits come back whole
+(every row, every vocabulary block), as the JAX package's
 ``out_shardings=None`` returns them.
 
 Rematerialization (``remat``): "none" keeps every layer's activations
@@ -250,24 +252,6 @@ def _store(dst, new) -> None:
         dst.copy_(new)
 
 
-def _state(cache, key: str, cfg: ModelConfig, mesh):
-    """The layer's recurrent state for its step: whole (over a
-    ``ProcessMesh`` its head blocks gathered, ``ssm.gathered_state``)."""
-    if cache is None:
-        return None
-    if mesh is None:
-        return cache[key]
-    return ssm.gathered_state(cache[key], mesh, cfg.num_heads)
-
-
-def _store_state(cache, key: str, new, mesh) -> None:
-    """Write the step's new state into the cache in place (over a
-    ``ProcessMesh`` this rank's head block of it)."""
-    if mesh is not None:
-        new = ssm.state_block(new, cache[key], mesh)
-    _store(cache[key], new)
-
-
 # ------------------------------------------------------------------ block --
 
 
@@ -295,6 +279,9 @@ def _aux_add(a, b):
 
 #: the head-repeat branch's leaves each rank uses a part of
 REPEAT_PARTIAL = ("wk", "wv", "bk", "bv")
+#: the head-parallel cells' leaves every head uses (the head-wise norm's
+#: weight, whole on every rank): each rank's use is its heads'
+SSM_PARTIAL = ("norm",)
 
 
 def layer_plan(cfg: ModelConfig, kind: str, mesh, T_kv: int
@@ -314,8 +301,9 @@ def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """One layer's blocks on this rank as its compute uses them, and the
     layer's plan (:func:`layer_plan`): each part's leaves gathered over
     their axes (``sharding.gathered``) but ``"model"`` where the part
-    runs tensor parallel; the MoE part as the a2a takes it
-    (``models.moe``).  ``split``: the layer's cache is a block of slots
+    runs tensor parallel (a leaf each rank uses a part of, ``partial``:
+    the head-repeat branch's keys and values, a head-parallel cell's
+    norm weight); the MoE part as the a2a takes it (``models.moe``).  ``split``: the layer's cache is a block of slots
     (:func:`slots_split`)."""
     T_kv = x.shape[1]
     if cache is not None and "kv" in cache:
@@ -326,7 +314,11 @@ def _rank_layer(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     for part, mode in plan.items():
         if part not in params:          # the shared expert: in "moe"
             continue
-        partial = REPEAT_PARTIAL if mode == "repeat" else ()
+        partial = ()
+        if mode == "repeat":
+            partial = REPEAT_PARTIAL
+        elif mode == "tp" and part in ("mamba", "cell"):
+            partial = SSM_PARTIAL
         keep = (MODEL,) if mode in ("tp", "repeat") else ()
         out[part] = {k: sharding.gathered(
             v, specs[part][k], mesh, cfg.sharding_profile,
@@ -356,11 +348,13 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     window = cfg.sliding_window if kind in ("attn_local", "moe_local",
                                             "hymba") else 0
     mesh = sharding.rank_mesh()
-    att_tp = mlp_mesh = None
+    att_tp = mlp_mesh = ssm_mesh = None
     if mesh is not None:
         params, plan = _rank_layer(params, cfg, kind, x, cache, mesh, split)
         att_tp = plan.get("attn") if plan.get("attn") != "gather" else None
         mlp_mesh = mesh if plan.get("mlp") == "tp" else None
+        ssm_mesh = mesh if "tp" in (plan.get("mamba"),
+                                    plan.get("cell")) else None
 
     if kind in ATTN_KINDS:
         h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -387,13 +381,14 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
             prefix_len=prefix_len,
             cache=None if cache is None else cache["kv"], tp=att_tp,
             split=split, fresh=fresh)
-        state = _state(cache, "ssm", cfg, mesh)
-        if decode:
-            m, s_new = ssm.mamba_step(params["mamba"], cfg, h, state)
-        else:
-            m, s_new = ssm.mamba_forward(params["mamba"], cfg, h, state)
+        # the state as the cache holds it: over a ProcessMesh this rank's
+        # head block where the heads divide (ssm_mesh), else whole
+        fn = ssm.mamba_step if decode else ssm.mamba_forward
+        m, s_new = fn(params["mamba"], cfg, h,
+                      None if cache is None else cache["ssm"],
+                      mesh=ssm_mesh)
         if cache is not None:
-            _store_state(cache, "ssm", s_new, mesh)
+            _store(cache["ssm"], s_new)
         beta = params["beta"].to(dt)
         x = x + 0.5 * (beta[0] * a + beta[1] * m)
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
@@ -401,14 +396,15 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
     if kind in XLSTM_KINDS:
         h = rms_norm(x, params["norm1"], cfg.norm_eps)
-        state = _state(cache, "state", cfg, mesh)
         if kind == "mlstm":
             fn = ssm.mlstm_step if decode else ssm.mlstm_forward
         else:
             fn = ssm.slstm_step if decode else ssm.slstm_forward
-        y, s_new = fn(params["cell"], cfg, h, state)
+        y, s_new = fn(params["cell"], cfg, h,
+                      None if cache is None else cache["state"],
+                      mesh=ssm_mesh)
         if cache is not None:
-            _store_state(cache, "state", s_new, mesh)
+            _store(cache["state"], s_new)
         x = x + y
         if cfg.d_ff:
             h = rms_norm(x, params["norm2"], cfg.norm_eps)

@@ -11,22 +11,23 @@ import numpy as np
 import torch
 
 from repro_torch import interop
-from repro_torch.configs import get_arch
 from repro_torch.distributed import autodiff, sharding
 from repro_torch.distributed.mesh import ProcessMesh
 from repro_torch.models import moe, transformer
 from repro_torch.models.params import ParamSpec, init_blocks, tree_leaves
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import train_step as ts_mod
+from tests.tp_serving_ranks import reduced
 
 CPU = "cpu"
 OCFG = dict(warmup_steps=1, total_steps=10)
 
 
 def step_cfg(arch, profile="2d", cf=8.0):
-    """The reduced ``arch`` in f32 under ``profile``; a MoE config with the
-    a2a at capacity factor ``cf``."""
-    cfg = dataclasses.replace(get_arch(arch).reduced, compute_dtype="float32",
+    """The reduced ``arch`` (or variant, ``tp_serving_ranks.VARIANTS``) in
+    f32 under ``profile``; a MoE config with the a2a at capacity factor
+    ``cf``."""
+    cfg = dataclasses.replace(reduced(arch), compute_dtype="float32",
                               sharding_profile=profile)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(

@@ -5,6 +5,7 @@ traces under fake tensors, a lone ``Linear``'s FLOPs and argument bytes
 are exact, failures and skips are recorded, and the roofline reads the
 artifacts with the H100's peaks."""
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -309,41 +310,154 @@ def test_roofline_reads_the_multi_mesh_artifacts(tmp_path, monkeypatch):
 
 
 CENSUS_AXES = dict(data=2, model=2)
-CENSUS = dict(arch="gemma3-27b", train=(16, 4), decode=(24, 4))
+#: the reduced archs the census runs: (seq_len, global batch) of the train
+#: and decode cells; xlstm's 2 heads run head parallel over "model"
+CENSUS = {"gemma3-27b": dict(train=(16, 4), decode=(24, 4)),
+          "xlstm-125m": dict(train=(16, 4), decode=(24, 4))}
+CENSUS_CELLS = [(a, k) for a in CENSUS for k in ("train", "decode")]
 
 
 @pytest.fixture(scope="module")
 def census_ranks(tmp_path_factory):
     """Four gloo ranks' collectives in one sharded step and one decode
-    step of a reduced config (``tests/tp_serving_ranks.census_cases``)."""
+    step of each reduced config of ``CENSUS``
+    (``tests/tp_serving_ranks.census_cases``), in one spawn."""
     from tests import tp_serving_ranks as rk
 
-    return run_ranks(rk.census_cases, 4, args=(
-        CENSUS["arch"], CENSUS_AXES, CENSUS["train"], CENSUS["decode"]),
-        device="cpu", transport="gloo", timeout=150.0,
-        workdir=str(tmp_path_factory.mktemp("census-ranks")))
+    cases = [(a, CENSUS_AXES, c["train"], c["decode"])
+             for a, c in CENSUS.items()]
+    return run_ranks(rk.census_cases, 4, args=(cases,), device="cpu",
+                     transport="gloo", timeout=150.0,
+                     workdir=str(tmp_path_factory.mktemp("census-ranks")))
 
 
-@pytest.mark.parametrize("kind", ["train", "decode"])
-def test_trace_mesh_census_equals_the_ranks(census_ranks, kind):
-    """The dry run's trace of rank 0 on a ``TraceMesh`` of (data 2, model
-    2) counts the collectives — by kind, count and bytes — that four
-    gloo ranks issue for the same call on their blocks; every rank
-    issues the same ones."""
+def _trace_census(arch, kind):
+    """The dry run's trace of rank 0 on a ``TraceMesh`` of CENSUS_AXES:
+    its census and its all-gathers' blocks (``gather_log``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    cfg = get_arch(CENSUS["arch"]).reduced
-    S, B = CENSUS[kind]
+    from tests import tp_serving_ranks as rk
+
+    cfg = rk.reduced(arch)
+    S, B = CENSUS[arch][kind]
     mesh = TraceMesh(CENSUS_AXES)
+    gathers = rk.gather_log(mesh)
     with FakeTensorMode(), dryrun.card_attention():
         fn, args = dryrun.build_mesh_cell(cfg, Shape("census", S, B, kind),
                                           mesh)
         dryrun.measure(fn, *args)
-    want = mesh.census()
+    return mesh.census(), gathers
+
+
+_traced = functools.lru_cache(maxsize=None)(_trace_census)
+
+
+@pytest.mark.parametrize("arch,kind", CENSUS_CELLS)
+def test_trace_mesh_census_equals_the_ranks(census_ranks, arch, kind):
+    """The dry run's trace of rank 0 on a ``TraceMesh`` of (data 2, model
+    2) counts the collectives — by kind, count and bytes — that four
+    gloo ranks issue for the same call on their blocks; every rank
+    issues the same ones."""
+    want, _ = _traced(arch, kind)
     assert want["all-gather"]["count"] > 0, want
     for o in census_ranks:
-        assert o[kind] == want, (kind, o["rank"])
+        assert o[arch][kind] == want, (arch, kind, o["rank"])
     if kind == "train":
         assert want["all-to-all"]["count"] > 0     # FSDP's reduce-scatter
     got = {k: v["bytes"] for k, v in want.items()}
     assert got["all-reduce"] == 0 and np.isfinite(sum(got.values()))
+
+
+def _ssm_gather_blocks(kind):
+    """The blocks ((shape, dtype) as they go out, ``gather_log``) a rank
+    of CENSUS_AXES would all-gather over "model" to compute the reduced
+    xlstm's cells with every head: in the train step each cell leaf's
+    "model" dim, gathered as ``sharding.gathered`` gathers (its dims in
+    order, "data" over FSDP); in decode each recurrent-state leaf's head
+    block (dim 1)."""
+    from repro_torch.distributed.mesh import ShardMesh
+    from repro_torch.distributed import sharding
+    from tests import tp_serving_ranks as rk
+
+    cfg = rk.reduced("xlstm-125m")
+    mesh = ShardMesh(device="cpu", axes=CENSUS_AXES)
+    out = set()
+
+    def moved(shape, dim, dtype):
+        rest = shape[:dim] + shape[dim + 1:]
+        return (1, shape[dim]) + tuple(rest), dtype
+
+    if kind == "train":
+        specs = transformer.model_specs(cfg)
+        place = sharding.train_placements(specs, mesh, cfg)
+        for layer, lp in zip(specs["layers"], place["layers"]):
+            for name, s in layer["cell"].items():
+                cur = [sl.stop - sl.start for sl in sharding.block_slices(
+                    s.shape, lp["cell"][name], mesh, shard=0)]
+                for dim, a in enumerate(lp["cell"][name]):
+                    if a == "model":
+                        out.add(moved(cur, dim, "torch.float32"))
+                    if a is not None:
+                        cur[dim] = s.shape[dim]
+        return out
+    cache = transformer.init_cache(cfg, CENSUS["xlstm-125m"]["decode"][1],
+                                   CENSUS["xlstm-125m"]["decode"][0],
+                                   torch.bfloat16, "meta",
+                                   mesh=TraceMesh(CENSUS_AXES))
+    for layer in cache:
+        for t in layer["state"].values():
+            out.add(moved(list(t.shape), 1, str(t.dtype)))
+    return out
+
+
+def _sent_over_model(gathers):
+    return {(tuple(shape), dtype) for axes, shape, dtype in gathers
+            if tuple(axes) == ("model",)}
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_head_parallel_cells_gather_no_leaf_or_state(census_ranks, kind,
+                                                     monkeypatch):
+    """The reduced xlstm over (data 2, model 2), its 2 heads one a rank:
+    the train step gathers no cell leaf over "model" and decode gathers
+    no recurrent-state leaf, on the ranks and in the dry run's trace —
+    every "model" all-gather is a sum's or the logits'.  The blocks
+    looked for are the ones such a gather sends: the same train trace
+    with the cells' plan forced to "gather" sends each cell leaf's, and
+    ``autodiff.leave`` of each state leaf over "model" sends its."""
+    from repro_torch.distributed import autodiff, sharding
+    from tests import tp_serving_ranks as rk
+
+    ssm = _ssm_gather_blocks(kind)
+    assert ssm
+    _, traced = _traced("xlstm-125m", kind)
+    for gathers in [traced] + [o["xlstm-125m"][f"{kind}_gathers"]
+                               for o in census_ranks]:
+        over_model = _sent_over_model(gathers)
+        assert over_model and not over_model & ssm, (kind, over_model & ssm)
+    for o in census_ranks:
+        assert {p["cell"] for k, p in o["xlstm-125m"]["plan"].items()
+                if k != "embed"} == {"tp"}
+    if kind == "train":
+        tp_plan = sharding.tp_plan
+
+        def gathered_cells(cfg, mesh):
+            plan = tp_plan(cfg, mesh)
+            for p in plan.values():
+                if "cell" in p:
+                    p["cell"] = "gather"
+            return plan
+
+        monkeypatch.setattr(sharding, "tp_plan", gathered_cells)
+        _, sent = _trace_census("xlstm-125m", kind)
+    else:
+        mesh = TraceMesh(CENSUS_AXES)
+        sent = rk.gather_log(mesh)
+        S, B = CENSUS["xlstm-125m"]["decode"]
+        cache = transformer.init_cache(rk.reduced("xlstm-125m"), B, S,
+                                       torch.bfloat16, "meta", mesh=mesh)
+        for layer in cache:
+            for t in layer["state"].values():
+                autodiff.leave(mesh, t, "model", 1)
+    assert _sent_over_model(sent) & ssm == ssm, (
+        kind, ssm - _sent_over_model(sent))

@@ -835,11 +835,14 @@ def test_chip_smoke_model_mesh_phase_rehearses_on_cpu(monkeypatch):
 def test_chip_smoke_tensor_parallel_phase_rehearses_on_cpu(monkeypatch):
     """chip_smoke's phase 19 runs end to end on the CPU's plain versions
     at reduced sizes in one spawn of 4 gloo ranks: (a) the reduced
-    gemma3-27b over (model 4) (the head-repeat branch) and (b) the reduced
-    smollm-135m over (data 2, model 2), each rank holding only its blocks,
-    held to the one-process step through the reference's files in f32
-    and in bf16 compute; (c) the reduced cases' checks (against the same
-    ranks, the CPU's)."""
+    gemma3-27b over (model 4) (the head-repeat branch), (b) the reduced
+    smollm-135m over (data 2, model 2) and (c') the reduced xlstm-125m
+    over (model 4), each rank holding only its blocks, held to the
+    one-process step through the reference's files in f32 and in bf16
+    compute ((c') at its own 2 x 512 tokens: at the reduced width bf16's
+    grad norm over 2 x 32 is within its rounding, ~1e-3, of the bound);
+    (c) the reduced cases' checks (against the same ranks, the CPU's),
+    the head-parallel xlstm and 4-head hymba among them."""
     monkeypatch.syspath_prepend(str(ROOT))
     monkeypatch.syspath_prepend(str(ROOT / "src"))
     import chip_smoke
@@ -859,13 +862,16 @@ def test_chip_smoke_tensor_parallel_phase_rehearses_on_cpu(monkeypatch):
         torch.set_num_threads(threads)
     t = chip_smoke.TP
     assert t["world_size"] == 4 and t["transport"] == "gloo"
-    for w in ("gemma", "smollm"):
+    for w in ("gemma", "smollm", "xlstm"):
         assert all(e < t[w]["whole_elements"] for e in t[w]["elements"])
         assert set(t[w]["runs"]) == {"float32", "bfloat16"}
         for run in t[w]["runs"].values():
             assert max(run["param_err"]) <= 2.5 * run["lr"]
     assert set(t["small"]) == {"gemma3-27b", "deepseek-v3-671b",
-                               "qwen1.5-110b"}
+                               "qwen1.5-110b", "xlstm-125m", "hymba-h4"}
+    for arch in ("xlstm-125m", "hymba-h4"):
+        assert chip_smoke._ssm_modes(t["small"][arch]["plan"]) == {"tp"}
+    assert chip_smoke._ssm_modes(t["xlstm"]["plan"]) == {"tp"}
     assert t["dropped_pairs"] > 0
     assert not any(launches.values())                # plain versions
 
@@ -909,13 +915,14 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
     """chip_smoke's phase 20 runs end to end on the CPU's plain versions
     at reduced sizes in one spawn of 4 gloo ranks: (a) the reduced
     gemma3-27b cut to one local and one global layer and (b) the reduced
-    deepseek-v3 cut to two dense MLA layers, over (model 4), each rank
-    holding only its blocks of the parameters and the cache, held to the
-    one-process run in f32 (greedy tokens equal) and bf16 compute; (e)
+    deepseek-v3 cut to two dense MLA layers and (g) the reduced
+    xlstm-125m, over (model 4), each rank holding only its blocks of the
+    parameters and the cache, held to the one-process run in f32 (greedy
+    tokens equal; (g)'s final state blocks too) and bf16 compute; (e)
     and (f) the same with the prompt prefilled in two chunks, (e)'s
-    26-slot global cache whole on every rank; (c) every reduced family in
-    each case (both meshes, a cache whole on the ranks, a chunked
-    prefill) against the same ranks."""
+    26-slot global cache whole on every rank; (c) every reduced family and
+    the 4-head hymba in each case (both meshes, a cache whole on the
+    ranks, a chunked prefill) against the same ranks."""
     monkeypatch.syspath_prepend(str(ROOT))
     monkeypatch.syspath_prepend(str(ROOT / "src"))
     import chip_smoke
@@ -928,6 +935,8 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "SV_DEEPSEEK", dict(
         chip_smoke.SV_DEEPSEEK, prompt=12, ticks=4, max_len=16,
         chunked=dict(max_len=16, chunks=(6, 6), ticks=4)))
+    monkeypatch.setattr(chip_smoke, "SV_XLSTM", dict(
+        chip_smoke.SV_XLSTM, prompt=12, ticks=4, max_len=16))
     monkeypatch.setattr(chip_smoke, "SV_SMALL", dict(
         chip_smoke.SV_SMALL, ticks=2))
     monkeypatch.setattr(chip_smoke, "SV", {})
@@ -939,13 +948,21 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
         torch.set_num_threads(threads)
     s = chip_smoke.SV
     assert s["world_size"] == 4 and s["transport"] == "gloo"
-    for w in ("gemma", "deepseek"):
+    for w in ("gemma", "deepseek", "xlstm"):
         assert all(g < s[w]["whole_gib"] for g in s[w]["gib"])
         for c, run in s[w]["runs"].items():
             assert max(run["logit_err"]) <= run["tolerance"] * run[
                 "largest_logit"]
             assert all(g < s[w]["whole_cache_gib"][c]
                        for g in (x[c] for x in s[w]["cache_gib"]))
+    assert set(s["xlstm"]["runs"]) == {"float32", "bfloat16"}
+    assert s["xlstm"]["runs"]["float32"]["tokens_agree"] == 1.0
+    for st in s["xlstm"]["runs"]["float32"]["state"]:
+        assert len(st) == 7 and all(x["err"] <= 1e-5 * x["scale"]
+                                    for x in st)
+    assert s["xlstm"]["split"]["float32"] == [False, False]
+    assert chip_smoke._ssm_modes(s["xlstm"]["plan"]) == {"tp"}
+    for w in ("gemma", "deepseek"):
         assert set(s[w]["runs"]) == {"float32", "bfloat16",
                                      "chunked float32", "chunked bfloat16"}
         for c in ("float32", "chunked float32"):
@@ -954,7 +971,8 @@ def test_chip_smoke_serving_ranks_phase_rehearses_on_cpu(monkeypatch):
         assert ch["logit_err"] <= ch["tolerance"] * ch["largest_logit"]
     assert s["gemma"]["split"]["chunked float32"] == [True, False]
     assert s["deepseek"]["split"]["chunked float32"] == [True, True]
-    assert len(s["small"]["archs"]) == 10
+    assert len(s["small"]["archs"]) == 11 and "hymba-h4" in s["small"][
+        "archs"]
     assert [c["case"] for c in s["small"]["cases"]] == ["dm", "m4", "U",
                                                        "C"]
     assert partials == {} and not any(launches.values())   # plain versions

@@ -270,7 +270,8 @@ def test_tp_plan_follows_heads_widths_and_the_profile(arch):
     split where the KV heads divide over "model", the head-repeat branch
     where only the query heads do (the JAX gate), else gathers; MLA splits
     where its heads divide; an MLP or the vocabulary is tensor parallel
-    where its width divides; SSM cells are gathered."""
+    where its width divides; hymba's mamba part and the xLSTM cells are
+    head parallel where their heads divide, else gathered."""
     cfg = get_arch(arch).reduced
     for axes in (dict(data=2, model=2), dict(model=4), dict(data=4)):
         for profile in PROFILES:
@@ -301,7 +302,9 @@ def test_tp_plan_follows_heads_widths_and_the_profile(arch):
                     assert p["mlp"] == ("tp" if width % M == 0
                                         else "gather"), (arch, kind)
                 for part in ("mamba", "cell"):
-                    assert p.get(part, "gather") == "gather"
+                    assert p.get(part, "gather") == (
+                        "tp" if part in p and H % M == 0
+                        else "gather"), (arch, axes, kind, p)
             assert plan["embed"]["vocab"] == (
                 "tp" if c.vocab_size % M == 0 else "gather")
 
@@ -365,3 +368,70 @@ def test_a_rank_cache_keeps_its_placements_through_the_tree_maps():
         assert type(moved) is transformer.RankCache
         assert moved.placements is cache.placements
         assert transformer.slots_split(moved, mesh) == want
+
+
+def _variant(arch):
+    from tests import tp_serving_ranks as srk
+
+    return srk.reduced(arch)
+
+
+@pytest.mark.parametrize("arch,size,axes,profile,want", [
+    ("xlstm-125m", "published", dict(model=4), "2d", "tp"),
+    ("xlstm-125m", "published", dict(data=2, model=2), "2d", "tp"),
+    ("xlstm-125m", "reduced", dict(data=2, model=2), "2d", "tp"),
+    ("hymba-h4", "reduced", dict(data=2, model=2), "2d", "tp"),
+    ("hymba-h4", "reduced", dict(model=4), "2d", "tp"),
+    ("hymba-1.5b", "published", dict(model=4), "2d", "gather"),
+    ("xlstm-125m", "reduced", dict(model=4), "2d", "gather"),
+    ("xlstm-125m", "published", dict(model=4), "dp", "gather"),
+    ("hymba-h4", "reduced", dict(data=2, model=2), "dp", "gather"),
+    ("xlstm-125m", "published", dict(data=16, model=16), "2d", "gather"),
+    ("xlstm-125m", "published", dict(pod=2, data=16, model=16), "2d",
+     "gather"),
+    ("xlstm-125m", "published", dict(data=4), "2d", "gather"),
+])
+def test_tp_plan_runs_ssm_heads_parallel_where_they_divide(arch, size, axes,
+                                                           profile, want):
+    """``tp_plan`` gives hymba's ``"mamba"`` part and the xLSTM ``"cell"``
+    ``"tp"`` exactly where "model" is active under the profile, has
+    several members and divides the heads (xlstm-125m's 4 over 4 and 2;
+    the reduced xlstm's 2 over 2; the 4-head hymba variant over 2 and 4),
+    else ``"gather"`` (hymba-1.5b's 25 heads over 4, the reduced xlstm's
+    2 over 4, anything under "dp", 4 heads over 16); where "tp", every
+    "model" block of their leaves is whole heads under the rules'
+    placement."""
+    cfg = (get_arch(arch).config if size == "published"
+           else _variant(arch))
+    cfg = dataclasses.replace(cfg, sharding_profile=profile)
+    plan = sharding.tp_plan(cfg, axes)
+    parts = {(k, part): p[part] for k, p in plan.items()
+             for part in ("mamba", "cell") if part in p}
+    assert parts and set(parts.values()) == {want}, (arch, axes, plan)
+    if want != "tp":
+        return
+    M, H = axes["model"], cfg.num_heads
+    specs = transformer.model_specs(cfg)
+    place = sharding.param_placements(specs, axes, profile)
+    for i, kind in enumerate(cfg.all_layers()):
+        part = "mamba" if "mamba" in specs["layers"][i] else "cell"
+        for name, s in specs["layers"][i][part].items():
+            p = place["layers"][i][part][name]
+            for dim, a in enumerate(s.spec):
+                if a != "model":
+                    continue
+                assert p[dim] == "model", (kind, name, p)
+                n = s.shape[dim]
+                assert n % H == 0 and (n // M) % (n // H) == 0, (kind, name)
+
+
+def test_tp_plan_refuses_ssm_blocks_that_are_not_whole_heads():
+    """The plan's check: an SSM leaf whose "model" dim is not whole heads
+    in every block (here 6 columns for 4 heads) raises; one of whole
+    heads passes."""
+    sizes = dict(model=2)
+    sharding._check_head_blocks(
+        dict(w=ParamSpec((4, 8), ("data", "model"))), 4, 2, sizes, "2d")
+    with pytest.raises(ValueError, match="whole heads"):
+        sharding._check_head_blocks(
+            dict(w=ParamSpec((4, 6), ("data", "model"))), 4, 2, sizes, "2d")

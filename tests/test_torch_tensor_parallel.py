@@ -14,9 +14,12 @@ router counts exact; the JAX step only where nothing drops, capacity 8):
   * reduced gemma3-27b on ``(data 2, model 2)`` (the plain head split) and
     ``(model 4)`` (the head-repeat branch, asserted taken); qwen1.5-110b
     (``qkv_bias``) on both; deepseek-v3 under ``"2d"`` (MLA, the dense and
-    shared MLPs, MTP) and ``"dp"`` (the boundary); hymba-1.5b and
-    xlstm-125m (their SSM leaves and a mid-head split gathered before
-    use); smollm-135m under ``"dp"`` (FSDP);
+    shared MLPs, MTP) and ``"dp"`` (the boundary); hymba-1.5b (its 5
+    mamba heads and a mid-head split gathered before use); xlstm-125m
+    (its 2 heads a rank each: the cells head parallel); the 4-head hymba
+    variant (``tp_serving_ranks.VARIANTS``) on both meshes, its mamba
+    heads split, its attention the plain split and the head-repeat
+    branch; smollm-135m under ``"dp"`` (FSDP);
   * for each: every rank's parameter and moment tensors have exactly their
     ``block_slices`` shapes; the forward's hidden states equal the
     in-process ones within 1e-5 of the largest magnitude; every rank's
@@ -58,6 +61,7 @@ from repro_torch.models.params import tree_leaves
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import train_step as ts_mod
 from tests import tensor_parallel_ranks as rk
+from tests import tp_serving_ranks as srk
 from tests.test_torch_model_mesh import _jax_a2a
 
 CPU = "cpu"
@@ -67,27 +71,38 @@ W = 4
 DM = dict(data=2, model=2)
 M4 = dict(model=4)
 GEMMA, DEEPSEEK, QWEN = "gemma3-27b", "deepseek-v3-671b", "qwen1.5-110b"
+HYMBA4 = "hymba-h4"      # the 4-head hymba (tp_serving_ranks.VARIANTS)
+# a case: its mesh, profile, capacity factor, and the modes its plan
+# gives attention and the SSM parts (None: the arch has none)
 STEPS = {
-    "gemma3-dm": dict(arch=GEMMA, axes=DM, profile="2d", cf=8.0, attn="tp"),
+    "gemma3-dm": dict(arch=GEMMA, axes=DM, profile="2d", cf=8.0, attn="tp",
+                      ssm=None),
     "gemma3-m4": dict(arch=GEMMA, axes=M4, profile="2d", cf=8.0,
-                      attn="repeat"),
-    "qwen-dm": dict(arch=QWEN, axes=DM, profile="2d", cf=8.0, attn="tp"),
+                      attn="repeat", ssm=None),
+    "qwen-dm": dict(arch=QWEN, axes=DM, profile="2d", cf=8.0, attn="tp",
+                    ssm=None),
     "qwen-m4": dict(arch=QWEN, axes=M4, profile="2d", cf=8.0,
-                    attn="repeat"),
+                    attn="repeat", ssm=None),
     "deepseek-2d": dict(arch=DEEPSEEK, axes=DM, profile="2d", cf=8.0,
-                        attn="tp"),
+                        attn="tp", ssm=None),
     "deepseek-dp": dict(arch=DEEPSEEK, axes=DM, profile="dp", cf=8.0,
-                        attn="gather"),
+                        attn="gather", ssm=None),
     "deepseek-dp-cf1.25": dict(arch=DEEPSEEK, axes=DM, profile="dp",
-                               cf=1.25, attn="gather"),
+                               cf=1.25, attn="gather", ssm=None),
     "hymba-dm": dict(arch="hymba-1.5b", axes=DM, profile="2d", cf=8.0,
-                     attn="gather"),
+                     attn="gather", ssm="gather"),
     "xlstm-dm": dict(arch="xlstm-125m", axes=DM, profile="2d", cf=8.0,
-                     attn=None),
+                     attn=None, ssm="tp"),
+    "hymba-h4-dm": dict(arch=HYMBA4, axes=DM, profile="2d", cf=8.0,
+                        attn="tp", ssm="tp"),
+    "hymba-h4-m4": dict(arch=HYMBA4, axes=M4, profile="2d", cf=8.0,
+                        attn="repeat", ssm="tp"),
     "smollm-dp": dict(arch="smollm-135m", axes=DM, profile="dp", cf=8.0,
-                      attn="gather"),
+                      attn="gather", ssm=None),
 }
 ARCHS = sorted({c["arch"] for c in STEPS.values()})
+#: the archs of the first cases, whose token draws come first from seed 0
+BASE_ARCHS = [a for a in ARCHS if a not in srk.VARIANTS]
 CE_MESHES = {"dm": DM, "m4": M4}
 V = 512                  # the reduced configs' vocabulary
 OCFG = dict(warmup_steps=1, total_steps=10)
@@ -97,7 +112,7 @@ OCFG = dict(warmup_steps=1, total_steps=10)
 def _jax_params(arch):
     """The JAX tree of the reduced ``arch``'s weights, drawn with NumPy
     from seed 0 leaf by leaf (``normal`` leaves at their spec's scale)."""
-    jcfg = dataclasses.replace(j_get_arch(arch).reduced,
+    jcfg = dataclasses.replace(srk.reduced(arch, j_get_arch),
                                compute_dtype="float32")
     rng = np.random.default_rng(0)
 
@@ -138,11 +153,13 @@ def _inputs():
     params = {a: _jax_params(a) for a in ARCHS}
     layer = {k: np.asarray(v)[0]
              for k, v in params[DEEPSEEK]["unit"][0]["moe"].items()}
+    variants = np.random.default_rng(1)
     return dict(
         steps=STEPS, params=params, layer=layer,
         x=rng.normal(size=(4, 16, 64)).astype(np.float32),
-        tokens={a: rng.integers(1, V, (4, 16)).astype(np.int32)
-                for a in ARCHS},
+        tokens={a: (rng if a in BASE_ARCHS else variants).integers(
+            1, V, (4, 16)).astype(np.int32)
+            for a in BASE_ARCHS + sorted(srk.VARIANTS)},
         ce=dict(logits=(rng.normal(size=(2, 8, V)) * 3).astype(np.float32),
                 labels={k: _ce_labels(m["model"])
                         for k, m in CE_MESHES.items()},
@@ -214,7 +231,7 @@ def _in_process(name):
 @functools.lru_cache(maxsize=None)
 def _jax_step(arch):
     """The JAX package's unsharded step (one device: the dense MoE)."""
-    jcfg = dataclasses.replace(j_get_arch(arch).reduced,
+    jcfg = dataclasses.replace(srk.reduced(arch, j_get_arch),
                                compute_dtype="float32")
     inputs = _inputs()
     p = jax.tree.map(jnp.asarray, inputs["params"][arch])
@@ -277,8 +294,9 @@ def test_ranks_hold_exactly_their_blocks(ranks, name):
 @pytest.mark.parametrize("name", list(STEPS))
 def test_layer_plan_is_the_cases(ranks, name):
     """The plan each rank ran: the case's attention mode (the head-repeat
-    branch where asserted), MLPs and vocabulary tensor parallel under
-    "2d" where their widths split, everything gathered under "dp"."""
+    branch where asserted) and SSM mode (head parallel where the heads
+    divide over "model"), MLPs and vocabulary tensor parallel under "2d"
+    where their widths split, everything gathered under "dp"."""
     _, out = ranks
     case = STEPS[name]
     for o in out:
@@ -286,6 +304,10 @@ def test_layer_plan_is_the_cases(ranks, name):
         assert plan == out[0]["steps"][name]["plan"]
         attn = {p.get("attn") for k, p in plan.items() if k != "embed"}
         assert attn == {case["attn"]}, (name, plan)
+        ssm = {p[part] for p in plan.values() for part in ("mamba", "cell")
+               if part in p}
+        assert ssm == ({case["ssm"]} if case["ssm"] else set()), (name,
+                                                                  plan)
         modes = {m for p in plan.values() for m in p.values()}
         if case["profile"] == "dp":
             assert modes == {"gather"}, (name, plan)

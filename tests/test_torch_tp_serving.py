@@ -14,7 +14,8 @@ cases (``tp_serving_ranks.SERVE``): "U", a cache of 23 slots on (data 2,
 model 2), whole on every rank of ``"model"`` but for the 16-slot rings;
 "C", on (model 4), the prompt prefilled as 8 positions and then 6 into
 the cache that holds them (paligemma: its image prefix, then its text).
-Held here:
+Besides the ten families, the 4-head hymba (``tp_serving_ranks.VARIANTS``)
+on both meshes ("dm" and "m4").  Held here:
 
   * the prefill's and every tick's logits (every row, every vocabulary
     block, on every rank) within 1e-5 of the largest magnitude, against
@@ -30,7 +31,10 @@ Held here:
   * decode attention from K6's partials of each rank's block of the
     slots, gathered over ``"model"`` and merged, bit for bit the
     one-process split form (``ref.split_attention``) where the rank
-    blocks are whole key splits.
+    blocks are whole key splits;
+  * the SSM parts (hymba's mamba, the xLSTM cells) run head parallel
+    on their head block of the state exactly where their heads divide
+    over ``"model"``, and are gathered elsewhere.
 """
 import concurrent.futures
 import dataclasses
@@ -60,8 +64,11 @@ TIMEOUT = 150.0          # seconds the spawn of the ranks may take, whole
 MESHES = {"dm": dict(data=2, model=2), "m4": dict(model=4)}
 ARCHS = ["deepseek-v3-671b", "gemma3-1b", "gemma3-27b", "hymba-1.5b",
          "llama4-scout-17b-a16e", "musicgen-medium", "paligemma-3b",
-         "qwen1.5-110b", "smollm-135m", "xlstm-125m"]
-CASES = [(a, c) for a in ARCHS for c in rk.SERVE]
+         "qwen1.5-110b", "smollm-135m", "xlstm-125m"] + sorted(rk.VARIANTS)
+CASES = [(a, c) for a in ARCHS for c in rk.SERVE
+         if a not in rk.VARIANTS or c in MESHES]
+SSM_CASES = [(a, c) for a, c in CASES
+             if a.startswith(("hymba", "xlstm"))]
 KPS = 32                 # the partials case's key split: T / M is whole
 
 j_prefill = jax.jit(jt.prefill, static_argnums=1)
@@ -104,7 +111,7 @@ def _partials_inputs():
 
 @functools.lru_cache(maxsize=None)
 def _inputs():
-    return dict(archs=ARCHS, meshes=MESHES,
+    return dict(cases=CASES, meshes=MESHES,
                 params={a: _jax_params(a) for a in ARCHS},
                 prompts={a: _prompt(a, i) for i, a in enumerate(ARCHS)},
                 partials=_partials_inputs())
@@ -137,7 +144,7 @@ def _jax(arch, max_len, chunks):
     """The JAX package's unsharded prefill of the same chunks and decode
     steps, fed the one-process port's greedy tokens: the logits, (ticks +
     1, B, V), and the cache after (NumPy)."""
-    jcfg = dataclasses.replace(j_get_arch(arch).reduced,
+    jcfg = dataclasses.replace(rk.reduced(arch, j_get_arch),
                                compute_dtype="float32")
     inp = _inputs()
     tokens, _, _ = _one_process(arch, max_len, chunks)
@@ -171,7 +178,7 @@ def ranks(tmp_path_factory):
         # the references (the one-process port's, then JAX's fed its
         # tokens) while the ranks run; "m4" shares "dm"'s
         refs = [pool.submit(_jax, a, *rk.SERVE[c][1:])
-                for a in ARCHS for c in ("dm", "U", "C")]
+                for a, c in CASES if c != "m4"]
         out = run_ranks(rk.all_cases, W, args=(inputs,), device=CPU,
                         transport="gloo", timeout=TIMEOUT,
                         workdir=str(tmp_path_factory.mktemp("serve-ranks")))
@@ -281,3 +288,22 @@ def test_gathered_cache_equals_the_jax_package(ranks, arch, case):
         else:
             _close(g, w, 1e-5, (arch, case, path))
     assert all(o["serve"][(arch, case)]["round_trip"] for o in out)
+
+
+@pytest.mark.parametrize("arch,case", SSM_CASES)
+def test_ssm_parts_run_head_parallel_where_their_heads_divide(ranks, arch,
+                                                               case):
+    """Every rank ran hymba's mamba part and the xLSTM cells head
+    parallel ("tp": its heads on its head block of the state, no state
+    gathered) exactly where the heads divide over the case's "model" axis
+    (xlstm's 2 on (data 2, model 2), the variant's 4 on both meshes),
+    else gathered (hymba-1.5b's 5; xlstm's 2 over 4)."""
+    _, out = ranks
+    cfg = rk.serve_cfg(arch)
+    M = MESHES[rk.SERVE[case][0]]["model"]
+    want = "tp" if cfg.num_heads % M == 0 else "gather"
+    for r, o in enumerate(out):
+        plan = o["serve"][(arch, case)]["plan"]
+        modes = {p[part] for p in plan.values() for part in ("mamba", "cell")
+                 if part in p}
+        assert modes == {want}, (arch, case, r, plan)

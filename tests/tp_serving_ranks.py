@@ -26,13 +26,26 @@ B, PLEN, TICKS = 4, 14, 8                  # decode passes the 16-slot rings
 #: positions, then 6 into the cache that holds them
 SERVE = dict(dm=("dm", 24, (14,)), m4=("m4", 24, (14,)),
              U=("dm", 23, (14,)), C=("m4", 24, (8, 6)))
+#: reduced configs besides the archs' own: ``name: (arch, changes)``.
+#: "hymba-h4": hymba with 4 heads (2 KV heads of 12), whose mamba heads
+#: divide over "model" of 2 and of 4
+VARIANTS = {"hymba-h4": ("hymba-1.5b", dict(
+    name="hymba-h4-reduced", num_heads=4, num_kv_heads=2, head_dim=12))}
+
+
+def reduced(arch, get=get_arch):
+    """The reduced config of ``arch``, or of a variant of
+    :data:`VARIANTS`, from ``get`` (this package's ``get_arch``, or the
+    JAX package's, whose configs have the same fields)."""
+    base, changes = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(get(base).reduced, **changes)
 
 
 def serve_cfg(arch):
     """The reduced ``arch`` in f32, as its cache paths run it (the "2d"
     profile where it says "dp")."""
     return transformer.serving_config(dataclasses.replace(
-        get_arch(arch).reduced, compute_dtype="float32"))
+        reduced(arch), compute_dtype="float32"))
 
 
 def chunk_of(batch, lo, hi):
@@ -157,16 +170,17 @@ def _partials_case(mesh, inp):
 
 
 def all_cases(world, inputs):
-    """Every case on this rank: the serving cases of ``SERVE`` on their
-    meshes (``inputs["meshes"]``), and the partials case on each mesh."""
+    """Every case on this rank: the serving cases ``inputs["cases"]``
+    ((arch, case of ``SERVE``)) on their meshes (``inputs["meshes"]``),
+    and the partials case on each mesh."""
     out = dict(rank=world.rank, serve={}, partials={})
     meshes = {name: ProcessMesh(CPU, axes=axes)
               for name, axes in inputs["meshes"].items()}
-    for case, (name, max_len, chunks) in SERVE.items():
-        for arch in inputs["archs"]:
-            out["serve"][(arch, case)] = _serve_case(
-                meshes[name], arch, inputs["params"][arch],
-                inputs["prompts"][arch], max_len, chunks)
+    for arch, case in inputs["cases"]:
+        name, max_len, chunks = SERVE[case]
+        out["serve"][(arch, case)] = _serve_case(
+            meshes[name], arch, inputs["params"][arch],
+            inputs["prompts"][arch], max_len, chunks)
     for name, mesh in meshes.items():
         with torch.no_grad():
             out["partials"][name] = _partials_case(mesh, inputs["partials"])
@@ -174,19 +188,48 @@ def all_cases(world, inputs):
     return out
 
 
-def census_cases(world, arch, axes, train, decode):
-    """The collectives this rank issues (``ProcessMesh.census``) in one
-    sharded train step and one decode step of the reduced ``arch`` (its
-    own types) on its blocks, at the shapes ``train`` and ``decode``
-    ((seq_len, global_batch) each), the cells the dry run traces."""
+def gather_log(mesh):
+    """Record every all-gather ``mesh`` issues: a list, growing, of
+    ``(axes of its group, shape and dtype of this rank's block)``, the
+    block as it goes out (a leaf or state gathered along dim d goes as
+    its block with d moved first, under a unit dim)."""
+    log = []
+    issue = mesh._all_gather_into
+
+    def record(out, t, group, axes):
+        log.append((mesh.group_axes(axes), tuple(t.shape), str(t.dtype)))
+        issue(out, t, group, axes)
+
+    mesh._all_gather_into = record
+    return log
+
+
+def census_cases(world, cases):
+    """For each case ``(arch, axes, train, decode)``: the collectives this
+    rank issues (``ProcessMesh.census``, and the all-gathers' blocks,
+    :func:`gather_log`) in one sharded train step and one decode step of
+    the reduced ``arch`` (its own types) on its blocks over ``axes``, at
+    the shapes ``train`` and ``decode`` ((seq_len, global_batch) each),
+    the cells the dry run traces."""
+    meshes = {}
+    out = dict(rank=world.rank)
+    for arch, axes, train, decode in cases:
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = ProcessMesh(CPU, axes=axes)
+        out[arch] = _census(meshes[key], arch, train, decode)
+    return out
+
+
+def _census(mesh, arch, train, decode):
     from repro_torch.configs import Shape, materialize_batch
     from repro_torch.models.params import init_blocks
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import train_step as ts_mod
 
-    mesh = ProcessMesh(CPU, axes=axes)
-    out = dict(rank=world.rank)
-    cfg = get_arch(arch).reduced
+    out = {}
+    log = gather_log(mesh)
+    cfg = reduced(arch)
     S, Bt = train
     shape = Shape("census", S, Bt, "train")
     specs = transformer.model_specs(cfg)
@@ -201,8 +244,10 @@ def census_cases(world, arch, axes, train, decode):
     step = ts_mod.make_train_step(cfg, opt_mod.OptConfig(master_fp32=master),
                                   mesh=mesh)
     mesh.reset_census()
+    log.clear()
     step(params, opt, batch)
     out["train"] = mesh.census()
+    out["train_gathers"] = list(log)
     scfg, sspecs, splace = transformer.serving_layout(cfg, mesh)
     S, Bd = decode
     params = init_blocks(sspecs, 0, splace, mesh, CPU)
@@ -212,7 +257,10 @@ def census_cases(world, arch, axes, train, decode):
                             device=CPU)["tokens"]
     tok = local_rows(tok.numpy(), mesh, scfg)
     mesh.reset_census()
+    log.clear()
     with torch.no_grad(), sharding.use_mesh(mesh):
         transformer.decode_step(params, scfg, tok, S - 1, cache)
     out["decode"] = mesh.census()
+    out["decode_gathers"] = list(log)
+    out["plan"] = sharding.tp_plan(scfg, mesh)
     return out
